@@ -10,7 +10,13 @@ unchanged: ``{i}.w`` / ``{i}.b`` for BaseNet; ``pts.{i}.w``, ``views.0.w``,
 
 ``forward(x, dtype=None)`` runs in fp32; ``dtype=torch.bfloat16`` rounds
 each layer's input and weight to bf16 and accumulates in fp32, as the JAX
-``_dense`` does with ``preferred_element_type=float32``.
+``_dense`` does with ``preferred_element_type=float32``. Under autograd the
+casts' backward rounds the cotangents to bf16, as JAX's ``astype`` does.
+
+``get_model`` builds a stage's module from the config and ``init_params``
+initializes the modules from one seed: the distributions of the JAX
+package's init (kaiming-normal trunk weights, torch Linear defaults
+elsewhere), drawn from a ``torch.Generator``, so not its numbers.
 """
 
 from __future__ import annotations
@@ -109,6 +115,12 @@ class BaseNetDef(nn.Module):
         for i, (a, b) in enumerate(self.layer_dims()):
             self.add_module(str(i), Dense(a, b))
 
+    @property
+    def name(self) -> str:
+        """Checkpoint file name stem, as the JAX package names it."""
+        s = self.skip.replace(':', '.') if self.skip else ''
+        return f"relu{self.net_idx}({self.width}x{self.depth}{s})"
+
     def layer_dims(self) -> List[Tuple[int, int]]:
         locs = self.input_locations
         dims = [(locs[0][1] - locs[0][0], self.width)]
@@ -161,6 +173,11 @@ class NeRFDef(nn.Module):
         self.alpha = Dense(W, 1)
         self.rgb = Dense(W // 2, 3)
 
+    @property
+    def name(self) -> str:
+        """Checkpoint file name stem, as the JAX package names it."""
+        return f"NeRF{self.net_idx}({self.width}x{self.depth}{list(self.skips)})"
+
     def reset_parameters(self, generator: torch.Generator):
         for layer in list(self.pts) + list(self.views):
             layer.reset(generator, kaiming=True)
@@ -190,3 +207,36 @@ class NeRFDef(nn.Module):
             total += ((W + self.input_ch) if i in self.skips else W) * W
         total += (self.input_ch_views + W) * (W // 2)
         return total + W * W + W + (W // 2) * 3
+
+
+def get_model(config, n_in: int, n_out: int, model_idx: int) -> nn.Module:
+    """Model factory: activation 'relu' -> BaseNetDef, 'nerf' -> NeRFDef
+    with view directions."""
+    i = model_idx
+    act = config.activation[i]
+    ray_march_nerf = (config.posEnc and config.posEnc[i] == "nerf"
+                      and "RayMarch" in config.inFeatures[i])
+    if act == "relu":
+        skip = config.skips[i].strip() if i < len(config.skips) else ""
+        if "auto" in skip:
+            skip = auto_skip(skip, config.layers[i], config.posEncArgs[i]) \
+                if ray_march_nerf else ""
+        return BaseNetDef(config.layers[i], config.layerWidth[i], n_in, n_out, skip, net_idx=i)
+    if act == "nerf":
+        skip_str = config.skips[i] if i < len(config.skips) else "auto"
+        skips = (4,) if 'auto' in skip_str else (int(skip_str),)
+        input_ch, input_ch_views = 3, 3
+        if ray_march_nerf:
+            freq = config.posEncArgs[i].split('-')
+            input_ch, input_ch_views = int(freq[0]) * 6 + 3, int(freq[1]) * 6 + 3
+        return NeRFDef(config.layers[i], config.layerWidth[i], input_ch, input_ch_views,
+                       n_out, skips, net_idx=i)
+    raise ValueError(f"Unknown activation {act}")
+
+
+def init_params(models, seed: int = 0):
+    """Initialize every module in place from one seeded generator."""
+    generator = torch.Generator().manual_seed(seed)
+    for model in models:
+        model.reset_parameters(generator)
+    return models

@@ -9,22 +9,16 @@ from __future__ import annotations
 
 from functools import partial
 
-import numpy as np
 import torch
-
-
-def freq_bands(n_freqs: int) -> np.ndarray:
-    """2^linspace(0, n_freqs-1) as float32."""
-    if n_freqs <= 0:
-        return np.zeros((0,), dtype=np.float32)
-    return (2.0 ** np.linspace(0.0, n_freqs - 1, n_freqs)).astype(np.float32)
 
 
 def positional_encode(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
     """x: (..., C) -> (..., C * (2*n_freqs + 1)); layout [x, sin f0, cos f0, ...]."""
     if n_freqs <= 0:
         return x
-    bands = torch.as_tensor(freq_bands(n_freqs), device=x.device)
+    # the powers of two made on x's device (exact), not copied from the host
+    bands = torch.ldexp(torch.ones(n_freqs, device=x.device),
+                        torch.arange(n_freqs, device=x.device))
     lead, C = x.shape[:-1], x.shape[-1]
     F = int(n_freqs)
     xf = (x[..., None, :] * bands[:, None]).reshape(*lead, F, 1, C)

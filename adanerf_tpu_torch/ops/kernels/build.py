@@ -1,6 +1,7 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
-Each source under ``adanerf_tpu_torch/csrc/`` compiles on its own into a
+Each ``.cu`` source under ``adanerf_tpu_torch/csrc/`` compiles on its own
+(with ``csrc/`` on the include path for the shared ``.cuh`` headers) into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), cached in ``adanerf_tpu_torch/_build/`` under a hash of the
 source and the flags. Sources build in parallel, one ``nvcc`` each.
@@ -42,15 +43,20 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    """Cache path of ``source``'s library: a hash of its text and the flags."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Cache path of ``source``'s library: a hash of its text, the shared
+    headers of ``csrc/`` and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest[:16]}.so")
 
 
 def nvcc_command(nvcc: str, source: str, out: str) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", out, os.path.join(CSRC_DIR, source)]
+    return [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", out, os.path.join(CSRC_DIR, source)]
 
 
 def build(sources: List[str]) -> Dict[str, str]:

@@ -64,3 +64,15 @@ _SWITCH = {
 
 def get_normalization(name):
     return _SWITCH.get(name)
+
+
+# experiment-name abbreviation of each normalization
+_ABBR = {
+    None: "", "None": "_nN", "Centered": "_nC", "MaxDepth": "",
+    "MaxDepthCentered": "_nMdC", "LogCentered": "_nL",
+    "InverseDistCentered": "_nD", "InverseSqrtDistCentered": "_nSD",
+}
+
+
+def get_normalization_abbr(name):
+    return _ABBR.get(name)

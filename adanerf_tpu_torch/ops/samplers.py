@@ -1,7 +1,8 @@
 """Z-samplers of the render path.
 
 Counterpart of ``adanerf_tpu/ops/samplers.py``: ``linearly_spaced_z``,
-``adaptive_select`` and its literal twin ``adaptive_select_reference``.
+``perturb_z``, ``adaptive_select`` and its literal twin
+``adaptive_select_reference``.
 Thresholds apply to the oracle's raw logits (the cascade never sigmoids the
 oracle output). Selection rule: keep at most ``max_samples`` bins with value
 >= threshold, highest value first, ties to the lower bin; if no bin passes,
@@ -28,11 +29,23 @@ def linearly_spaced_z(n_rays: int, z_near: float, z_far: float, n_samples: int,
     return z.expand(n_rays, n_samples)
 
 
+def perturb_z(z_vals: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Stratified jitter between sample midpoints; the uniform draws come
+    from ``generator`` (on the device of ``z_vals``)."""
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+    lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+    t_rand = torch.rand(z_vals.shape, generator=generator, device=z_vals.device)
+    return lower + (upper - lower) * t_rand
+
+
 def adaptive_select_reference(depth: torch.Tensor, max_samples: int,
                               threshold: float):
     """Literal form: stable descending sort prefix, threshold test, empty-ray
     argmax fallback, ascending re-sort. depth: (rays, disc).
-    Returns (z_unit, z_probs, mask), each (rays, max_samples)."""
+    Returns (z_unit, z_probs, mask), each (rays, max_samples); no gradient
+    reaches ``depth``."""
+    depth = depth.detach()
     disc = depth.shape[-1]
     cell_size = 1.0 / disc
     vals, idx = torch.sort(depth, dim=-1, descending=True, stable=True)
@@ -78,7 +91,9 @@ def select_keep(depth: torch.Tensor, max_samples: int, threshold: float) -> torc
 def adaptive_select(depth: torch.Tensor, max_samples: int, threshold: float):
     """Sort-free adaptive select with the semantics of
     ``adaptive_select_reference``: the kept bins are already in ascending
-    order, so slot s holds the (s+1)-th kept bin."""
+    order, so slot s holds the (s+1)-th kept bin. Carries no gradient to
+    ``depth``, as the JAX version stops it."""
+    depth = depth.detach()
     n_rays, disc = depth.shape
     cell_size = 1.0 / disc
     keep = select_keep(depth, max_samples, threshold)

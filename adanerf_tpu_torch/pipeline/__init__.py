@@ -1,1 +1,1 @@
-"""Scene constants shared by the render path."""
+"""The feature pipeline, the model cascade and the losses."""

@@ -1,1 +1,1 @@
-"""Host-side helpers."""
+"""Host-side helpers: weight and optimizer-state conversion, experiment names."""

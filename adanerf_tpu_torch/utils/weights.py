@@ -1,10 +1,13 @@
-"""Carry weights across from the JAX package.
+"""Carry weights and optimizer state across to and from the JAX package.
 
-Both functions fill a module of ``adanerf_tpu_torch.models.mlp`` from the
-JAX layout, where parameters are ``(in, out)`` matrices under flat dotted
-keys (``0.w``, ``pts.5.w``, ``views.0.b``, ...): ``from_jax_params`` takes
-the JAX parameter pytree converted to numpy, ``load_export_weights`` reads
-an exported ``model{0,1}.weights`` npz file.
+In the JAX layout parameters are ``(in, out)`` matrices under flat dotted
+keys (``0.w``, ``pts.5.w``, ``views.0.b``, ...), which the port's modules
+use as their ``state_dict`` keys. ``from_jax_params`` fills a module from
+the JAX parameter pytree converted to numpy, ``load_export_weights`` from
+an exported ``model{0,1}.weights`` npz file, and ``to_flat`` goes the other
+way. Adam's state (``optax.scale_by_adam``) flattens to ``.count``,
+``.mu.<key>`` and ``.nu.<key>``, the names the JAX checkpoints use
+(``adam_to_flat`` / ``adam_from_flat``).
 """
 
 from __future__ import annotations
@@ -57,3 +60,36 @@ def load_export_weights(model_def: torch.nn.Module, path: str) -> torch.nn.Modul
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     return load_flat(model_def, flat)
+
+
+def to_flat(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """A module's parameters as {dotted-key: fp32 numpy array}."""
+    return {k: v.detach().to("cpu", torch.float32).numpy() for k, v in module.state_dict().items()}
+
+
+def adam_to_flat(state) -> Dict[str, np.ndarray]:
+    """An ``AdamState`` as the JAX checkpoint's flat dict: ``.count``
+    (int32), ``.mu.<key>``, ``.nu.<key>`` (fp32)."""
+    flat = {".count": np.asarray(int(state.count), np.int32)}
+    for k, v in state.mu.items():
+        flat[f".mu.{k}"] = v.detach().to("cpu", torch.float32).numpy()
+    for k, v in state.nu.items():
+        flat[f".nu.{k}"] = v.detach().to("cpu", torch.float32).numpy()
+    return flat
+
+
+def adam_from_flat(state, flat: Dict[str, np.ndarray]):
+    """Fill an ``AdamState`` in place from the JAX checkpoint's flat dict
+    (keys and shapes must match exactly)."""
+    want = {".count"} | {f".mu.{k}" for k in state.mu} | {f".nu.{k}" for k in state.nu}
+    if set(flat) != want:
+        raise KeyError(f"optimizer keys differ: missing {sorted(want - set(flat))}, "
+                       f"unexpected {sorted(set(flat) - want)}")
+    for prefix, moments in ((".mu.", state.mu), (".nu.", state.nu)):
+        for k, v in moments.items():
+            arr = np.asarray(flat[prefix + k], np.float32)
+            if tuple(arr.shape) != tuple(v.shape):
+                raise ValueError(f"{prefix + k}: shape {arr.shape} != {tuple(v.shape)}")
+            v.copy_(torch.from_numpy(arr.copy()))
+    state.count = int(np.asarray(flat[".count"]))
+    return state

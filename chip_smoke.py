@@ -4,12 +4,13 @@
   python3 chip_smoke.py
 
 Builds the CUDA kernels from the checkout, holds each against its plain
-PyTorch version on the card, drives the port's main path (the viewer
-rendering a trained export through the kernel) and prints, as its last two
-lines, a JSON line of per-kernel numbers and a JSON line
-``{"ok": true, "device": {...}}``. Exits non-zero, without those lines, when
-there is no CUDA device or any phase fails. Imports torch, numpy and the
-standard library besides the port itself.
+PyTorch version on the card, drives the port's two paths (the viewer
+rendering a trained export through K1, and the dense trainer taking a few
+steps through K3) and prints, as its last two lines, a JSON line of
+per-kernel numbers and a JSON line ``{"ok": true, "device": {...}}``. Exits
+non-zero, without those lines, when there is no CUDA device or any phase
+fails. Imports torch, numpy and the standard library besides the port
+itself.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -27,6 +29,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MSCENE = os.path.join(ROOT, "demo", "trained_mscene_export")
 NDC = os.path.join(ROOT, "demo", "trained_ndc_export")
+MSCENE_DATA = os.path.join(ROOT, "demo", "mscene")
+DENSE_INI = os.path.join(ROOT, "configs", "dense_training.ini")
+K3_ROWS = 2 * 2048 * 128  # batchImages x samples x numRaymarchSamples of the dense config
+TRAIN_WARMUP, TRAIN_TIMED = 3, 30
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and the bf16
 # tensor-core and fp32 FMA operation rates
@@ -83,14 +89,50 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def encoded_samples(n_rays, seed, dev):
+    """NeRF inputs as the dense train step makes them: 128 log-spaced depths
+    along rays from inside the mscene view cell, InverseSqrtDistCentered,
+    encoded 10-4; directions and origins from a numpy seed."""
+    from adanerf_tpu_torch.ops.depth_transforms import LogTransform
+    from adanerf_tpu_torch.ops.encoding import positional_encode
+    from adanerf_tpu_torch.ops.normalization import get_normalization
+    from adanerf_tpu_torch.ops.samplers import linspace_midpoints
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((n_rays, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.array([0.0, 0.0, 3.0]) + rng.uniform(-0.6, 0.6, (n_rays, 3))
+    z = LogTransform.to_world(linspace_midpoints(128).astype(np.float64), (0.1, 8.0))
+    pos = torch.tensor(o[:, None, :] + d[:, None, :] * z[None, :, None], dtype=torch.float32,
+                       device=dev)
+    pos = get_normalization("InverseSqrtDistCentered")(
+        pos, torch.tensor([0.0, 0.0, 3.0], device=dev), 8.0)
+    dirs = torch.tensor(d, dtype=torch.float32, device=dev)[:, None, :].expand(pos.shape)
+    return torch.cat([positional_encode(pos.reshape(-1, 3), 10),
+                      positional_encode(dirs.reshape(-1, 3), 4)], dim=-1).contiguous()
+
+
+def grad_errors(ref, got):
+    """{name: (max |ref - got| / max |ref|, max |ref - got|)} over two
+    {name: tensor} dicts."""
+    out = {}
+    for k, a in ref.items():
+        diff = float((a - got[k]).abs().max())
+        out[k] = (diff / (float(a.abs().max()) + 1e-12), diff)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from adanerf_tpu_torch import viewer
+    from adanerf_tpu_torch import train, viewer
+    from adanerf_tpu_torch.models.mlp import NeRFDef
     from adanerf_tpu_torch.ops.kernels import build
+    from adanerf_tpu_torch.ops.kernels import nerf_train
     from adanerf_tpu_torch.ops.kernels.megakernel_compact import SOURCE, MegakernelCompact
+    from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel
+    from adanerf_tpu_torch.utils.weights import load_export_weights
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -108,7 +150,7 @@ def main():
 
     t = time.perf_counter()
     phase("2 build")
-    logs = build.build([SOURCE])
+    logs = build.build([SOURCE, nerf_train.SOURCE])
     for src, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -150,7 +192,7 @@ def main():
     t = time.perf_counter()
     phase("6 main path: viewer, trained_mscene_export, 800x800, 20 frames, bf16")
     MegakernelCompact.launches = 0
-    stats = viewer.main([MSCENE, "-s", "800", "800", "-n", "20", "--logging_interval", "10"])
+    stats_view = viewer.main([MSCENE, "-s", "800", "800", "-n", "20", "--logging_interval", "10"])
     launches = MegakernelCompact.launches
     print(f"  main path: megakernel_compact launches {launches}", flush=True)
     if launches < 1:
@@ -197,7 +239,196 @@ def main():
           f"{ops / PEAK_OPS['fp32'] * 1e3:.3f} ms", flush=True)
     done("7", t)
 
-    phase("8 kernels")
+    t = time.perf_counter()
+    phase(f"8 K3 vs plain at the train step's shape ({K3_ROWS} rows, NeRF 8x256, bf16)")
+    nerf = load_export_weights(NeRFDef(), os.path.join(MSCENE, "model1.weights")).to(dev)
+    k3 = NerfTrainKernel(nerf)
+    x = encoded_samples(K3_ROWS // 128, 8, dev)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal((K3_ROWS, 4)).astype(
+        np.float32)).to(dev) / (K3_ROWS * 4)  # the cotangent scale of a mean loss
+    names = [n for n, _ in nerf.named_parameters()]
+    leaves = [p for _, p in nerf.named_parameters()]
+
+    def k3_grads(fn):
+        xr = x.clone().requires_grad_(True)
+        out = fn(xr)
+        gr = torch.autograd.grad(out, [xr] + leaves, g)
+        return out.detach(), dict(zip(["x"] + names, gr))
+
+    out_k, gk = k3_grads(k3)
+    out_p, gp = k3_grads(k3.plain)
+    torch.cuda.synchronize()
+    fwd_abs = float((out_k - out_p).abs().max())
+    fwd_rel = fwd_abs / float(out_p.abs().max())
+    errs = grad_errors(gp, gk)
+    worst = max((v[0], k) for k, v in errs.items())
+    dx_abs = errs["x"][1]
+    bwd_abs = max(v[1] for v in errs.values())
+    # With the trained weights the TPU kernel's absolute bars do not carry
+    # over, so they are held relative to this input's scale: forward 4e-3
+    # (set for O(1) outputs; the trained net's alpha logits reach the
+    # hundreds, and a bf16 rounding flip moves a value in proportion) of
+    # max |out|, and every gradient leaf, dX included, within 2e-2 of its
+    # max |ref|. The absolute bars themselves are held below, on the inputs
+    # they were set for.
+    dx_rel = (gk["x"] - gp["x"]).abs() / float(gp["x"].abs().max())
+    print(f"  forward: max abs err {fwd_abs:.3e}, relative to max |out| {float(out_p.abs().max()):.2f}: "
+          f"{fwd_rel:.3e} (allowed 4e-3)", flush=True)
+    print(f"  grads: worst leaf {worst[1]} rel {worst[0]:.3e} (allowed 2e-2); dX rel "
+          f"{errs['x'][0]:.3e}, max abs err {dx_abs:.3e}, max |dX| {float(gp['x'].abs().max()):.3e}; "
+          f"dX elements beyond 2e-2 of max {int((dx_rel > 2e-2).sum())} in "
+          f"{int((dx_rel > 2e-2).any(1).sum())} rows", flush=True)
+    if not (fwd_rel <= 4e-3 and worst[0] <= 2e-2):
+        raise SystemExit("K3 disagrees with its plain version")
+    del dx_rel
+    # tools/check_train_kernel_grads.py's own setup, where its absolute dX
+    # bar was set: seeded initial weights, x and targets standard normal, the
+    # grads of mean((out - t)^2); parameter leaves within 2e-2 of their max
+    # |ref| and dX within 1e-6 absolute, its bars. That tool holds no
+    # forward bar; the forward is held as above, within 4e-3 of max |out|
+    # (at 524,288 rows of standard normal inputs the largest bf16 rounding
+    # flip moves an output by more than 4e-3 absolute).
+    init = NeRFDef()
+    init.reset_parameters(torch.Generator().manual_seed(0))
+    init = init.to(dev)
+    k3i = NerfTrainKernel(init)
+    rng = np.random.default_rng(1)
+    xi = torch.from_numpy(rng.standard_normal((K3_ROWS, 90)).astype(np.float32)).to(dev)
+    ti = torch.from_numpy(rng.standard_normal((K3_ROWS, 4)).astype(np.float32)).to(dev)
+    leaves_i = list(init.parameters())
+
+    def mse_grads(fn):
+        xr = xi.clone().requires_grad_(True)
+        out = fn(xr)
+        gr = torch.autograd.grad(torch.mean((out - ti) ** 2), [xr] + leaves_i)
+        return out.detach(), dict(zip(["x"] + names, gr))
+
+    oi_k, gi_k = mse_grads(k3i)
+    oi_p, gi_p = mse_grads(k3i.plain)
+    errs_i = grad_errors(gi_p, gi_k)
+    worst_i = max((v[0], k) for k, v in errs_i.items() if k != "x")
+    fwd_i = float((oi_k - oi_p).abs().max())
+    fwd_i_rel = fwd_i / float(oi_p.abs().max())
+    print(f"  the JAX check's setup (init weights, normal x and targets, MSE): forward max abs "
+          f"err {fwd_i:.3e}, relative to max |out| {float(oi_p.abs().max()):.2f}: "
+          f"{fwd_i_rel:.3e} (allowed 4e-3); worst "
+          f"parameter leaf {worst_i[1]} rel {worst_i[0]:.3e} (allowed 2e-2); dX max abs err "
+          f"{errs_i['x'][1]:.3e} (allowed 1e-6), max |dX| {float(gi_p['x'].abs().max()):.3e}",
+          flush=True)
+    if not (fwd_i_rel <= 4e-3 and worst_i[0] <= 2e-2 and errs_i["x"][1] <= 1e-6):
+        raise SystemExit("K3 disagrees with its plain version on the JAX check's setup")
+    del init, k3i, xi, ti, leaves_i, oi_k, oi_p, gi_k, gi_p
+    named = dict(nerf.named_parameters())
+    wts, bias = k3.pack(named, dev)
+    shapes = [(n, tuple(p.shape)) for n, p in nerf.named_parameters()]
+    ms_k3f = time_ms(lambda: k3.forward_kernel(x, wts, bias), 5)
+    ms_k3b = time_ms(lambda: k3.backward_kernel(x, g, wts, bias, shapes), 3)
+    with torch.no_grad():
+        ms_pf = time_ms(lambda: k3.plain(x), 5)
+    xr = x.clone().requires_grad_(True)
+    out_graph = k3.plain(xr)
+    ms_pb = time_ms(lambda: torch.autograd.grad(out_graph, [xr] + leaves, g, retain_graph=True), 3)
+    del out_graph
+    macs = nerf.macs_per_input()
+    ops_f = 2.0 * K3_ROWS * macs
+    ops_b = 3.0 * ops_f  # recompute, the dX chain, dW
+    nbytes_w = sum(p.numel() for p in leaves) * 4
+    bytes_f = K3_ROWS * (90 + 4) * 4 + nbytes_w
+    bytes_b = K3_ROWS * (90 + 4 + 90) * 4 + 2 * nbytes_w
+    k3_bounds = {}
+    for key, ops, nbytes in (("fwd", ops_f, bytes_f), ("bwd", ops_b, bytes_b)):
+        bo, bb = ops / PEAK_OPS["bf16"] * 1e3, nbytes / HBM_BPS * 1e3
+        k3_bounds[key] = (max(bo, bb), "operations" if bo >= bb else "bytes",
+                          ops / PEAK_OPS["fp32"] * 1e3)
+    scratch_bytes = 2 * K3_ROWS * 2 * (nerf.depth * 256 + 256 + 128)
+    print(f"  K3 forward {ms_k3f:.3f} ms ({ops_f / ms_k3f / 1e9:.1f} TFLOP/s), backward "
+          f"{ms_k3b:.3f} ms ({ops_b / ms_k3b / 1e9:.1f} TFLOP/s); plain forward {ms_pf:.3f} ms, "
+          f"plain backward {ms_pb:.3f} ms", flush=True)
+    print(f"  bounds: forward {k3_bounds['fwd'][0]:.3f} ms, backward {k3_bounds['bwd'][0]:.3f} ms "
+          f"(bf16 peak; fp32 FMA {k3_bounds['fwd'][2]:.2f} / {k3_bounds['bwd'][2]:.2f} ms); the "
+          f"backward's scratch ({scratch_bytes / 1e9:.2f} GB written and read) alone takes "
+          f"{2 * scratch_bytes / HBM_BPS * 1e3:.2f} ms", flush=True)
+    del x, g, gk, gp, out_k, out_p, wts, bias
+    torch.cuda.empty_cache()
+    done("8", t)
+
+    t = time.perf_counter()
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    phase(f"9 main path: train, dense_training.ini on demo/mscene, bf16, {steps} steps")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_logs_") as log_dir:
+        argv = ["-c", DENSE_INI, "-data", MSCENE_DATA, "-log", log_dir, "--bf16",
+                "--epochs", str(1 + steps), "--randomSeed", "0",
+                "--epochsLockWeightsBefore", "-1", "--epochsLockWeightsBefore", "-1",
+                "--epochsRender", "1000000", "--epochsValidate", "1000000",
+                "--epochsCheckpoint", "1000000", "--no-performEvaluation",
+                "--verboseEvery", "10"]
+        NerfTrainKernel.forward_launches = NerfTrainKernel.backward_launches = 0
+        stats = train.main(argv)
+        k3_launches = (NerfTrainKernel.forward_launches, NerfTrainKernel.backward_launches)
+        ts = stats["state"]
+        mse = stats["losses"][:, 1]
+        step_ms = stats["step_ms"][TRAIN_WARMUP:]
+        train_ms = float(np.mean(step_ms))
+        print(f"  K3 launches on the main path: forward {k3_launches[0]}, backward "
+              f"{k3_launches[1]} ({steps} steps)", flush=True)
+        print(f"  train step {train_ms:.3f} ms (mean of {len(step_ms)}; median "
+              f"{float(np.median(step_ms)):.3f}, min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
+              f"{K3_ROWS / train_ms / 1e3:.3f} M shading rows/s", flush=True)
+        print(f"  MSE mean of the first 10 steps {float(mse[:10].mean()):.6f}, of the last 10 "
+              f"{float(mse[-10:].mean()):.6f}; all losses finite: "
+              f"{bool(np.isfinite(stats['losses']).all())}", flush=True)
+        print(f"  checkpoint: {[os.path.basename(p) for p in stats['checkpoint']]}", flush=True)
+        if k3_launches != (steps, steps):
+            raise SystemExit(f"the train path launched K3 {k3_launches} times, expected {steps}")
+        if not (np.isfinite(stats["losses"]).all() and mse[-10:].mean() < mse[:10].mean()):
+            raise SystemExit("training loss did not fall or is not finite")
+        if not all(os.path.exists(p) for p in stats["checkpoint"]):
+            raise SystemExit("the final checkpoint is missing")
+        # one step's grads through K3 and through the plain path, same
+        # params and batch (no update is applied)
+        batch, targets = ts.assemble_train_batch(ts.train_dataset, np.array([0, 1]))
+        _, grads_k = ts.make_loss_and_grads()(batch, targets, steps + 1)
+        ts.config_file.fusedTrainKernel = 0
+        _, grads_p = ts.make_loss_and_grads()(batch, targets, steps + 1)
+        step_errs = {}
+        for i, m in enumerate(ts.models):
+            for k, (rel, _) in grad_errors(grads_p[i], grads_k[i]).items():
+                step_errs[f"{m.name}.{k}"] = rel
+        worst_step = max((v, k) for k, v in step_errs.items())
+        print(f"  train step grads, K3 vs plain: worst leaf {worst_step[1]} rel "
+              f"{worst_step[0]:.3e} (allowed 2e-2)", flush=True)
+        if not worst_step[0] <= 2e-2:
+            raise SystemExit("the train step's grads through K3 disagree with the plain path")
+        # where a step's device time goes: 3 more steps through K3 under the
+        # profiler, counting device-side events only (an aten op's "self"
+        # device time repeats its kernels')
+        ts.config_file.fusedTrainKernel = 1
+        step = ts.make_train_step()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t_prof = time.perf_counter()
+            for epoch in range(steps + 2, steps + 5):
+                step(batch, targets, epoch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t_prof) * 1e3 / 3
+        kernels = sorted(((e.self_device_time_total / 1e3 / 3, e.key) for e in prof.key_averages()
+                          if e.self_device_time_total > 0 and e.device_type.name == "CUDA"),
+                         reverse=True)
+        device_ms = sum(ms for ms, _ in kernels)
+        k3_ms = sum(ms for ms, name in kernels if "k3_" in name)
+        if device_ms > 0:
+            print(f"  profiled step (3 steps): device busy {device_ms:.3f} ms of {wall_ms:.3f} ms "
+                  f"wall ({100 * device_ms / wall_ms:.1f}%, profiler on); K3 kernels "
+                  f"{k3_ms:.3f} ms, the rest {device_ms - k3_ms:.3f} ms", flush=True)
+            for ms, name in kernels[:12]:
+                print(f"    {ms:9.3f} ms  {name[:90]}", flush=True)
+        else:
+            print("  profiled step: the profiler recorded no device time (not measured)", flush=True)
+        del ts, stats, batch, targets, grads_k, grads_p, step, prof
+    done("9", t)
+
+    phase("10 kernels")
     print(json.dumps({"kernels": [{
         "name": "megakernel_compact", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_compact.cu",
@@ -206,9 +437,22 @@ def main():
         "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
         "library_ms": None,
-        "viewer_device_ms": stats["device_ms_per_frame"],
-        "viewer_device_ms_median": stats["device_ms_median"],
-        "samples_per_pixel": n_samp / n_pix}]}), flush=True)
+        "viewer_device_ms": stats_view["device_ms_per_frame"],
+        "viewer_device_ms_median": stats_view["device_ms_median"],
+        "samples_per_pixel": n_samp / n_pix}, {
+        "name": "nerf_train_forward", "route": "cuda",
+        "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
+        "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
+        "launches": k3_launches[0], "max_abs_err": fwd_abs, "rel_err": fwd_rel,
+        "ms": ms_k3f, "plain_ms": ms_pf, "bound_ms": k3_bounds["fwd"][0],
+        "bound_by": k3_bounds["fwd"][1], "library_ms": None, "rows": K3_ROWS}, {
+        "name": "nerf_train_backward", "route": "cuda",
+        "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
+        "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
+        "launches": k3_launches[1], "max_abs_err": bwd_abs, "worst_leaf_rel_err": worst[0],
+        "dx_max_abs_err": dx_abs, "jax_check_dx_max_abs_err": errs_i["x"][1], "ms": ms_k3b, "plain_ms": ms_pb,
+        "bound_ms": k3_bounds["bwd"][0], "bound_by": k3_bounds["bwd"][1], "library_ms": None,
+        "rows": K3_ROWS, "train_step_ms": train_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

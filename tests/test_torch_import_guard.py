@@ -1,7 +1,7 @@
 """The port imports nothing of JAX or of the JAX package: the machine that
-runs it on the GPU has no jax, optax, imageio or matplotlib, and modules of
-adanerf_tpu import jax indirectly (adanerf_tpu/platform.py, the package
-__init__ files) or matplotlib (adanerf_tpu/utils/saveimage.py)."""
+runs it on the GPU has no jax, optax, imageio, matplotlib or tqdm, and
+modules of adanerf_tpu import jax indirectly (adanerf_tpu/platform.py, the
+package __init__ files) or matplotlib (adanerf_tpu/utils/saveimage.py)."""
 
 import ast
 import os
@@ -9,7 +9,7 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "adanerf_tpu", "optax", "imageio", "matplotlib")
+FORBIDDEN = ("jax", "jaxlib", "adanerf_tpu", "optax", "imageio", "matplotlib", "tqdm")
 
 
 def _port_files():

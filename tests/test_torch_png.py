@@ -1,0 +1,108 @@
+"""The port's PNG decoder (adanerf_tpu_torch/data/png.py) against imageio,
+bit for bit: every training image of demo/mscene (RGB, 400x400, mostly
+Paeth-filtered rows), written RGBA and RGB images covering all five row
+filters, and the formats it refuses."""
+
+import glob
+import os
+import zlib
+
+import numpy as np
+import pytest
+
+import imageio.v2 as imageio
+
+from adanerf_tpu_torch.data.png import read_png, read_pngs, unfilter
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRAIN_PNGS = sorted(glob.glob(os.path.join(ROOT, "demo", "mscene", "train", "*.png")))
+
+
+@pytest.fixture(scope="module")
+def decoded():
+    return dict(zip(TRAIN_PNGS, read_pngs(TRAIN_PNGS)))
+
+
+def test_mscene_has_training_images():
+    assert len(TRAIN_PNGS) == 36
+
+
+@pytest.mark.parametrize("path", TRAIN_PNGS, ids=os.path.basename)
+def test_mscene_train_png_matches_imageio(decoded, path):
+    ref = imageio.imread(path)
+    got = decoded[path]
+    assert got.dtype == np.uint8 and got.shape == ref.shape == (400, 400, 3)
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_written_png_round_trips(tmp_path, channels):
+    img = np.random.default_rng(channels).integers(0, 256, (19, 23, channels), dtype=np.uint8)
+    path = str(tmp_path / "img.png")
+    imageio.imwrite(path, img)
+    np.testing.assert_array_equal(read_png(path), img)
+    np.testing.assert_array_equal(read_png(path), imageio.imread(path))
+
+
+def _filter_row(kind, row, prev, bpp):
+    """Encoder side of the five PNG filters, per byte (ints)."""
+    out = []
+    for i, v in enumerate(row):
+        a = row[i - bpp] if i >= bpp else 0
+        b = prev[i]
+        c = prev[i - bpp] if i >= bpp else 0
+        if kind == 0:
+            pred = 0
+        elif kind == 1:
+            pred = a
+        elif kind == 2:
+            pred = b
+        elif kind == 3:
+            pred = (a + b) // 2
+        else:
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        out.append((v - pred) % 256)
+    return out
+
+
+def test_every_filter_type_unfilters():
+    rng = np.random.default_rng(7)
+    h, w, bpp = 10, 9, 3
+    img = rng.integers(0, 256, (h, w, bpp), dtype=np.uint8)
+    raw = []
+    prev = [0] * (w * bpp)
+    for r in range(h):
+        row = [int(v) for v in img[r].reshape(-1)]
+        kind = r % 5
+        raw.append([kind] + _filter_row(kind, row, prev, bpp))
+        prev = row
+    got = unfilter(np.array(raw, np.uint8), bpp)
+    np.testing.assert_array_equal(got, img)
+
+
+def _png(width, height, depth, colour, interlace=0):
+    import struct
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body) & 0xffffffff)
+    ihdr = struct.pack(">IIBBBBB", width, height, depth, colour, 0, 0, interlace)
+    data = zlib.compress(b"\0" * (height * (1 + width * 8)))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", data)
+            + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("depth,colour,interlace,words", [
+    (8, 0, 0, "colour type 0 (greyscale)"),
+    (8, 3, 0, "colour type 3 (palette)"),
+    (16, 2, 0, "bit depth 16"),
+    (8, 2, 1, "interlace 1"),
+])
+def test_other_formats_raise_naming_them(tmp_path, depth, colour, interlace, words):
+    path = tmp_path / "x.png"
+    path.write_bytes(_png(4, 3, depth, colour, interlace))
+    with pytest.raises(ValueError, match="unsupported PNG format") as err:
+        read_png(str(path))
+    assert words in str(err.value)
