@@ -1,2 +1,3 @@
-"""Data layer of the port: PNG decoding, the view-cell dataset, pixel
-sampling and batch prefetching (numpy on the host)."""
+"""Data layer of the port: PNG decoding and encoding, camera paths, the
+view-cell dataset, pixel sampling and batch prefetching (numpy on the
+host)."""

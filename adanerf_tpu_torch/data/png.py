@@ -1,10 +1,11 @@
-"""A PNG decoder on the standard library's ``zlib`` and numpy.
+"""A PNG decoder and encoder on the standard library's ``zlib`` and numpy.
 
 The JAX package decodes its scene images with libpng (``native/
-dataloader.cpp``) or imageio; the machine that trains the port on the GPU
-has neither. This decoder reads the formats the scenes use: 8-bit RGB
-(colour type 2) and RGBA (colour type 6), not interlaced. Any other PNG
-raises a ``ValueError`` that names its format.
+dataloader.cpp``) or imageio, and writes frames with imageio; the machine
+that runs the port on the GPU has neither. This decoder reads the formats
+the scenes use: 8-bit RGB (colour type 2) and RGBA (colour type 6), not
+interlaced. Any other PNG raises a ``ValueError`` that names its format.
+``write_png`` writes the same two formats, every row unfiltered.
 
 The five row filters (None, Sub, Up, Average, Paeth) are undone along
 anti-diagonals: pixel (r, x) depends only on (r, x-1), (r-1, x) and
@@ -112,3 +113,24 @@ def read_pngs(paths) -> list:
         for i, img in zip(idx, pixels):
             out[i] = img
     return out
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + \
+        struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def write_png(path: str, img: np.ndarray):
+    """Write (h, w, 3 or 4) uint8 pixels as an 8-bit RGB or RGBA PNG."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"write_png takes (h, w, 3 or 4) uint8 pixels, got "
+                         f"{img.shape} {img.dtype}")
+    h, w, bpp = img.shape
+    colour = {3: 2, 4: 6}[bpp]
+    raw = np.zeros((h, 1 + w * bpp), np.uint8)  # filter byte 0: None
+    raw[:, 1:] = img.reshape(h, w * bpp)
+    data = (_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes())) + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)

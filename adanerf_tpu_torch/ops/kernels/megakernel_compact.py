@@ -34,7 +34,8 @@ _ll16 = ctypes.c_longlong * MAXL
 
 
 class MkParams(ctypes.Structure):
-    """Mirror of ``struct MkParams`` in the CUDA source, field for field."""
+    """Mirror of ``struct MkParams`` in ``csrc/megakernel.cuh``, field for
+    field."""
     _fields_ = [("o_w", _ll16), ("o_b", _ll16),
                 ("n_w", _ll16), ("n_wx", _ll16), ("n_b", _ll16)] + \
         [(k, ctypes.c_longlong) for k in ("n_wa", "n_ba", "n_wf", "n_bf", "n_wvf",
@@ -98,6 +99,8 @@ class MegakernelCompact:
     so a caller can show that a run went through the kernel."""
 
     launches = 0
+    SOURCE, SYMBOL = SOURCE, "mk_compact_launch"
+    DENSE = False  # K2 (megakernel_dense.py) shades every slot
 
     def __init__(self, renderer):
         self.renderer = renderer
@@ -196,7 +199,7 @@ class MegakernelCompact:
 
     def plain(self, dirs, pose, rot):
         """The plain PyTorch version: the renderer's compacted path."""
-        return self.renderer.render_rays(pose, rot, dirs)
+        return self.renderer.render_rays(pose, rot, dirs, compaction=True)
 
     def __call__(self, dirs, pose, rot, stages: int = 3):
         """dirs (B, 3) f32 camera-space unit dirs; pose (3,); rot (3, 3)
@@ -206,6 +209,20 @@ class MegakernelCompact:
         if dirs.device.type == "cpu":
             return self.plain(dirs, torch.as_tensor(pose, dtype=torch.float32),
                               torch.as_tensor(rot, dtype=torch.float32))
+        out = self._launch(dirs, pose, rot, stages)
+        return out[-1], out[-2]
+
+    def front(self, dirs, pose, rot):
+        """The kernel's front half alone, on CUDA tensors: the shading rays'
+        origins and directions (B, 3), each slot's depth and oracle value
+        (B, S) and the counts (B,). A ray's live slots come first, in
+        ascending bin order."""
+        if dirs.device.type != "cuda":
+            raise ValueError("front runs the kernel: dirs must be a CUDA tensor")
+        return self._launch(dirs, pose, rot, 1)[:5]
+
+    def _launch(self, dirs, pose, rot, stages):
+        """One launch; returns (o_sh, d_sh, zbuf, pbuf, counts, rgb)."""
         if dirs.device.type != "cuda":
             raise ValueError(f"unsupported device {dirs.device}")
         if dirs.dtype != torch.float32 or dirs.ndim != 2 or dirs.shape[1] != 3 \
@@ -227,34 +244,38 @@ class MegakernelCompact:
         i32 = dict(dtype=torch.int32, device=dev)
         o_sh, d_sh = torch.empty((B, 3), **f32), torch.empty((B, 3), **f32)
         zbuf, pbuf = torch.empty((B, S), **f32), torch.empty((B, S), **f32)
-        counts, rows = torch.empty((B,), **i32), torch.empty((B * S,), **i32)
-        counter = torch.empty((1,), **i32)
+        counts = torch.empty((B,), **i32)
+        rows = counter = None  # K1's compact row list and its length
+        if not self.DENSE:
+            rows, counter = torch.empty((B * S,), **i32), torch.empty((1,), **i32)
         raw = torch.empty((B, S, 4), **f32)
         rgb = torch.empty((B, 3), **f32)
 
-        lib = _library()
+        launch = _library(self.SOURCE, self.SYMBOL)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mk_compact_launch(
+        rc = launch(
             dev.index if dev.index is not None else torch.cuda.current_device(),
-            ctypes.byref(P), *(t.data_ptr() for t in (
+            ctypes.byref(P), *(None if t is None else t.data_ptr() for t in (
                 dirs, pose, rot, self.weights, self.biases, o_sh, d_sh, zbuf, pbuf,
                 counts, rows, counter, raw, rgb)), stream)
         if rc != 0:
-            raise RuntimeError(f"megakernel_compact launch failed: CUDA error {rc}")
-        MegakernelCompact.launches += 1
-        return rgb, counts
+            raise RuntimeError(f"{self.SYMBOL} failed: CUDA error {rc}")
+        type(self).launches += 1
+        return o_sh, d_sh, zbuf, pbuf, counts, rgb
 
 
-def _library():
-    lib = build.load(SOURCE)
+def _library(source, symbol):
+    """The launch function ``symbol`` of ``source``'s library, bound and
+    checked against this MkParams layout."""
+    lib = build.load(source)
     if not getattr(lib, "_mk_bound", False):
-        lib.mk_compact_launch.argtypes = [ctypes.c_int, ctypes.POINTER(MkParams)] + \
-            [ctypes.c_void_p] * 15
-        lib.mk_compact_launch.restype = ctypes.c_int
+        fn = getattr(lib, symbol)
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(MkParams)] + [ctypes.c_void_p] * 15
+        fn.restype = ctypes.c_int
         lib.mk_struct_size.argtypes = []
         lib.mk_struct_size.restype = ctypes.c_int
         if lib.mk_struct_size() != ctypes.sizeof(MkParams):
             raise RuntimeError(f"MkParams layout differs: C {lib.mk_struct_size()} "
                                f"bytes, ctypes {ctypes.sizeof(MkParams)} bytes")
         lib._mk_bound = True
-    return lib
+    return getattr(lib, symbol)

@@ -9,14 +9,17 @@ Counterpart of ``adanerf_tpu/realtime.py::RealtimeRenderer``. Per ray batch:
      rays into NDC space here (the oracle features stay world-space).
   2. ``_shade_stage``: gather only the live (ray, slot) samples, normalize
      and encode them, run the NeRF MLP on that compact batch and scatter the
-     raw rgba back by (ray, slot).
+     raw rgba back by (ray, slot). With ``compaction`` off (or threshold
+     <= 0), ``_dense_shade_stage`` instead shades every slot of every ray
+     and masks the dead ones.
   3. ``_composite``: front-to-back alpha compositing with the oracle value
      premultiplied into alpha.
 
-This is the plain version that the hand-written CUDA kernel
-(``ops/kernels/megakernel_compact.py``) is held against; the TPU-specific
-workarounds of the JAX stage (segmented scans, one-hot selects, capacity
-buckets) become native ``nonzero`` / index ops.
+These are the plain versions that the hand-written CUDA kernels are held
+against: the compacted path for ``ops/kernels/megakernel_compact.py`` (K1),
+the dense path for ``ops/kernels/megakernel_dense.py`` (K2). The
+TPU-specific workarounds of the JAX stage (segmented scans, one-hot
+selects, capacity buckets) become native ``nonzero`` / index ops.
 """
 
 from __future__ import annotations
@@ -34,11 +37,13 @@ class RealtimeRenderer:
 
     oracle, nerf: ``BaseNetDef`` / ``NeRFDef`` modules on ``device``.
     dtype: None for fp32 MLPs, ``torch.bfloat16`` for bf16 operands with
-    fp32 accumulation (the production precision of the kernel).
+    fp32 accumulation (the production precision of the kernels).
+    compaction: shade only the live samples; off (or at threshold <= 0)
+    every slot is shaded, as the JAX renderer's ``compaction=False``.
     """
 
     def __init__(self, oracle, nerf, scene, config, batch_size: int = 65536,
-                 dtype=None, device="cuda"):
+                 dtype=None, device="cuda", compaction: bool = True):
         self.oracle, self.nerf = oracle, nerf
         self.scene, self.config = scene, config
         self.batch_size = batch_size
@@ -52,6 +57,7 @@ class RealtimeRenderer:
         if getattr(config, "rayMarchSampler", None):
             sampler1 = config.rayMarchSampler[1] or ""
         self.z_no_range = self.use_ndc or sampler1.endswith("NoDepthRange")
+        self.compaction = compaction and self.threshold > 0.0
 
         args0 = [int(x) for x in config.posEncArgs[0].split('-')]
         args1 = [int(x) for x in config.posEncArgs[1].split('-')]
@@ -73,19 +79,24 @@ class RealtimeRenderer:
             return z
         return self.scene.depth_transform.to_world(z, self.scene.depth_range_warped)
 
+    def oracle_logits(self, pose, rotation, dirs):
+        """dirs: (B, 3) camera-space unit dirs; pose (3,); rotation (3, 3).
+        Returns (origins, world dirs, sphere exit points) (B, 3) and the
+        oracle's raw per-bin logits (B, D) f32."""
+        nds = dirs @ rotation.T
+        origins = pose.expand(nds.shape)
+        distance = ray_sphere_offset(nds, origins, self.center, self.scene.view_cell_radius)
+        proj = origins + nds * distance[:, None]
+        x = torch.cat([self.enc0_dir(nds), self.enc0_pos(proj)], dim=-1)
+        return origins, nds, proj, self.oracle(x, self.dtype).float()
+
     def _oracle_stage(self, pose, rotation, dirs):
         """dirs: (B, 3) camera-space unit dirs; pose (3,); rotation (3, 3).
         Returns (o_sh, d_sh, z_world, z_probs, mask): shading-ray origins and
         directions (B, 3), and (B, S) slot depths (0 at dead slots), oracle
         values and validity."""
         sc = self.scene
-        nds = dirs @ rotation.T
-        origins = pose.expand(nds.shape)
-        distance = ray_sphere_offset(nds, origins, self.center, sc.view_cell_radius)
-        proj = origins + nds * distance[:, None]
-
-        x = torch.cat([self.enc0_dir(nds), self.enc0_pos(proj)], dim=-1)
-        oracle_out = self.oracle(x, self.dtype).float()
+        origins, nds, proj, oracle_out = self.oracle_logits(pose, rotation, dirs)
 
         if self.use_ndc:
             o_sh, d_sh = ndc_rays(sc.h, sc.w, sc.focal, 1.0, origins, nds)
@@ -138,11 +149,30 @@ class RealtimeRenderer:
         restored[ray, slot] = torch.sigmoid(raw)
         return self._composite(restored, z_probs)
 
+    def _dense_shade_stage(self, o_sh, d_sh, z_world, z_probs, mask):
+        """Shade every slot of every ray (dead slots at z = 1, masked out
+        before the composite). Returns (B, 3)."""
+        B, S = mask.shape
+        z_safe = torch.where(mask, z_world, torch.ones_like(z_world))
+        pos = o_sh[:, None, :] + d_sh[:, None, :] * z_safe[..., None]
+        d_enc = d_sh
+        if self.use_ndc:
+            d_enc = d_sh / torch.linalg.vector_norm(d_sh, dim=-1, keepdim=True)
+        dirs_exp = d_enc[:, None, :].expand(pos.shape)
+        raw = self.nerf(self._encode_samples(pos.reshape(-1, 3), dirs_exp.reshape(-1, 3)),
+                        self.dtype).float()
+        sig = torch.sigmoid(raw).reshape(B, S, 4) * mask[..., None]
+        return self._composite(sig, z_probs)
+
     @torch.no_grad()
-    def render_rays(self, pose, rotation, dirs):
-        """One ray batch -> (rgb (B, 3) f32, counts (B,) int32)."""
+    def render_rays(self, pose, rotation, dirs, compaction=None):
+        """One ray batch -> (rgb (B, 3) f32, counts (B,) int32). compaction
+        None takes the renderer's own choice; True or False picks the
+        compacted or the dense shading stage."""
         o_sh, d_sh, z_world, z_probs, mask = self._oracle_stage(pose, rotation, dirs)
-        rgb = self._shade_stage(o_sh, d_sh, z_world, z_probs, mask)
+        compaction = self.compaction if compaction is None else compaction
+        shade = self._shade_stage if compaction else self._dense_shade_stage
+        rgb = shade(o_sh, d_sh, z_world, z_probs, mask)
         return rgb, mask.sum(dim=1, dtype=torch.int32)
 
     @torch.no_grad()

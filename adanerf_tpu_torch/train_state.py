@@ -240,6 +240,9 @@ class TrainState:
         apply_fns = self.train_apply_fns()
 
         def loss_and_grads(batch, targets, epoch):
+            # each step's jitter comes from (seed, epoch), as the JAX step's
+            # PRNGKey(epoch), so a resumed run draws what an unbroken one does
+            self.generator.manual_seed(self.seed * 1_000_003 + int(epoch))
             outs, dicts = run_cascade(self.models, self.f_in, batch, is_inference=False,
                                       generator=self.generator, dtype=dtype,
                                       apply_fns=apply_fns)
@@ -339,7 +342,7 @@ class TrainState:
             try:
                 for i in range(len(self.models)):
                     self._load_net(i, per_net[i][epoch])
-            except (OSError, ValueError, KeyError) as e:
+            except Exception as e:  # any unreadable file (e.g. BadZipFile), as JAX
                 print(f"checkpoint epoch {epoch} unreadable ({type(e).__name__}: {e}); "
                       "trying an older one")
                 for i, (w, o) in enumerate(saved):  # no half-loaded state

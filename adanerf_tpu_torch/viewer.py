@@ -1,13 +1,25 @@
 """Real-time viewer benchmark of an exported AdaNeRF model on one GPU.
 
-Counterpart of the root ``viewer.py`` with ``--megakernel`` (its default
-production path): loads an exported model directory (config.ini,
-dataset_info.txt, model{0,1}.weights), renders frames along an in-cell orbit
-through the compacted CUDA kernel (``ops/kernels/megakernel_compact.py``),
-prints frame ms / FPS / samples per pixel every logging interval, and
-optionally dumps frames as ``.npy``.
+Counterpart of the root ``viewer.py`` with ``--megakernel`` (its production
+path): loads an exported model directory (config.ini, dataset_info.txt,
+model{0,1}.weights), renders frames along an in-cell orbit or a
+``--camPath`` camera path through a hand-written CUDA kernel, prints frame
+ms / FPS / samples per pixel every logging interval, and optionally dumps
+frames as PNG. ``--megakernel`` picks the kernel: ``v5d`` (the default) and
+``v5`` run K1, the compacted renderer (``ops/kernels/megakernel_compact.py``);
+``v3`` runs K2, the dense-slot renderer (``ops/kernels/megakernel_dense.py``),
+which suits frames whose rays sit at the sample cap.
+
+On the card the kernel renders the whole frame and there is no fallback to
+the plain path; with ``--device cpu`` each kernel's plain PyTorch version
+renders it, ``--batch_size`` rays at a time. The JAX viewer's square-block
+ray order (``block_permutation``) is not ported: it exists because its
+Pallas kernels gate work per tile of rays, while K1 compacts the live
+samples over the whole frame and K2 shades every slot, so neither gains
+from spatially coherent tiles.
 
   python -m adanerf_tpu_torch.viewer demo/trained_mscene_export -s 800 800 -n 10
+  python -m adanerf_tpu_torch.viewer demo/trained_mscene_export --megakernel v3 -d frames/
 """
 
 from __future__ import annotations
@@ -21,9 +33,12 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from .data.camera import PredefinedCamera
+from .data.png import write_png
 from .models.mlp import BaseNetDef, NeRFDef
 from .ops.depth_transforms import get_depth_transform
 from .ops.kernels.megakernel_compact import MegakernelCompact
+from .ops.kernels.megakernel_dense import MegakernelDense
 from .ops.raygen import generate_ray_directions
 from .pipeline.features import SceneStatic
 from .realtime import RealtimeRenderer
@@ -133,69 +148,124 @@ def frame_directions(scene, w, h, device):
     return torch.from_numpy(dirs.astype(np.float32)).to(device)
 
 
+def build_kernel(rt, variant):
+    """The frame kernel of a ``--megakernel`` variant, with the JAX viewer's
+    refusals: a non-adaptive model or more than 16 samples for any variant
+    (SystemExit), an NDC export for ``v3`` (ValueError)."""
+    S = rt.max_samples
+    if not (rt.threshold > 0.0 and 8 * S <= 128):
+        raise SystemExit("--megakernel needs an adaptive model (threshold>0, <=16 samples; "
+                         f"got thr={rt.threshold}, S={S})")
+    if variant == "v3":
+        if rt.use_ndc:
+            raise ValueError("only the compacted kernel (--megakernel v5d/v5) implements the "
+                             "NDC ray transform; v3 does not")
+        return MegakernelDense(rt)
+    return MegakernelCompact(rt)
+
+
+def camera_path(cam_path, n_frames):
+    """[(position (3,), rotation (3, 3))] of a PredefinedCamera json file,
+    at most n_frames of them."""
+    transforms = PredefinedCamera.import_camera_path(
+        os.path.dirname(cam_path) or ".", os.path.basename(cam_path).replace(".json", ""),
+        n_frames)
+    return [(t[:3, 3], t[:3, :3]) for t in transforms]
+
+
 def main(argv=None):
     """Run the viewer; returns a dict of the run's numbers."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("model_dir", type=str)
     p.add_argument("-s", "--size", nargs=2, type=int, default=[800, 800])
+    p.add_argument("-bs", "--batch_size", type=int, default=80_000,
+                   help="rays per batch of the plain path (--device cpu); the kernel "
+                        "renders the whole frame at once")
     p.add_argument("-n", "--frames", type=int, default=100)
     p.add_argument("-d", "--dump_dir", type=str, default=None,
-                   help="write each frame as <dump_dir>/<index>.npy (h, w, 3)")
+                   help="write each frame as <dump_dir>/<index>.png")
+    p.add_argument("--camPath", type=str, default=None,
+                   help="camera path json (PredefinedCamera format) instead of the orbit")
     p.add_argument("--logging_interval", type=int, default=10)
     p.add_argument("--fp32", action="store_true", help="fp32 instead of bf16 MLPs")
+    p.add_argument("--megakernel", nargs="?", const="v5d", default="v5d",
+                   choices=["v5d", "v5", "v3"],
+                   help="v5d (default) and v5: K1, the compacted kernel (the JAX viewer's "
+                        "fixed- and dynamic-trip variants differ only on the TPU; K1 takes "
+                        "any live count on the device); v3: K2, the dense-slot kernel, "
+                        "which shades every slot and suits rays at the sample cap")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="shard each frame's rays over this many GPUs; only 0 or 1 for now")
     p.add_argument("--device", default="cuda",
                    help="'cuda' renders through the CUDA kernel; 'cpu' through "
                         "its plain PyTorch version")
     args = p.parse_args(argv)
 
+    if args.mesh > 1:
+        raise SystemExit(f"--mesh {args.mesh}: ray-sharded rendering over several GPUs is "
+                         "not ported yet (ROADMAP Queue 1, item 13)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu for the plain path")
     w, h = args.size
-    rt, scene = build_renderer_from_export(args.model_dir, dtype_str="fp32" if args.fp32
-                                           else "bf16", device=device)
-    kernel = MegakernelCompact(rt)
+    bs = min(args.batch_size, w * h)
+    rt, scene = build_renderer_from_export(args.model_dir, batch_size=bs,
+                                           dtype_str="fp32" if args.fp32 else "bf16",
+                                           device=device)
+    kernel = build_kernel(rt, args.megakernel)
     dirs = frame_directions(scene, w, h, device)
     n_pix = dirs.shape[0]
-    poses = orbit_poses(scene.view_cell_center, 0.4 * scene.view_cell_radius, args.frames)
-    rot = np.eye(3, dtype=np.float32)
+    if args.camPath:
+        cams = camera_path(args.camPath, args.frames)
+    else:
+        cams = [(pos, np.eye(3, dtype=np.float32)) for pos in orbit_poses(
+            scene.view_cell_center, 0.4 * scene.view_cell_radius, args.frames)]
+
+    def render(pos, rot):
+        if device.type == "cuda":
+            return kernel(dirs, pos, rot)
+        outs = [kernel(dirs[s:s + bs], pos, rot) for s in range(0, n_pix, bs)]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
-    kernel(dirs, poses[0], rot)  # builds the kernel on first use
+    render(*cams[0])  # builds the kernel on first use
     sync()
     print(f"engine build (kernel build + warmup): {time.perf_counter() - t0:.1f}s")
 
     t_start = t_last = time.perf_counter()
-    for i, pos in enumerate(poses):
-        frame, counts = kernel(dirs, pos, rot)
+    i_last = 0
+    for i, (pos, rot) in enumerate(cams):
+        frame, counts = render(pos, rot)
         if args.dump_dir or (i + 1) % args.logging_interval == 0:
             spp = float(counts.sum()) / n_pix  # reads back, so the frame is done
             now = time.perf_counter()
-            fps = args.logging_interval / (now - t_last)
-            t_last = now
+            fps = (i + 1 - i_last) / (now - t_last)  # over the frames since the last line
+            t_last, i_last = now, i + 1
             print(f"frame {i + 1:5d}: {1e3 / max(fps, 1e-9):7.2f} ms "
                   f"({fps:6.2f} FPS) avg samples/px {spp:.2f}")
             if args.dump_dir:
                 os.makedirs(args.dump_dir, exist_ok=True)
                 img = frame.clamp(0, 1).reshape(h, w, 3).cpu().numpy()
-                np.save(os.path.join(args.dump_dir, f"{i:05d}.npy"), img)
+                write_png(os.path.join(args.dump_dir, f"{i:05d}.png"),
+                          (img * 255).astype(np.uint8))
     sync()
     dt = time.perf_counter() - t_start
-    print(f"total: {len(poses)} frames in {dt:.2f}s = {len(poses) / dt:.2f} FPS "
-          f"({len(poses) * n_pix / dt / 1e6:.2f} Mrays/s)")
-    stats = {"frames": len(poses), "n_pix": n_pix, "wall_s": dt,
-             "samples_per_pixel": float(counts.sum()) / n_pix}
+    print(f"total: {len(cams)} frames in {dt:.2f}s = {len(cams) / dt:.2f} FPS "
+          f"({len(cams) * n_pix / dt / 1e6:.2f} Mrays/s)")
+    stats = {"frames": len(cams), "n_pix": n_pix, "wall_s": dt,
+             "samples_per_pixel": float(counts.sum()) / n_pix,
+             "last_frame": frame.reshape(h, w, 3)}
     if device.type == "cuda":
         # device time per frame over a second pass: one CUDA event between
         # consecutive frames, read after the pass
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(poses) + 1)]
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(cams) + 1)]
         events[0].record()
-        for pos, ev in zip(poses, events[1:]):
-            kernel(dirs, pos, rot)
+        for (pos, rot), ev in zip(cams, events[1:]):
+            render(pos, rot)
             ev.record()
         events[-1].synchronize()
         per = np.array([a.elapsed_time(b) for a, b in zip(events, events[1:])])

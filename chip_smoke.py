@@ -4,10 +4,11 @@
   python3 chip_smoke.py
 
 Builds the CUDA kernels from the checkout, holds each against its plain
-PyTorch version on the card, drives the port's two paths (the viewer
-rendering a trained export through K1, and the dense trainer taking a few
-steps through K3) and prints, as its last two lines, a JSON line of
-per-kernel numbers and a JSON line ``{"ok": true, "device": {...}}``. Exits
+PyTorch version on the card, drives the port's three paths (the viewer
+rendering a trained export through K1, the dense trainer taking a few
+steps through K3, and the viewer's ``--megakernel v3`` rendering through
+K2) and prints, as its last two lines, a JSON line of per-kernel numbers
+and a JSON line ``{"ok": true, "device": {...}}``. Exits
 non-zero, without those lines, when there is no CUDA device or any phase
 fails. Imports torch, numpy and the standard library besides the port
 itself.
@@ -15,6 +16,7 @@ itself.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -38,6 +40,8 @@ TRAIN_WARMUP, TRAIN_TIMED = 3, 30
 # tensor-core and fp32 FMA operation rates
 HBM_BPS = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
+
+K2_THRESHOLDS = (None, 0.01, 1e-4)  # the export's own 0.2; lower keeps more slots; at cap
 
 T0 = time.perf_counter()
 
@@ -75,6 +79,95 @@ def check_fp32(mk, rt, dirs, pose, rot, label):
     if n_bad > n // 10000 or not err <= 2e-4:
         raise SystemExit(f"{label}: kernel disagrees with its plain version")
     return err, n_bad
+
+
+NEAR = 1e-5  # a logit this close to the threshold or to the S-th largest may flip a bin
+
+
+def float64_frame(rt, o_sh, d_sh, z, p, mask, chunk=20000):
+    """(B, 3) float64: the renderer's dense shading and composite of the
+    given slots (shading rays (B, 3); depths, oracle values and live mask
+    (B, S)), with the encoding, the NeRF and the composite in float64."""
+    rt64 = copy.copy(rt)
+    rt64.nerf, rt64.dtype = copy.deepcopy(rt.nerf).double(), None
+    rt64.center = rt.center.double()
+    with torch.no_grad():
+        return torch.cat([rt64._dense_shade_stage(
+            o_sh[s:s + chunk].double(), d_sh[s:s + chunk].double(), z[s:s + chunk].double(),
+            p[s:s + chunk].double(), mask[s:s + chunk]) for s in range(0, z.shape[0], chunk)])
+
+
+def kept_bins(rt, z, mask):
+    """(B, D) bool: the oracle bins whose depths fill a ray's live slots."""
+    D = rt.oracle.n_out
+    table = rt._to_world((torch.arange(D, device=z.device, dtype=torch.float32) + 0.5) / D)
+    b = (z[..., None] - table).abs().argmin(dim=-1)
+    keep = torch.zeros((z.shape[0], D + 1), dtype=torch.bool, device=z.device)
+    return keep.scatter_(1, torch.where(mask, b, D), True)[:, :D]
+
+
+def check_dense(k2, k1, dirs, pose, rot, label, hold_plain):
+    """K2 in fp32 against K1 on the same rays (counts exact, rgb within
+    1.5e-7, the bar tests/test_megakernel3.py holds the JAX kernels to each
+    other: K2's live slots run K1's instructions, and a dead slot adds exact
+    zeros and multiplies the transmittance by 1 - 0 + 1e-10 == 1 in fp32),
+    against a float64 shading of its own slots (within 2e-4 on every ray)
+    and against its plain version: counts exact and rgb within 2e-4 on every
+    ray where hold_plain; else on every ray but at most 1 in 10,000 (phase
+    3's allowance), each of which must keep other bins than the plain
+    version, all at a near tie: a logit within NEAR of the threshold or of
+    the ray's S-th largest, where the two sides' summation orders of the
+    oracle's products may keep another bin. Returns (max err vs plain, max
+    err vs K1, samples/px, share of rays at cap)."""
+    rgb2, cnt2 = k2(dirs, pose, rot)
+    rgb1, cnt1 = k1(dirs, pose, rot)
+    o2, d2, z2, p2, c2 = k2.front(dirs, pose, rot)
+    torch.cuda.synchronize()
+    rt, dev, S = k2.renderer, dirs.device, k2.params.S
+    pose_t = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+    rot_t = torch.as_tensor(rot, dtype=torch.float32, device=dev)
+    rgb_p, cnt_p = k2.plain(dirs, pose_t, rot_t)
+    with torch.no_grad():
+        logits = rt.oracle_logits(pose_t, rot_t, dirs)[3]
+        o_p, d_p, z_p, p_p, mask_p = rt._oracle_stage(pose_t, rot_t, dirs)
+    live2 = torch.arange(S, device=dev)[None, :] < c2[:, None]
+    # the float64 witness: each side's own slots shaded in float64
+    err64_2 = float((rgb2.double() - float64_frame(rt, o2, d2, z2, p2, live2)).abs().max())
+    err64_p = float((rgb_p.double() - float64_frame(rt, o_p, d_p, z_p, p_p, mask_p)).abs().max())
+    bad_p, bad_1 = int((cnt2 != cnt_p).sum()), int((cnt2 != cnt1).sum())
+    bad_front = int((c2 != cnt2).sum())
+    per_ray = (rgb2 - rgb_p).abs().max(dim=1).values
+    err_p, err_1 = float(per_ray.max()), float((rgb2 - rgb1).abs().max())
+    kept2, keptp = kept_bins(rt, z2, live2), kept_bins(rt, z_p, mask_p)
+    flipped = kept2 ^ keptp
+    top = torch.topk(logits, S + 1, dim=1).values
+    at_tie = ((logits - rt.threshold).abs() <= NEAR) | ((logits - top[:, S - 1:S]).abs() <= NEAR)
+    beyond = torch.nonzero(per_ray > 2e-4).flatten().tolist()
+    n_unexplained = 0
+    for r in beyond:
+        bins = torch.nonzero(flipped[r]).flatten()
+        explained = len(bins) > 0 and bool(at_tie[r, bins].all())
+        n_unexplained += not explained
+        only2, onlyp = bins[kept2[r, bins]].tolist(), bins[keptp[r, bins]].tolist()
+        print(f"    ray {r}: vs plain {float(per_ray[r]):.3e}; bins kept by K2 only {only2}, by "
+              f"plain only {onlyp}, their logits {[f'{v:.9g}' for v in logits[r, bins].tolist()]}; "
+              f"S-th and (S+1)-th largest {float(top[r, S - 1]):.9g}, {float(top[r, S]):.9g}; "
+              f"near tie: {explained}", flush=True)
+    n = dirs.shape[0]
+    allowed = 0 if hold_plain else n // 10000
+    spp = float(cnt2.float().mean())
+    at_cap = float((cnt2 == S).float().mean())
+    print(f"  {label}: {n} rays, samples/px {spp:.4f}, at cap {100 * at_cap:.2f}%; vs plain: "
+          f"count mismatches {bad_p} (allowed 0), rgb max abs err {err_p:.3e}, rays beyond "
+          f"2e-4 {len(beyond)} (allowed {allowed}, each keeping other bins at a near tie; "
+          f"{n_unexplained} not); rays keeping other bins than plain "
+          f"{int(flipped.any(1).sum())}; vs float64 of each side's own slots: K2 {err64_2:.3e} "
+          f"(allowed 2e-4), plain fp32 {err64_p:.3e}; vs K1: count mismatches {bad_1} "
+          f"(allowed 0), rgb max abs err {err_1:.3e} (allowed 1.5e-7)", flush=True)
+    if bad_p or bad_1 or bad_front or not err_1 <= 1.5e-7 or not err64_2 <= 2e-4 \
+            or n_unexplained or len(beyond) > allowed:
+        raise SystemExit(f"{label}: K2 disagrees with its plain version, float64 or K1")
+    return err_p, err_1, spp, at_cap
 
 
 def time_ms(fn, reps):
@@ -130,7 +223,10 @@ def main():
     from adanerf_tpu_torch.models.mlp import NeRFDef
     from adanerf_tpu_torch.ops.kernels import build
     from adanerf_tpu_torch.ops.kernels import nerf_train
+    from adanerf_tpu_torch.data.png import read_png
+    from adanerf_tpu_torch.ops.kernels import megakernel_dense
     from adanerf_tpu_torch.ops.kernels.megakernel_compact import SOURCE, MegakernelCompact
+    from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
     from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel
     from adanerf_tpu_torch.utils.weights import load_export_weights
 
@@ -150,7 +246,7 @@ def main():
 
     t = time.perf_counter()
     phase("2 build")
-    logs = build.build([SOURCE, nerf_train.SOURCE])
+    logs = build.build([SOURCE, nerf_train.SOURCE, megakernel_dense.SOURCE])
     for src, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -428,11 +524,110 @@ def main():
         del ts, stats, batch, targets, grads_k, grads_p, step, prof
     done("9", t)
 
-    phase("10 kernels")
+    t = time.perf_counter()
+    phase("10 K2 fp32 checks, trained_mscene_export, 400x400 frame, thresholds 0.2 / 0.01 / 1e-4")
+    k2_fp32 = {}
+    scene_thr = rt32.threshold
+    for thr in K2_THRESHOLDS:
+        rt32.threshold = scene_thr if thr is None else thr
+        # at cap the S-th and (S+1)-th largest logits of a ray may lie
+        # within rounding of each other, so the two sides' summation orders
+        # may keep different bins for a few rays: there the plain bar holds
+        # on the rays without such a near tie
+        k2_fp32[rt32.threshold] = check_dense(MegakernelDense(rt32), MegakernelCompact(rt32),
+                                              dirs400, pose, rot,
+                                              f"K2 fp32, threshold {rt32.threshold}",
+                                              hold_plain=thr != 1e-4)
+    rt32.threshold = scene_thr
+    spp_by_thr = [v[2] for v in k2_fp32.values()]
+    if not spp_by_thr[1] > spp_by_thr[0]:
+        raise SystemExit("threshold 0.01 kept no more samples than the export's threshold")
+    done("10", t)
+
+    t = time.perf_counter()
+    phase("11 K2 bf16 at 800x800: agreement, time, bound")
+    rt16d, _ = viewer.build_renderer_from_export(MSCENE, dtype_str="bf16", device=dev)
+    k2_16 = {}
+    for thr in K2_THRESHOLDS:
+        rt16d.threshold = rt32.threshold = scene_thr if thr is None else thr
+        k2 = MegakernelDense(rt16d)
+        rgb_k, cnt_k = k2(dirs800, pose, rot)
+        rgb_f, _ = rt32.render_rays(pose_t, rot_t, dirs800, compaction=False)
+        p_f = psnr(rgb_k, rgb_f)
+        del rgb_f
+        rgb_p, cnt_p = k2.plain(dirs800, pose_t, rot_t)
+        agree = cnt_k == cnt_p
+        n_bad = int((~agree).sum())
+        err = float((rgb_k - rgb_p).abs()[agree].max())
+        p_p = psnr(rgb_k, rgb_p)
+        del rgb_p
+        samp2 = int(cnt_k.sum())
+        print(f"  threshold {rt16d.threshold}: samples/px {samp2 / n_pix:.4f}; K2 bf16 vs plain "
+              f"fp32 {p_f:.2f} dB (allowed >= 40); vs plain bf16 {p_p:.2f} dB (allowed >= 40), "
+              f"count mismatches {n_bad} of {n_pix}, rgb max abs err on agreeing rays "
+              f"{err:.3e}", flush=True)
+        if not (p_f >= 40.0 and p_p >= 40.0):
+            raise SystemExit("K2 bf16 below 40 dB against its plain version")
+        ms = time_ms(lambda: k2(dirs800, pose, rot), 5)
+        ms_front = time_ms(lambda: k2(dirs800, pose, rot, stages=1), 3)
+        ms_shade = time_ms(lambda: k2(dirs800, pose, rot, stages=2), 3)
+        ms_plain = time_ms(lambda: k2.plain(dirs800, pose_t, rot_t), 2)
+        k1 = MegakernelCompact(rt16d)
+        ms_k1 = time_ms(lambda: k1(dirs800, pose, rot), 5)
+        # K2 shades all S slots of every ray (its own work), but a dead slot
+        # adds exact zeros: the same function needs the NeRF at the live
+        # samples only, so the bound counts those, as phase 7's does
+        oracle_macs, nerf_macs = rt16d.oracle.macs_per_input(), rt16d.nerf.macs_per_input()
+        work = 2.0 * n_pix * (oracle_macs + k2.params.S * nerf_macs)
+        ops = 2.0 * (n_pix * oracle_macs + samp2 * nerf_macs)
+        wbytes = k2.weights.numel() * k2.weights.element_size() + k2.biases.numel() * 4
+        nbytes = n_pix * 12 + 12 + 36 + wbytes + n_pix * (12 + 4)
+        bo, bb = ops / PEAK_OPS["bf16"] * 1e3, nbytes / HBM_BPS * 1e3
+        print(f"  K2 {ms:.3f} ms/frame ({n_pix / ms / 1e3:.2f} Mrays/s; its own work, all slots, "
+              f"{work / 1e12:.4f} TFLOP at {work / ms / 1e9:.1f} TFLOP/s; front {ms_front:.3f} ms, "
+              f"front+shade {ms_shade:.3f} ms), plain dense {ms_plain:.3f} ms/frame, K1 on the "
+              f"same frame {ms_k1:.3f} ms", flush=True)
+        print(f"  bound (live samples): {ops / 1e12:.4f} TFLOP over {PEAK_OPS['bf16'] / 1e12:.0f} "
+              f"TFLOP/s bf16 = {bo:.3f} ms; {nbytes / 1e6:.2f} MB over 3.35 TB/s = {bb:.4f} ms; "
+              f"K2 at {100 * max(bo, bb) / ms:.2f}% of bound; fp32 FMA bound "
+              f"{ops / PEAK_OPS['fp32'] * 1e3:.3f} ms", flush=True)
+        k2_16[rt16d.threshold] = dict(ms=ms, front=ms_front, shade=ms_shade, plain=ms_plain,
+                                      k1=ms_k1, err=err, n_bad=n_bad, psnr_fp32=p_f,
+                                      psnr_plain=p_p, spp=samp2 / n_pix, bound=max(bo, bb),
+                                      bound_by="operations" if bo >= bb else "bytes")
+        del rgb_k, cnt_k, cnt_p, agree, k1
+    rt16d.threshold = rt32.threshold = scene_thr
+    del rt16d
+    torch.cuda.empty_cache()
+    done("11", t)
+
+    t = time.perf_counter()
+    phase("12 main path: viewer --megakernel v3, trained_mscene_export, 800x800, 5 frames, bf16")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_frames_") as dump:
+        MegakernelDense.launches = 0
+        stats_v3 = viewer.main([MSCENE, "-s", "800", "800", "-n", "5", "--megakernel", "v3",
+                                "-d", dump])
+        k2_launches = MegakernelDense.launches
+        print(f"  main path: megakernel_dense launches {k2_launches}", flush=True)
+        if k2_launches < 1:
+            raise SystemExit("the v3 path never launched megakernel_dense")
+        frames = sorted(os.listdir(dump))
+        png = read_png(os.path.join(dump, frames[-1]))
+        want = (stats_v3["last_frame"].clamp(0, 1).cpu().numpy() * 255).astype(np.uint8)
+        print(f"  dumped {frames}; {frames[-1]} reads back {png.shape}, equal to the frame: "
+              f"{bool(np.array_equal(png, want))}", flush=True)
+        if frames != [f"{i:05d}.png" for i in range(5)] or not np.array_equal(png, want):
+            raise SystemExit("the v3 viewer's PNG frames are missing or differ from the frame")
+        if not torch.isfinite(stats_v3["last_frame"]).all():
+            raise SystemExit("the v3 viewer rendered non-finite values")
+    done("12", t)
+
+    k2_main = k2_16[scene_thr]
+    phase("13 kernels")
     print(json.dumps({"kernels": [{
         "name": "megakernel_compact", "route": "cuda",
-        "source": "adanerf_tpu_torch/csrc/megakernel_compact.cu",
-        "replaces": "adanerf_tpu/ops/pallas/megakernel3.py:209",
+        "source": "adanerf_tpu_torch/csrc/megakernel_compact.cu + adanerf_tpu_torch/csrc/megakernel.cuh",
+        "replaces": "adanerf_tpu/ops/pallas/megakernel3.py:227",
         "launches": launches, "max_abs_err": err16, "fp32_max_abs_err": err32,
         "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
@@ -452,7 +647,22 @@ def main():
         "launches": k3_launches[1], "max_abs_err": bwd_abs, "worst_leaf_rel_err": worst[0],
         "dx_max_abs_err": dx_abs, "jax_check_dx_max_abs_err": errs_i["x"][1], "ms": ms_k3b, "plain_ms": ms_pb,
         "bound_ms": k3_bounds["bwd"][0], "bound_by": k3_bounds["bwd"][1], "library_ms": None,
-        "rows": K3_ROWS, "train_step_ms": train_ms}]}), flush=True)
+        "rows": K3_ROWS, "train_step_ms": train_ms}, {
+        "name": "megakernel_dense", "route": "cuda",
+        "source": "adanerf_tpu_torch/csrc/megakernel_dense.cu + adanerf_tpu_torch/csrc/megakernel.cuh",
+        "replaces": "adanerf_tpu/ops/pallas/megakernel.py:281",
+        "launches": k2_launches, "max_abs_err": k2_main["err"],
+        "fp32_max_abs_err": {str(k): v[0] for k, v in k2_fp32.items()},
+        "fp32_max_abs_err_vs_k1": max(v[1] for v in k2_fp32.values()),
+        "ms": k2_main["ms"], "plain_ms": k2_main["plain"], "bound_ms": k2_main["bound"],
+        "bound_by": k2_main["bound_by"], "library_ms": None,
+        "k1_ms_same_frame": k2_main["k1"],
+        "ms_by_threshold": {str(k): v["ms"] for k, v in k2_16.items()},
+        "plain_ms_by_threshold": {str(k): v["plain"] for k, v in k2_16.items()},
+        "bound_ms_by_threshold": {str(k): v["bound"] for k, v in k2_16.items()},
+        "k1_ms_by_threshold": {str(k): v["k1"] for k, v in k2_16.items()},
+        "samples_per_pixel_by_threshold": {str(k): v["spp"] for k, v in k2_16.items()},
+        "viewer_device_ms": stats_v3["device_ms_per_frame"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -120,6 +120,65 @@ def test_resume_takes_newest_common_readable_epoch(scene, tmp_path):
         assert all(torch.equal(v, s[k]) for k, v in m.state_dict().items())
 
 
+
+def test_resume_skips_a_half_length_checkpoint(scene, tmp_path):
+    """A .weights file cut to half its length (a zip without its central
+    directory: np.load raises BadZipFile) makes its epoch unreadable; resume
+    falls back to the older common epoch, as the JAX package does on the
+    same files."""
+    tts = _port(scene, str(tmp_path))
+    _train(tts, 2)
+    tts.save_weights("0000002")
+    saved = [{k: v.clone() for k, v in m.state_dict().items()} for m in tts.models]
+    _train(tts, 1)
+    tts.save_weights("0000004")
+    path = os.path.join(tts.logDir, "NeRF1(32x4[4])_0000004.weights")
+    with open(path, "rb") as f:
+        data = f.read()
+    with open(path, "wb") as f:
+        f.write(data[:len(data) // 2])
+    fresh = _port(scene, str(tmp_path))
+    fresh.load_latest_weights()
+    assert fresh.epoch0 == 3
+    for m, s in zip(fresh.models, saved):
+        assert all(torch.equal(v, s[k]) for k, v in m.state_dict().items())
+    jts = _jax(scene, str(tmp_path))
+    jts.load_latest_weights()
+    assert jts.epoch0 == 3
+
+
+def test_perturbed_resume_matches_an_unbroken_run(scene, tmp_path):
+    """With --perturb each step draws its depth jitter from (seed, epoch):
+    4 unbroken steps and 2 steps, a save, a resume and 2 more steps end
+    with equal parameters (both runs take the same batches)."""
+    def state(log):
+        ts = TTrainState()
+        ts.initialize(TConfig.init(argv=dense_config_args(scene, log, samples=32)
+                                   + ["--device", "cpu", "--perturb"]))
+        return ts
+
+    ref = state(str(tmp_path / "batches"))
+    assert ref.f_in[1].perturb
+    batches = {e: ref.assemble_train_batch(ref.train_dataset, np.array([e % 4, 0]))
+               for e in range(1, 5)}
+
+    def train(ts, epochs):
+        step = ts.make_train_step()
+        for e in epochs:
+            step(*batches[e], e)
+
+    unbroken = state(str(tmp_path / "unbroken"))
+    train(unbroken, range(1, 5))
+    first = state(str(tmp_path / "resumed"))
+    train(first, range(1, 3))
+    first.save_weights("0000002")
+    resumed = state(str(tmp_path / "resumed"))
+    resumed.load_latest_weights()
+    assert resumed.epoch0 == 3
+    train(resumed, range(3, 5))
+    for a, b in zip(unbroken.models, resumed.models):
+        assert all(torch.equal(v, b.state_dict()[k]) for k, v in a.state_dict().items())
+
 def test_dense_to_fine_bootstrap_from_either_package(scene, tmp_path):
     log = str(tmp_path / "logs")
     dense = _port(scene, log, [("threshold", 0.0), ("n_raymarch", 128)])

@@ -16,6 +16,7 @@ import torch
 from adanerf_tpu_torch import viewer as tviewer
 from adanerf_tpu_torch.models.mlp import NeRFDef
 from adanerf_tpu_torch.ops.kernels.megakernel_compact import MegakernelCompact
+from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
 from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,6 +60,40 @@ def test_cuda_kernel_matches_plain(name, dtype):
         mse = float(((rgb_k.clamp(0, 1) - rgb_p.clamp(0, 1)) ** 2).mean())
         assert mse == 0 or -10 * np.log10(mse) >= 40.0
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [None, 0.01, 1e-4])
+def test_dense_kernel_matches_plain_and_k1(threshold):
+    """K2 in fp32 against its plain version (counts exact, rgb within 2e-4)
+    and against K1 on the same rays (counts exact, rgb within 1.5e-7: the
+    live slots run the same instructions, and a dead slot adds exact
+    zeros), at the export's threshold, at 0.01 and at 1e-4 (every ray at
+    the sample cap)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rt, scene = tviewer.build_renderer_from_export(EXPORTS["mscene"], dtype_str="fp32",
+                                                   device="cuda")
+    if threshold is not None:
+        rt.threshold = threshold
+    dirs, pose, rot = _frame_inputs(scene, 16384)
+    dirs = dirs.cuda()
+    k2, k1 = MegakernelDense(rt), MegakernelCompact(rt)
+    before = MegakernelDense.launches
+    rgb2, cnt2 = k2(dirs, pose, rot)
+    assert MegakernelDense.launches == before + 1
+    rgb1, cnt1 = k1(dirs, pose, rot)
+    rgb_p, cnt_p = k2.plain(dirs, torch.from_numpy(pose).cuda(), torch.from_numpy(rot).cuda())
+    assert torch.equal(cnt2, cnt_p) and torch.equal(cnt2, cnt1)
+    assert float((rgb2 - rgb_p).abs().max()) <= 2e-4
+    assert float((rgb2 - rgb1).abs().max()) <= 1.5e-7
+    # the front alone gives the same counts, and a ray's live slots first
+    _, _, z, p, c = k2.front(dirs, pose, rot)
+    assert torch.equal(c, cnt2) and bool(torch.isfinite(z).all())
+    live = torch.arange(rt.max_samples, device="cuda")[None, :] < c[:, None]
+    assert bool((z[:, 1:] > z[:, :-1])[live[:, 1:]].all()) and bool((p[~live] == 0).all())
+    if threshold == 1e-4:
+        assert int(cnt2.min()) == rt.max_samples
 
 U = 2.0 ** -24  # unit roundoff of fp32
 

@@ -1,7 +1,8 @@
-"""The port's PNG decoder (adanerf_tpu_torch/data/png.py) against imageio,
-bit for bit: every training image of demo/mscene (RGB, 400x400, mostly
-Paeth-filtered rows), written RGBA and RGB images covering all five row
-filters, and the formats it refuses."""
+"""The port's PNG decoder and encoder (adanerf_tpu_torch/data/png.py)
+against imageio, bit for bit: every training image of demo/mscene (RGB,
+400x400, mostly Paeth-filtered rows), written RGBA and RGB images covering
+all five row filters, the formats it refuses, and the encoder's files read
+back by both decoders."""
 
 import glob
 import os
@@ -12,7 +13,7 @@ import pytest
 
 import imageio.v2 as imageio
 
-from adanerf_tpu_torch.data.png import read_png, read_pngs, unfilter
+from adanerf_tpu_torch.data.png import read_png, read_pngs, unfilter, write_png
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_PNGS = sorted(glob.glob(os.path.join(ROOT, "demo", "mscene", "train", "*.png")))
@@ -106,3 +107,27 @@ def test_other_formats_raise_naming_them(tmp_path, depth, colour, interlace, wor
     with pytest.raises(ValueError, match="unsupported PNG format") as err:
         read_png(str(path))
     assert words in str(err.value)
+
+
+@pytest.mark.parametrize("shape", [(19, 23, 3), (1, 1, 3), (40, 7, 4)])
+def test_write_png_round_trips_and_imageio_reads_it(tmp_path, shape):
+    img = np.random.default_rng(sum(shape)).integers(0, 256, shape, dtype=np.uint8)
+    path = str(tmp_path / "out.png")
+    write_png(path, img)
+    np.testing.assert_array_equal(read_png(path), img)
+    np.testing.assert_array_equal(imageio.imread(path), img)
+
+
+def test_write_png_re_encodes_a_scene_image(tmp_path):
+    img = imageio.imread(TRAIN_PNGS[0])
+    path = str(tmp_path / "again.png")
+    write_png(path, img)
+    np.testing.assert_array_equal(read_png(path), img)
+    np.testing.assert_array_equal(imageio.imread(path), img)
+
+
+@pytest.mark.parametrize("bad", [np.zeros((4, 4, 3), np.float32), np.zeros((4, 4), np.uint8),
+                                 np.zeros((4, 4, 2), np.uint8)])
+def test_write_png_refuses_other_pixels(tmp_path, bad):
+    with pytest.raises(ValueError, match="uint8"):
+        write_png(str(tmp_path / "x.png"), bad)

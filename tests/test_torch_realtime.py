@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from adanerf_tpu.ops.raymarch import ray_sphere_offset
 from adanerf_tpu_torch import viewer as tviewer
+from adanerf_tpu_torch.realtime import RealtimeRenderer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -93,3 +94,29 @@ def test_threshold_zero_shades_every_slot_like_jax():
     rgb_t, cnt_t = rt_t.render_frame(pose, np.eye(3), dirs)
     assert (cnt_t == rt_t.max_samples).all()
     np.testing.assert_allclose(rgb_t.numpy(), rgb_j, atol=2e-4, rtol=0)
+
+
+def test_dense_path_matches_jax_uncompacted_renderer():
+    """compaction=False shades every slot (dead ones masked) as the JAX
+    RealtimeRenderer(compaction=False) does, at the export's threshold 0.2:
+    counts exact, rgb within 2e-4, and within 2e-4 of the compacted path."""
+    path = os.path.join(ROOT, "demo", "trained_mscene_export")
+    rt_j, _ = jviewer.build_renderer_from_export(path, 512, "fp32")
+    rt_j.compaction = False
+    rt_t, scene = tviewer.build_renderer_from_export(path, 512, "fp32", device="cpu")
+    assert rt_t.compaction
+    dense = RealtimeRenderer(rt_t.oracle, rt_t.nerf, scene, rt_t.config, batch_size=512,
+                             device="cpu", compaction=False)
+    assert not dense.compaction and rt_t.threshold == 0.2
+    dirs = tviewer.frame_directions(scene, 32, 32, "cpu")
+    pose = np.asarray(tviewer.orbit_poses(scene.view_cell_center,
+                                          0.4 * scene.view_cell_radius, 4)[2], np.float32)
+    rot = np.eye(3, dtype=np.float32)
+    rgb_j = rt_j.render_frame(pose, rot, dirs.numpy())
+    _, mask, _ = rt_j._oracle_fn(rt_j.params[0], jnp.asarray(pose), jnp.asarray(rot),
+                                 jnp.asarray(dirs.numpy()))
+    rgb_t, cnt_t = dense.render_frame(pose, rot, dirs)
+    np.testing.assert_array_equal(cnt_t.numpy(), np.asarray(mask).sum(axis=1))
+    np.testing.assert_allclose(rgb_t.numpy(), rgb_j, atol=2e-4, rtol=0)
+    rgb_c, _ = rt_t.render_frame(pose, rot, dirs)
+    np.testing.assert_allclose(rgb_t.numpy(), rgb_c.numpy(), atol=2e-4, rtol=0)

@@ -1,12 +1,17 @@
 """The port's viewer entry point and its host helpers, on the CPU."""
 
+import json
 import os
 import sys
 
 import numpy as np
 import pytest
+import torch
 
+from adanerf_tpu.data import camera as jcamera
 from adanerf_tpu_torch import viewer as tviewer
+from adanerf_tpu_torch.data.png import read_png
+from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -38,7 +43,83 @@ def test_viewer_main_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "frame     2:" in out and "avg samples/px" in out and "Mrays/s" in out
     frames = sorted(os.listdir(tmp_path))
-    assert frames == ["00000.npy", "00001.npy"]
-    img = np.load(tmp_path / frames[0])
-    assert img.shape == (16, 24, 3) and np.isfinite(img).all()
+    assert frames == ["00000.png", "00001.png"]
+    img = read_png(str(tmp_path / frames[-1]))
+    assert img.shape == (16, 24, 3)
+    want = (stats["last_frame"].clamp(0, 1).numpy() * 255).astype(np.uint8)
+    np.testing.assert_array_equal(img, want)
     assert stats["frames"] == 2 and 1.0 <= stats["samples_per_pixel"] <= 8.0
+
+
+def _write_cam_path(path, transforms):
+    with open(path, "w") as f:
+        json.dump({"frames": [{"transform_matrix": t.tolist()} for t in transforms]}, f)
+
+
+def test_viewer_v3_on_cpu_with_a_camera_path(tmp_path):
+    """--megakernel v3 renders the dense path along a --camPath file and
+    dumps PNG frames; the frame equals K2's plain version at that camera."""
+    export = os.path.join(ROOT, "demo", "trained_mscene_export")
+    rt, scene = tviewer.build_renderer_from_export(export, dtype_str="fp32", device="cpu")
+    c = np.asarray(scene.view_cell_center, np.float32)
+    rot = jcamera.euler2mat(0.1, -0.2, 0.05).astype(np.float32)
+    transforms = []
+    for k in range(3):
+        t = np.eye(4, dtype=np.float32)
+        t[:3, :3] = rot
+        t[:3, 3] = c + 0.1 * k
+        transforms.append(t)
+    cam = tmp_path / "path.json"
+    _write_cam_path(cam, transforms)
+    dump = tmp_path / "frames"
+    stats = tviewer.main([export, "--device", "cpu", "--megakernel", "v3", "-s", "24", "24",
+                          "-n", "2", "-bs", "100", "-d", str(dump), "--camPath", str(cam),
+                          "--fp32"])
+    assert sorted(os.listdir(dump)) == ["00000.png", "00001.png"]
+    dirs = tviewer.frame_directions(scene, 24, 24, "cpu")
+    want, _ = MegakernelDense(rt).plain(dirs, torch.from_numpy(transforms[1][:3, 3].copy()),
+                                        torch.from_numpy(rot))
+    np.testing.assert_allclose(stats["last_frame"].reshape(-1, 3).numpy(), want.numpy(),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(
+        read_png(str(dump / "00001.png")),
+        (want.clamp(0, 1).reshape(24, 24, 3).numpy() * 255).astype(np.uint8))
+
+
+@pytest.mark.parametrize("variant,kernel", [("v5d", "MegakernelCompact"),
+                                            ("v5", "MegakernelCompact"),
+                                            ("v3", "MegakernelDense")])
+def test_variant_picks_its_kernel(variant, kernel):
+    rt, _ = tviewer.build_renderer_from_export(
+        os.path.join(ROOT, "demo", "trained_mscene_export"), device="cpu")
+    assert type(tviewer.build_kernel(rt, variant)).__name__ == kernel
+
+
+def test_v3_refuses_an_ndc_export(tmp_path):
+    with pytest.raises(ValueError, match="NDC"):
+        tviewer.main([os.path.join(ROOT, "demo", "trained_ndc_export"), "--device", "cpu",
+                      "--megakernel", "v3", "-s", "8", "8", "-n", "1"])
+
+
+def test_non_adaptive_model_is_refused():
+    rt, _ = tviewer.build_renderer_from_export(
+        os.path.join(ROOT, "demo", "trained_mscene_export"), device="cpu")
+    rt.threshold = 0.0
+    with pytest.raises(SystemExit, match="adaptive model"):
+        tviewer.build_kernel(rt, "v3")
+
+
+def test_mesh_is_refused_naming_its_roadmap_item():
+    with pytest.raises(SystemExit, match="item 13"):
+        tviewer.main([os.path.join(ROOT, "demo", "trained_mscene_export"), "--device", "cpu",
+                      "--mesh", "2"])
+
+
+def test_camera_path_matches_jax_viewer():
+    path = os.path.join(ROOT, "demo", "llff_scene", "cam_path_spiral.json")
+    cams = tviewer.camera_path(path, 5)
+    ref = jcamera.PredefinedCamera.import_camera_path(os.path.dirname(path), "cam_path_spiral", 5)
+    assert len(cams) == 5
+    for (pos, rot), t in zip(cams, ref):
+        np.testing.assert_array_equal(pos, t[:3, 3])
+        np.testing.assert_array_equal(rot, t[:3, :3])
