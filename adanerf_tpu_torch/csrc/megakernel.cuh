@@ -3,11 +3,19 @@
 // renderer (megakernel_dense.cu). The DENSE template flag is K2: it shades
 // every slot of every ray and masks the dead ones in the composite, where
 // K1 shades only the live samples. Three launches on the caller's stream:
-// mk_front, mk_shade, mk_composite (see megakernel_compact.cu).
+// a front (ray setup, oracle, select), a shade (the NeRF) and mk_composite
+// (see megakernel_compact.cu).
+//
+// Two precisions. fp32 weights run mk_front / mk_shade, whose MLPs are
+// mlp_tile.cuh's fp32 FMA layer: the exact reference. bf16 weights run
+// mk_front_tc / mk_shade_tc, whose MLPs run on the tensor cores through
+// mlp_wgmma.cuh. Ray setup, the encode, the select, the sample coordinates
+// and the alpha and rgb heads are device functions that both share.
 
 #pragma once
 
 #include "mlp_tile.cuh"
+#include "mlp_wgmma.cuh"
 
 namespace {
 
@@ -27,7 +35,7 @@ struct MkParams {
   long long n_w[MAXL], n_wx[MAXL], n_b[MAXL];  // NeRF trunk (+ skip input)
   long long n_wa, n_ba, n_wf, n_bf, n_wvf, n_wvd, n_bv, n_wrgb, n_brgb;
   int B, S, D;          // rays, sample slots, oracle bins
-  int in0, in1;         // padded encoded input widths (multiples of 32)
+  int in0, in1;         // padded encoded input widths (multiples of 32; of 64 for bf16)
   int fd0, fp0, fp1, fd1;  // encode frequencies: oracle dir/pos, NeRF pos/dir
   int depth0, depth1, skip_mask;  // layers; bit i: NeRF layer i+1 takes [x, h]
   int z_mode;           // 0 raw [0,1] z, 1 log, 2 linear depth transform
@@ -36,7 +44,7 @@ struct MkParams {
   int acc_mode;         // 0 none, 1 alpha premultiply, 2 weights premultiply
   int bf16;             // weights are bf16, activations rounded to bf16
   int stages;           // 1 front only, 2 + shade, 3 + composite
-  int shade_blocks;     // persistent grid of the shade kernel
+  int shade_blocks;     // persistent grid (SMs): the shade; the bf16 front too
   float threshold, radius2, sqrt_max_depth;
   float center[3];
   float z_a, z_b;       // log: a^z - 1 + b; linear: z * a + b
@@ -74,6 +82,46 @@ __device__ void encode_tile(const float (*coords)[6], float* x, int width, int f
   }
 }
 
+__device__ __forceinline__ void put_bf16(uint8_t* x, int row, int col, float v) {
+  *reinterpret_cast<__nv_bfloat16*>(x + sw128(row, col)) = __float2bfloat16_rn(v);
+}
+
+// Element i (< 6) of c, without indexing a register array at run time.
+__device__ __forceinline__ float pick6(const float (&c)[6], int i) {
+  float v = c[0];
+#pragma unroll
+  for (int q = 1; q < 6; ++q) v = i == q ? c[q] : v;
+  return v;
+}
+
+// Encode one row into the bf16 tile x (`width` columns, a multiple of 64,
+// in mlp_wgmma.cuh's layout): encode_col's columns, but one sincosf (one
+// argument reduction) gives a coordinate's sin and cos at a frequency. The
+// coordinates are in registers; thread `half` of the row's pair takes every
+// other item, and part `part` of `nparts` a contiguous share of them.
+__device__ __forceinline__ void encode_row_bf16(const float (&c)[6], uint8_t* x, int row, int width,
+                                                int fa, int fb, int half, int part, int nparts) {
+  const int wa = 3 * (2 * fa + 1), wb = 3 * (2 * fb + 1);
+  const int np = 6 + width - wa - wb, nt = 3 * (fa + fb);
+  const int mine = (np + nt + 1 - half) / 2;
+  for (int m = mine * part / nparts; m < mine * (part + 1) / nparts; ++m) {
+    int k = 2 * m + half;
+    if (k < np) {
+      const int col = k < 3 ? k : (k < 6 ? wa + k - 3 : wa + wb + k - 6);
+      put_bf16(x, row, col, k < 6 ? pick6(c, k) : 0.f);
+    } else {
+      k -= np;
+      int base = 3, d0 = 0;
+      if (k >= 3 * fa) { k -= 3 * fa; base = wa + 3; d0 = 3; }
+      const int f = k / 3, d = k % 3;
+      float sv, cv;
+      sincosf(pick6(c, d0 + d) * ldexpf(1.f, f), &sv, &cv);
+      put_bf16(x, row, base + 6 * f + d, sv);
+      put_bf16(x, row, base + 6 * f + 3 + d, cv);
+    }
+  }
+}
+
 // Warp-wide argmax of (value, bin), ties to the lower bin.
 __device__ __forceinline__ void warp_argmax(float& v, int& b) {
 #pragma unroll
@@ -84,9 +132,187 @@ __device__ __forceinline__ void warp_argmax(float& v, int& b) {
   }
 }
 
-// DENSE (K2): every slot gets (z, p); dead slots carry bin 0 and p 0, and
-// no compact rows are reserved. Otherwise (K1) dead slots are zeroed and one
-// atomicAdd per block reserves the block's live rows.
+// Ray `ray` (a padding ray past P.B has a zero direction): its world
+// direction and exit point on the view-cell sphere into c[0:6], and for a
+// real ray the shading ray (o_sh, d_sh), in NDC space when P.ndc.
+__device__ __forceinline__ void ray_setup(const MkParams& P, const float* __restrict__ dirs,
+                                          const float* __restrict__ pose,
+                                          const float* __restrict__ rot, int ray, float* c,
+                                          float* __restrict__ o_sh, float* __restrict__ d_sh) {
+  float dx = 0.f, dy = 0.f, dz = 0.f;
+  if (ray < P.B) { dx = dirs[ray * 3]; dy = dirs[ray * 3 + 1]; dz = dirs[ray * 3 + 2]; }
+  // world dirs = rot @ dir
+  const float nx = rot[0] * dx + rot[1] * dy + rot[2] * dz;
+  const float ny = rot[3] * dx + rot[4] * dy + rot[5] * dz;
+  const float nz = rot[6] * dx + rot[7] * dy + rot[8] * dz;
+  const float ox = pose[0], oy = pose[1], oz = pose[2];
+  // exit point on the view-cell sphere
+  const float mx = ox - P.center[0], my = oy - P.center[1], mz = oz - P.center[2];
+  const float u = mx * nx + my * ny + mz * nz;
+  const float delta = u * u - ((mx * mx + my * my + mz * mz) - P.radius2);
+  const float dist = -u + sqrtf(fmaxf(delta, 0.f));
+  const float px = ox + nx * dist, py = oy + ny * dist, pz = oz + nz * dist;
+  c[0] = nx; c[1] = ny; c[2] = nz;
+  c[3] = px; c[4] = py; c[5] = pz;
+  if (ray < P.B) {
+    float so[3] = {px, py, pz}, sd[3] = {nx, ny, nz};
+    if (P.ndc) {  // ndc_rays with near = 1, from the un-projected origin
+      const float ts = -(1.f + oz) / nz;
+      const float qx = ox + ts * nx, qy = oy + ts * ny, qz = oz + ts * nz;
+      so[0] = P.ndc_wf * qx / qz;
+      so[1] = P.ndc_hf * qy / qz;
+      so[2] = 1.f + 2.f / qz;
+      sd[0] = P.ndc_wf * (nx / nz - qx / qz);
+      sd[1] = P.ndc_hf * (ny / nz - qy / qz);
+      sd[2] = -2.f / qz;
+      if (!(nx * nx + ny * ny + nz * nz > 0.5f)) {  // zero-padded ray
+        so[0] = so[1] = so[2] = sd[0] = sd[1] = sd[2] = 0.f;
+      }
+    }
+    for (int c = 0; c < 3; ++c) { o_sh[ray * 3 + c] = so[c]; d_sh[ray * 3 + c] = sd[c]; }
+  }
+}
+
+// Adaptive select of one ray's bins from its raw logits (D values), by a
+// whole warp, bin = j*32 + lane: the bins at or above the threshold, the S
+// largest of them if more pass (ties to the lower bin), the argmax bin if
+// none does. Writes the ray's slots in ascending bin order and its count.
+// DENSE (K2): dead slots get bin 0's depth and p 0; otherwise (K1) z 0 and
+// p 0. Returns the count, 0 for a padding ray.
+template <bool DENSE>
+__device__ __forceinline__ int select_row(const MkParams& P, const float* logits, int ray,
+                                          float* __restrict__ zbuf, float* __restrict__ pbuf,
+                                          int* __restrict__ counts) {
+  const int lane = threadIdx.x & 31;
+  const int DJ = P.D / 32, S = P.S;
+  float d[4];
+  bool keep[4];
+  int n_pass = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    d[j] = j < DJ ? logits[j * 32 + lane] : neg_inf();
+    keep[j] = j < DJ && d[j] >= P.threshold;
+    n_pass += __popc(__ballot_sync(0xffffffffu, keep[j]));
+  }
+  if (n_pass > S) {  // keep the S largest, ties to the lower bin
+#pragma unroll
+    for (int j = 0; j < 4; ++j) keep[j] = false;
+    for (int it = 0; it < S; ++it) {
+      float bv = neg_inf();
+      int bb = 1 << 30;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < DJ && !keep[j] && (d[j] > bv || bb == (1 << 30))) { bv = d[j]; bb = j * 32 + lane; }
+      warp_argmax(bv, bb);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) keep[j] = keep[j] || bb == j * 32 + lane;
+    }
+  } else if (n_pass == 0) {  // nothing passes: the argmax bin
+    float bv = neg_inf();
+    int bb = 1 << 30;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < DJ && (d[j] > bv || bb == (1 << 30))) { bv = d[j]; bb = j * 32 + lane; }
+    warp_argmax(bv, bb);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) keep[j] = bb == j * 32 + lane;
+  }
+  // slots in ascending bin order
+  int n = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned m = __ballot_sync(0xffffffffu, keep[j]);
+    if (keep[j] && ray < P.B) {
+      const int s = n + __popc(m & ((1u << lane) - 1u));
+      const float zu = ((float)(j * 32 + lane) + 0.5f) * (1.f / (float)P.D);
+      float z = zu;
+      if (P.z_mode == 1) z = powf(P.z_a, zu) - 1.f + P.z_b;
+      else if (P.z_mode == 2) z = zu * P.z_a + P.z_b;
+      zbuf[ray * S + s] = z;
+      pbuf[ray * S + s] = d[j];
+    }
+    n += __popc(m);
+  }
+  if (ray < P.B) {
+    if (lane >= n && lane < S) {
+      float z = 0.f;
+      if constexpr (DENSE) {  // bin 0's depth, shaded and masked in the composite
+        z = 0.5f * (1.f / (float)P.D);
+        if (P.z_mode == 1) z = powf(P.z_a, z) - 1.f + P.z_b;
+        else if (P.z_mode == 2) z = z * P.z_a + P.z_b;
+      }
+      zbuf[ray * S + lane] = z;
+      pbuf[ray * S + lane] = 0.f;
+    }
+    if (lane == 0) counts[ray] = n;
+  }
+  return ray < P.B ? n : 0;
+}
+
+// Sample `id` = ray * S + slot: its normalized position and the direction
+// to encode, into c[0:6].
+__device__ __forceinline__ void sample_coords(const MkParams& P, const float* __restrict__ o_sh,
+                                              const float* __restrict__ d_sh,
+                                              const float* __restrict__ zbuf, int id, float* c) {
+  const int r = id / P.S;
+  const float z = zbuf[id];
+  const float ox = o_sh[r * 3], oy = o_sh[r * 3 + 1], oz = o_sh[r * 3 + 2];
+  const float dx = d_sh[r * 3], dy = d_sh[r * 3 + 1], dz = d_sh[r * 3 + 2];
+  const float px = ox + dx * z, py = oy + dy * z, pz = oz + dz * z;
+  if (P.norm_none) {
+    c[0] = px; c[1] = py; c[2] = pz;
+    float ex = dx, ey = dy, ez = dz;
+    if (P.ndc) {  // encode the unit NDC direction
+      const float nrm = sqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-24f));
+      ex = dx / nrm; ey = dy / nrm; ez = dz / nrm;
+    }
+    c[3] = ex; c[4] = ey; c[5] = ez;
+  } else {  // InverseSqrtDistCentered
+    const float lx = px - P.center[0], ly = py - P.center[1], lz = pz - P.center[2];
+    const float nrm = sqrtf(sqrtf(lx * lx + ly * ly + lz * lz));
+    const float den = P.sqrt_max_depth * fmaxf(nrm, 1e-12f);
+    c[0] = lx / den; c[1] = ly / den; c[2] = lz / den;
+    c[3] = dx; c[4] = dy; c[5] = dz;
+  }
+}
+
+// The alpha head of one row, by a whole warp, lanes split K: the trunk
+// output act(k), k < W, dotted with the head's weight column.
+template <typename T, class Act>
+__device__ __forceinline__ float alpha_dot(Act act, const T* __restrict__ w) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+  for (int k = lane; k < W; k += 32) s = fmaf(act(k), to_f(w[k]), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// The rgb head of one row, likewise: the views output act(k), k < 128,
+// times the 128 x 3 weights.
+template <typename T, class Act>
+__device__ __forceinline__ float3 rgb_dot(Act act, const T* __restrict__ w) {
+  const int lane = threadIdx.x & 31;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+  for (int k = lane; k < 128; k += 32) {
+    const float h = act(k);
+    s0 = fmaf(h, to_f(w[k * 3 + 0]), s0);
+    s1 = fmaf(h, to_f(w[k * 3 + 1]), s1);
+    s2 = fmaf(h, to_f(w[k * 3 + 2]), s2);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+  }
+  return make_float3(s0, s1, s2);
+}
+
+// ---- fp32: the FMA kernels (mlp_tile.cuh), a 64-row tile per block ----
+
+// DENSE (K2) reserves no compact rows; K1 reserves the block's live rows
+// with one atomicAdd.
 template <typename T, bool DENSE>
 __global__ void __launch_bounds__(NT, 1)
 mk_front(const MkParams P, const float* __restrict__ dirs, const float* __restrict__ pose,
@@ -105,41 +331,7 @@ mk_front(const MkParams P, const float* __restrict__ dirs, const float* __restri
 
   const int t = threadIdx.x;
   const int ray0 = blockIdx.x * R;
-  if (t < R) {
-    const int ray = ray0 + t;
-    float dx = 0.f, dy = 0.f, dz = 0.f;
-    if (ray < P.B) { dx = dirs[ray * 3]; dy = dirs[ray * 3 + 1]; dz = dirs[ray * 3 + 2]; }
-    // world dirs = rot @ dir
-    const float nx = rot[0] * dx + rot[1] * dy + rot[2] * dz;
-    const float ny = rot[3] * dx + rot[4] * dy + rot[5] * dz;
-    const float nz = rot[6] * dx + rot[7] * dy + rot[8] * dz;
-    const float ox = pose[0], oy = pose[1], oz = pose[2];
-    // exit point on the view-cell sphere
-    const float mx = ox - P.center[0], my = oy - P.center[1], mz = oz - P.center[2];
-    const float u = mx * nx + my * ny + mz * nz;
-    const float delta = u * u - ((mx * mx + my * my + mz * mz) - P.radius2);
-    const float dist = -u + sqrtf(fmaxf(delta, 0.f));
-    const float px = ox + nx * dist, py = oy + ny * dist, pz = oz + nz * dist;
-    coords[t][0] = nx; coords[t][1] = ny; coords[t][2] = nz;
-    coords[t][3] = px; coords[t][4] = py; coords[t][5] = pz;
-    if (ray < P.B) {
-      float so[3] = {px, py, pz}, sd[3] = {nx, ny, nz};
-      if (P.ndc) {  // ndc_rays with near = 1, from the un-projected origin
-        const float ts = -(1.f + oz) / nz;
-        const float qx = ox + ts * nx, qy = oy + ts * ny, qz = oz + ts * nz;
-        so[0] = P.ndc_wf * qx / qz;
-        so[1] = P.ndc_hf * qy / qz;
-        so[2] = 1.f + 2.f / qz;
-        sd[0] = P.ndc_wf * (nx / nz - qx / qz);
-        sd[1] = P.ndc_hf * (ny / nz - qy / qz);
-        sd[2] = -2.f / qz;
-        if (!(nx * nx + ny * ny + nz * nz > 0.5f)) {  // zero-padded ray
-          so[0] = so[1] = so[2] = sd[0] = sd[1] = sd[2] = 0.f;
-        }
-      }
-      for (int c = 0; c < 3; ++c) { o_sh[ray * 3 + c] = so[c]; d_sh[ray * 3 + c] = sd[c]; }
-    }
-  }
+  if (t < R) ray_setup(P, dirs, pose, rot, ray0 + t, coords[t], o_sh, d_sh);
   __syncthreads();
   encode_tile(coords, x, P.in0, P.fd0, P.fp0, P.bf16);
 
@@ -157,73 +349,12 @@ mk_front(const MkParams P, const float* __restrict__ dirs, const float* __restri
   __syncthreads();
   const float* logits = nxt;
 
-  // adaptive select: one warp per ray, bin = j*32 + lane
+  // adaptive select: one warp per ray
   const int lane = t & 31, wy = t >> 5;
-  const int DJ = P.D / 32, S = P.S;
   for (int i = 0; i < 8; ++i) {
-    const int row = wy * 8 + i, ray = ray0 + row;
-    float d[4];
-    bool keep[4];
-    int n_pass = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      d[j] = j < DJ ? logits[row * 128 + j * 32 + lane] : neg_inf();
-      keep[j] = j < DJ && d[j] >= P.threshold;
-      n_pass += __popc(__ballot_sync(0xffffffffu, keep[j]));
-    }
-    if (n_pass > S) {  // keep the S largest, ties to the lower bin
-#pragma unroll
-      for (int j = 0; j < 4; ++j) keep[j] = false;
-      for (int it = 0; it < S; ++it) {
-        float bv = neg_inf();
-        int bb = 1 << 30;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (j < DJ && !keep[j] && (d[j] > bv || bb == (1 << 30))) { bv = d[j]; bb = j * 32 + lane; }
-        warp_argmax(bv, bb);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) keep[j] = keep[j] || bb == j * 32 + lane;
-      }
-    } else if (n_pass == 0) {  // nothing passes: the argmax bin
-      float bv = neg_inf();
-      int bb = 1 << 30;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (j < DJ && (d[j] > bv || bb == (1 << 30))) { bv = d[j]; bb = j * 32 + lane; }
-      warp_argmax(bv, bb);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) keep[j] = bb == j * 32 + lane;
-    }
-    // slots in ascending bin order
-    int n = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const unsigned m = __ballot_sync(0xffffffffu, keep[j]);
-      if (keep[j] && ray < P.B) {
-        const int s = n + __popc(m & ((1u << lane) - 1u));
-        const float zu = ((float)(j * 32 + lane) + 0.5f) * (1.f / (float)P.D);
-        float z = zu;
-        if (P.z_mode == 1) z = powf(P.z_a, zu) - 1.f + P.z_b;
-        else if (P.z_mode == 2) z = zu * P.z_a + P.z_b;
-        zbuf[ray * S + s] = z;
-        pbuf[ray * S + s] = d[j];
-      }
-      n += __popc(m);
-    }
-    if (ray < P.B) {
-      if (lane >= n && lane < S) {
-        float z = 0.f;
-        if constexpr (DENSE) {  // bin 0's depth, shaded and masked in the composite
-          z = 0.5f * (1.f / (float)P.D);
-          if (P.z_mode == 1) z = powf(P.z_a, z) - 1.f + P.z_b;
-          else if (P.z_mode == 2) z = z * P.z_a + P.z_b;
-        }
-        zbuf[ray * S + lane] = z;
-        pbuf[ray * S + lane] = 0.f;
-      }
-      if (lane == 0) counts[ray] = n;
-    }
-    if (lane == 0) cnt_s[row] = ray < P.B ? n : 0;
+    const int row = wy * 8 + i;
+    const int n = select_row<DENSE>(P, logits + row * 128, ray0 + row, zbuf, pbuf, counts);
+    if (lane == 0) cnt_s[row] = n;
   }
   if constexpr (DENSE) return;
   __syncthreads();
@@ -235,7 +366,7 @@ mk_front(const MkParams P, const float* __restrict__ dirs, const float* __restri
   __syncthreads();
   if (t < R) {
     const int ray = ray0 + t;
-    for (int s = 0; s < cnt_s[t]; ++s) rows[base_s + off_s[t] + s] = ray * S + s;
+    for (int s = 0; s < cnt_s[t]; ++s) rows[base_s + off_s[t] + s] = ray * P.S + s;
   }
 }
 
@@ -263,28 +394,7 @@ mk_shade(const MkParams P, const T* __restrict__ wts, const float* __restrict__ 
     if (t < R) {
       const int j = tile * R + t;
       float c[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (j < total) {
-        const int id = DENSE ? j : rows[j], r = id / P.S;
-        const float z = zbuf[id];
-        const float ox = o_sh[r * 3], oy = o_sh[r * 3 + 1], oz = o_sh[r * 3 + 2];
-        const float dx = d_sh[r * 3], dy = d_sh[r * 3 + 1], dz = d_sh[r * 3 + 2];
-        const float px = ox + dx * z, py = oy + dy * z, pz = oz + dz * z;
-        if (P.norm_none) {
-          c[0] = px; c[1] = py; c[2] = pz;
-          float ex = dx, ey = dy, ez = dz;
-          if (P.ndc) {  // encode the unit NDC direction
-            const float nrm = sqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-24f));
-            ex = dx / nrm; ey = dy / nrm; ez = dz / nrm;
-          }
-          c[3] = ex; c[4] = ey; c[5] = ez;
-        } else {  // InverseSqrtDistCentered
-          const float lx = px - P.center[0], ly = py - P.center[1], lz = pz - P.center[2];
-          const float nrm = sqrtf(sqrtf(lx * lx + ly * ly + lz * lz));
-          const float den = P.sqrt_max_depth * fmaxf(nrm, 1e-12f);
-          c[0] = lx / den; c[1] = ly / den; c[2] = lz / den;
-          c[3] = dx; c[4] = dy; c[5] = dz;
-        }
-      }
+      if (j < total) sample_coords(P, o_sh, d_sh, zbuf, DENSE ? j : rows[j], c);
       for (int k = 0; k < 6; ++k) coords[t][k] = c[k];
     }
     __syncthreads();
@@ -305,13 +415,10 @@ mk_shade(const MkParams P, const T* __restrict__ wts, const float* __restrict__ 
     // feature = h @ wf + bf (no activation) into the other buffer
     mlp_layer<T, W>({cur, W, W, wts + P.n_wf}, {}, 1, bias + P.n_bf, nxt, W, false, rb, wt);
     __syncthreads();
-    // alpha head: one warp per row, lanes split K
+    // alpha head: one warp per row
     for (int i = 0; i < 8; ++i) {
       const int row = wy * 8 + i;
-      float s = 0.f;
-      for (int k = lane; k < W; k += 32) s = fmaf(cur[row * W + k], to_f(wts[P.n_wa + k]), s);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      const float s = alpha_dot([&](int k) { return cur[row * W + k]; }, wts + P.n_wa);
       if (lane == 0) alpha_s[row] = s + bias[P.n_ba];
     }
     // views = relu([feature, dirs] @ wv + bv), 128 wide, written over the trunk
@@ -321,25 +428,315 @@ mk_shade(const MkParams P, const T* __restrict__ wts, const float* __restrict__ 
     // rgb head and the write-back by (ray, slot)
     for (int i = 0; i < 8; ++i) {
       const int row = wy * 8 + i;
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-      for (int k = lane; k < 128; k += 32) {
-        const float h = cur[row * 128 + k];
-        s0 = fmaf(h, to_f(wts[P.n_wrgb + k * 3 + 0]), s0);
-        s1 = fmaf(h, to_f(wts[P.n_wrgb + k * 3 + 1]), s1);
-        s2 = fmaf(h, to_f(wts[P.n_wrgb + k * 3 + 2]), s2);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-      }
+      const float3 s = rgb_dot([&](int k) { return cur[row * 128 + k]; }, wts + P.n_wrgb);
       const int j = tile * R + row;
       if (lane == 0 && j < total) {
         const int id = DENSE ? j : rows[j];
         *reinterpret_cast<float4*>(raw + (size_t)id * 4) =
-            make_float4(s0 + bias[P.n_brgb], s1 + bias[P.n_brgb + 1],
-                        s2 + bias[P.n_brgb + 2], alpha_s[row]);
+            make_float4(s.x + bias[P.n_brgb], s.y + bias[P.n_brgb + 1],
+                        s.z + bias[P.n_brgb + 2], alpha_s[row]);
+      }
+    }
+  }
+}
+
+// ---- bf16: the tensor-core kernels (mlp_wgmma.cuh) ----
+//
+// A persistent block of three warpgroups walks 128-row tiles: warpgroup 0
+// is the producer, 1 and 2 the consumers. Each consumer owns 64 rows of the
+// tile and does all the per-row work of its rows (ray setup or sample
+// coordinates, encode, select or heads) between its layers, under barriers
+// of its own. A layer's output is written over the tile's activations h
+// once every wgmma of the layer has completed; the oracle's 64 x 128 fp32
+// logits reuse h too. Shared memory, from its 1024-byte aligned base: the
+// stage ring, two x buffers and h of each consumer, then TcSmall, 230,968
+// of the 232,448 bytes a block can take. The shade encodes the next tile
+// into its other x buffer while the current tile's layers run, each
+// thread pair holding its row's coordinates in registers; the front, whose
+// x is free once layer 0 is done, encodes into its one x buffer and keeps
+// the coordinates in the other.
+
+constexpr int TC_THREADS = 384;
+constexpr int TC_TILE = 2 * TC_ROWS;           // rows per block tile
+constexpr int TC_X_BYTES = TC_ROWS * 128 * 2;  // encoded input, at most 128 columns
+constexpr int TC_H_BYTES = TC_ROWS * W * 2;    // activations; or 64 x 128 fp32 logits
+constexpr int TC_OFF_X = TC_STAGES * TC_STAGE_BYTES;
+constexpr int TC_OFF_H = TC_OFF_X + 4 * TC_X_BYTES;
+constexpr int TC_OFF_SMALL = TC_OFF_H + 2 * TC_H_BYTES;
+
+struct TcSmall {
+  unsigned long long full[TC_STAGES], empty[TC_STAGES];
+  float alpha[TC_TILE];
+  int cnt[TC_TILE], off[TC_TILE], base[2];
+};
+
+constexpr size_t TC_SMEM_BYTES = TC_OFF_SMALL + sizeof(TcSmall);
+
+// Weight layer l of a kernel's stream: kc0 chunks multiply the first input
+// (the encoded x for layer 0, else the tile's activations h), kc1 chunks the
+// encoded input x (a NeRF skip layer, the views layer), and n output
+// columns. The front walks the oracle (depth0 layers, the last 128 wide);
+// the shade walks the NeRF trunk (depth1 layers), the feature layer and the
+// views layer (128 wide). megakernel_compact.py packs the stream in this
+// order (stream_plan mirrors this function).
+__device__ __forceinline__ void tc_plan(const MkParams& P, bool front, int l, int& kc0, int& kc1,
+                                        int& n) {
+  if (front) {
+    kc0 = l == 0 ? P.in0 / TC_KC : W / TC_KC;
+    kc1 = 0;
+    n = l == P.depth0 - 1 ? 128 : W;
+    return;
+  }
+  kc0 = l == 0 ? P.in1 / TC_KC : W / TC_KC;
+  const bool skip = l > 0 && l < P.depth1 && ((P.skip_mask >> (l - 1)) & 1);
+  kc1 = skip || l == P.depth1 + 1 ? P.in1 / TC_KC : 0;
+  n = l == P.depth1 + 1 ? 128 : W;
+}
+
+__device__ __forceinline__ int tc_layers(const MkParams& P, bool front) {
+  return front ? P.depth0 : P.depth1 + 2;
+}
+
+// The producer: one thread walks the stream once per tile the block owns,
+// keeping up to TC_STAGES chunks in flight.
+__device__ void tc_produce(const MkParams& P, bool front, const __nv_bfloat16* stream,
+                           int ntiles, uint32_t full, uint32_t empty, uint32_t buf) {
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const char* src = reinterpret_cast<const char*>(stream);
+    for (int l = 0; l < tc_layers(P, front); ++l) {
+      int kc0, kc1, n;
+      tc_plan(P, front, l, kc0, kc1, n);
+      const uint32_t bytes = n * TC_KC * 2;
+      for (int c = 0; c < kc0 + kc1; ++c) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        bulk_load(buf + stage * TC_STAGE_BYTES, src, bytes, full + 8 * stage);
+        src += bytes;
+        if (++stage == TC_STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+  }
+}
+
+// The shared-memory carve-up and barrier set-up of both tensor-core
+// kernels; the producer warpgroup walks `stream` and returns false, a
+// consumer returns true with its ring.
+struct TcBlock {
+  uint8_t* sm;
+  TcSmall* small;
+  Ring ring;
+
+  __device__ __forceinline__ bool start(float4* smem4, const MkParams& P, bool front,
+                                        const __nv_bfloat16* stream, int ntiles) {
+    sm = reinterpret_cast<uint8_t*>(smem4);
+    if (smem_u32(sm) & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
+    small = reinterpret_cast<TcSmall*>(sm + TC_OFF_SMALL);
+    ring = Ring{smem_u32(small->full), smem_u32(small->empty), smem_u32(sm), 0, 0};
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < TC_STAGES; ++i) {
+        mbar_init(ring.full + 8 * i, 1);
+        mbar_init(ring.empty + 8 * i, TC_CONSUMER_WARPS);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x < 128) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+      if (threadIdx.x == 0) tc_produce(P, front, stream, ntiles, ring.full, ring.empty, ring.buf);
+      return false;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    return true;
+  }
+  __device__ __forceinline__ int g() const { return (threadIdx.x >> 7) - 1; }
+  __device__ __forceinline__ uint8_t* x(int b) const {
+    return sm + TC_OFF_X + (2 * g() + b) * TC_X_BYTES;
+  }
+  __device__ __forceinline__ uint8_t* h() const { return sm + TC_OFF_H + g() * TC_H_BYTES; }
+};
+
+template <bool DENSE>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+mk_front_tc(const MkParams P, const float* __restrict__ dirs, const float* __restrict__ pose,
+            const float* __restrict__ rot, const __nv_bfloat16* __restrict__ wts,
+            const float* __restrict__ bias, float* __restrict__ o_sh, float* __restrict__ d_sh,
+            float* __restrict__ zbuf, float* __restrict__ pbuf, int* __restrict__ counts,
+            int* __restrict__ rows, int* __restrict__ counter) {
+  extern __shared__ float4 smem4[];
+  TcBlock blk;
+  const int ntiles = (P.B + TC_TILE - 1) / TC_TILE;
+  if (!blk.start(smem4, P, true, wts + P.o_w[0], ntiles)) return;
+  const int g = blk.g(), bar = 1 + g, tl = threadIdx.x & 127, lane = tl & 31, wq = tl >> 5;
+  uint8_t* x = blk.x(0);
+  uint8_t* h = blk.h();
+  const uint32_t xa = smem_u32(x), ha = smem_u32(h);
+  TcSmall& s = *blk.small;
+  float* logits = reinterpret_cast<float*>(h);
+
+  // A tile's rays are set up and encoded while the previous tile's layers
+  // 1.. run (x is free once layer 0 is done): threads 2r and 2r + 1 own
+  // row r, slot 0 sets up its ray (both write the same shading ray), slots
+  // 1.. encode, one part each.
+  constexpr int PARTS = 8;
+  float cr[6];
+  auto prep = [&](int tile, int slot) {
+    if (slot == 0)
+      ray_setup(P, dirs, pose, rot, tile * TC_TILE + g * TC_ROWS + tl / 2, cr, o_sh, d_sh);
+    else if (slot <= PARTS)
+      encode_row_bf16(cr, x, tl / 2, P.in0, P.fd0, P.fp0, tl & 1, slot - 1, PARTS);
+  };
+  if (blockIdx.x < ntiles)
+    for (int slot = 0; slot <= PARTS; ++slot) prep(blockIdx.x, slot);
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int ray0 = tile * TC_TILE + g * TC_ROWS, next = tile + gridDim.x;
+    int slot = 0;
+    auto side = [&](int) {
+      if (next < ntiles) prep(next, slot);
+      ++slot;
+    };
+    fence_async_smem();
+    wg_sync(bar);  // x is encoded; the previous tile's select is done with h
+
+    // oracle MLP: relu trunk, raw logits out (padded to 128 columns)
+    float acc[128];
+    tc_layer<256>(blk.ring, acc, xa, P.in0 / TC_KC, 0, 0);
+    tc_store_bf16<256>(acc, bias + P.o_b[0], true, h);
+    for (int l = 1; l < P.depth0 - 1; ++l) {
+      fence_async_smem();
+      wg_sync(bar);
+      tc_layer<256>(blk.ring, acc, ha, W / TC_KC, 0, 0, side);
+      wg_sync(bar);  // every warp's wgmma has read h
+      tc_store_bf16<256>(acc, bias + P.o_b[l], true, h);
+    }
+    fence_async_smem();
+    wg_sync(bar);
+    float lg[64];
+    tc_layer<128>(blk.ring, lg, ha, W / TC_KC, 0, 0, side);
+    while (slot <= PARTS) side(0);  // a shallow oracle leaves parts over
+    wg_sync(bar);
+    tc_store_f32(lg, bias + P.o_b[P.depth0 - 1], logits);
+    wg_sync(bar);
+
+    // adaptive select: one warp per ray
+    for (int i = 0; i < TC_ROWS / 4; ++i) {
+      const int row = wq * (TC_ROWS / 4) + i;
+      const int n = select_row<DENSE>(P, logits + row * 128, ray0 + row, zbuf, pbuf, counts);
+      if (lane == 0) s.cnt[g * TC_ROWS + row] = n;
+    }
+    if constexpr (!DENSE) {  // reserve this warpgroup's live rows
+      wg_sync(bar);
+      int* cnt = s.cnt + g * TC_ROWS;
+      int* off = s.off + g * TC_ROWS;
+      if (tl == 0) {
+        int tot = 0;
+        for (int r = 0; r < TC_ROWS; ++r) { off[r] = tot; tot += cnt[r]; }
+        s.base[g] = atomicAdd(counter, tot);
+      }
+      wg_sync(bar);
+      if (tl < TC_ROWS)
+        for (int k = 0; k < cnt[tl]; ++k) rows[s.base[g] + off[tl] + k] = (ray0 + tl) * P.S + k;
+    }
+  }
+}
+
+template <bool DENSE>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+mk_shade_tc(const MkParams P, const __nv_bfloat16* __restrict__ wts,
+            const float* __restrict__ bias, const float* __restrict__ o_sh,
+            const float* __restrict__ d_sh, const float* __restrict__ zbuf,
+            const int* __restrict__ rows, const int* __restrict__ counter,
+            float* __restrict__ raw) {
+  extern __shared__ float4 smem4[];
+  TcBlock blk;
+  const int total = DENSE ? P.B * P.S : *counter;
+  const int ntiles = (total + TC_TILE - 1) / TC_TILE;
+  if (!blk.start(smem4, P, false, wts + P.n_w[0], ntiles)) return;
+  const int g = blk.g(), bar = 1 + g, tl = threadIdx.x & 127, lane = tl & 31, wq = tl >> 5;
+  uint8_t* h = blk.h();
+  const uint32_t ha = smem_u32(h);
+  TcSmall& s = *blk.small;
+  float* alpha_s = s.alpha + g * TC_ROWS;
+  const int kx = P.in1 / TC_KC;
+
+  // A tile's sample coordinates and encode are made while the previous
+  // tile's layers run, into the x buffer it does not read: threads 2r and
+  // 2r + 1 own row r, slot 0 takes its coordinates into registers, slots
+  // 1.. encode, one part each.
+  constexpr int PARTS = 8;
+  float cr[6];
+  auto prep = [&](int tile, uint8_t* xn, int slot) {
+    if (slot == 0) {
+      const int j = tile * TC_TILE + g * TC_ROWS + tl / 2;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) cr[k] = 0.f;
+      if (j < total) sample_coords(P, o_sh, d_sh, zbuf, DENSE ? j : rows[j], cr);
+    } else if (slot <= PARTS) {
+      encode_row_bf16(cr, xn, tl / 2, P.in1, P.fp1, P.fd1, tl & 1, slot - 1, PARTS);
+    }
+  };
+  if (blockIdx.x < ntiles)
+    for (int slot = 0; slot <= PARTS; ++slot) prep(blockIdx.x, blk.x(0), slot);
+
+  int b = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, b ^= 1) {
+    const int j0 = tile * TC_TILE + g * TC_ROWS, next = tile + gridDim.x;
+    const uint32_t xa = smem_u32(blk.x(b));
+    int slot = 0;
+    auto side = [&](int) {
+      if (next < ntiles) prep(next, blk.x(b ^ 1), slot);
+      ++slot;
+    };
+    fence_async_smem();
+    wg_sync(bar);  // x(b) is encoded; the previous tile's readers of h are done
+
+    // NeRF trunk; layer i takes [h, x] when bit i-1 of skip_mask is set
+    float acc[128];
+    tc_layer<256>(blk.ring, acc, xa, kx, 0, 0);
+    tc_store_bf16<256>(acc, bias + P.n_b[0], true, h);
+    for (int l = 1; l < P.depth1; ++l) {
+      fence_async_smem();
+      wg_sync(bar);
+      tc_layer<256>(blk.ring, acc, ha, W / TC_KC, xa, ((P.skip_mask >> (l - 1)) & 1) ? kx : 0,
+                    side);
+      wg_sync(bar);
+      tc_store_bf16<256>(acc, bias + P.n_b[l], true, h);
+    }
+    while (slot <= PARTS) side(0);  // a shallow NeRF leaves parts over
+    fence_async_smem();
+    wg_sync(bar);
+    // feature = h @ wf + bf (no activation); the alpha head reads the trunk
+    // output while the feature layer's wgmmas run, RF rows a chunk, before
+    // its epilogue overwrites h
+    constexpr int RF = TC_ROWS / 4 / (W / TC_KC);
+    tc_layer<256>(blk.ring, acc, ha, W / TC_KC, 0, 0, [&](int c) {
+      for (int r = c * RF; r < (c + 1) * RF; ++r) {
+        const int row = wq * (TC_ROWS / 4) + r;
+        const float a = alpha_dot([&](int k) { return ld_bf16(h, row, k); }, wts + P.n_wa);
+        if (lane == 0) alpha_s[row] = a + bias[P.n_ba];
+      }
+    });
+    wg_sync(bar);
+    tc_store_bf16<256>(acc, bias + P.n_bf, false, h);
+    fence_async_smem();
+    wg_sync(bar);
+    // views = relu([feature, dirs] @ wv + bv), 128 wide
+    float v[64];
+    tc_layer<128>(blk.ring, v, ha, W / TC_KC, xa, kx);
+    wg_sync(bar);
+    tc_store_bf16<128>(v, bias + P.n_bv, true, h);
+    wg_sync(bar);
+    // rgb head and the write-back by (ray, slot)
+    for (int i = 0; i < TC_ROWS / 4; ++i) {
+      const int row = wq * (TC_ROWS / 4) + i;
+      const float3 o = rgb_dot([&](int k) { return ld_bf16(h, row, k); }, wts + P.n_wrgb);
+      const int j = j0 + row;
+      if (lane == 0 && j < total) {
+        const int id = DENSE ? j : rows[j];
+        *reinterpret_cast<float4*>(raw + (size_t)id * 4) =
+            make_float4(o.x + bias[P.n_brgb], o.y + bias[P.n_brgb + 1],
+                        o.z + bias[P.n_brgb + 2], alpha_s[row]);
       }
     }
   }
@@ -372,23 +769,40 @@ __global__ void mk_composite(const MkParams P, const float* __restrict__ raw,
   rgb[r * 3 + 2] = cb;
 }
 
+// fp32 weights (T = float) run the FMA kernels, bf16 weights the
+// tensor-core kernels; the composite is the same.
 template <typename T, bool DENSE>
 cudaError_t launch_all(const MkParams& P, const float* dirs, const float* pose,
                        const float* rot, const void* wts, const float* bias, float* o_sh,
                        float* d_sh, float* zbuf, float* pbuf, int* counts, int* rows,
                        int* counter, float* raw, float* rgb, cudaStream_t stream) {
   cudaError_t e;
-  if ((e = cudaFuncSetAttribute(mk_front<T, DENSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)SMEM_BYTES)) != cudaSuccess) return e;
-  if ((e = cudaFuncSetAttribute(mk_shade<T, DENSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)SMEM_BYTES)) != cudaSuccess) return e;
-  if (!DENSE && (e = cudaMemsetAsync(counter, 0, sizeof(int), stream)) != cudaSuccess) return e;
   const T* w = static_cast<const T*>(wts);
-  mk_front<T, DENSE><<<(P.B + R - 1) / R, NT, SMEM_BYTES, stream>>>(
-      P, dirs, pose, rot, w, bias, o_sh, d_sh, zbuf, pbuf, counts, rows, counter);
-  if ((e = cudaGetLastError()) != cudaSuccess || P.stages < 2) return e;
-  mk_shade<T, DENSE><<<P.shade_blocks, NT, SMEM_BYTES, stream>>>(P, w, bias, o_sh, d_sh, zbuf,
-                                                          rows, counter, raw);
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if ((e = cudaFuncSetAttribute(mk_front<T, DENSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)SMEM_BYTES)) != cudaSuccess) return e;
+    if ((e = cudaFuncSetAttribute(mk_shade<T, DENSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)SMEM_BYTES)) != cudaSuccess) return e;
+    if (!DENSE && (e = cudaMemsetAsync(counter, 0, sizeof(int), stream)) != cudaSuccess) return e;
+    mk_front<T, DENSE><<<(P.B + R - 1) / R, NT, SMEM_BYTES, stream>>>(
+        P, dirs, pose, rot, w, bias, o_sh, d_sh, zbuf, pbuf, counts, rows, counter);
+    if ((e = cudaGetLastError()) != cudaSuccess || P.stages < 2) return e;
+    mk_shade<T, DENSE><<<P.shade_blocks, NT, SMEM_BYTES, stream>>>(P, w, bias, o_sh, d_sh, zbuf,
+                                                                   rows, counter, raw);
+  } else {
+    if ((e = cudaFuncSetAttribute(mk_front_tc<DENSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)TC_SMEM_BYTES)) != cudaSuccess) return e;
+    if ((e = cudaFuncSetAttribute(mk_shade_tc<DENSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)TC_SMEM_BYTES)) != cudaSuccess) return e;
+    if (!DENSE && (e = cudaMemsetAsync(counter, 0, sizeof(int), stream)) != cudaSuccess) return e;
+    const int tiles = (P.B + TC_TILE - 1) / TC_TILE;
+    mk_front_tc<DENSE><<<tiles < P.shade_blocks ? tiles : P.shade_blocks, TC_THREADS,
+                         TC_SMEM_BYTES, stream>>>(P, dirs, pose, rot, w, bias, o_sh, d_sh, zbuf,
+                                                  pbuf, counts, rows, counter);
+    if ((e = cudaGetLastError()) != cudaSuccess || P.stages < 2) return e;
+    mk_shade_tc<DENSE><<<P.shade_blocks, TC_THREADS, TC_SMEM_BYTES, stream>>>(
+        P, w, bias, o_sh, d_sh, zbuf, rows, counter, raw);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess || P.stages < 3) return e;
   mk_composite<DENSE><<<(P.B + 255) / 256, 256, 0, stream>>>(P, raw, pbuf, counts, rgb);
   return cudaGetLastError();

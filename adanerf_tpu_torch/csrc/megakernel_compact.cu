@@ -6,24 +6,44 @@
 // front-to-back composite. The plain PyTorch version it is held against is
 // adanerf_tpu_torch/realtime.py (through ops/kernels/megakernel_compact.py).
 //
-// What bounds it: arithmetic. One ray costs 449,024 multiply-adds in the
-// 8x256 oracle and each live sample 593,408 in the 8x256 NeRF; an 800x800
-// frame at ~1.3 samples per pixel is ~1.6 TFLOP against ~4 MB of weights
-// and under 20 MB of frame input and output. Its design therefore keeps
-// every activation on chip: a block owns a 64-row tile, holds the encoded
-// input and two 64x256 fp32 activation buffers in shared memory, and streams
-// each layer's weights through shared memory in 32-row chunks (the weights
-// stay resident in the 50 MB L2 across blocks). Each thread accumulates an
-// 8-row x 8-column register tile with fp32 FMAs. Tensor cores (wgmma/TMA)
-// are the next step and not used here.
+// What bounds it: arithmetic. One ray costs
+// 449,024 multiply-adds in the 8x256 oracle and each live sample 593,408 in
+// the 8x256 NeRF; an 800x800 frame at ~1.3 samples per pixel is ~1.54 TFLOP
+// (1.553 ms at the bf16 tensor-core peak of 989 TFLOP/s), against ~2 MB of
+// bf16 weights and under 20 MB of frame input and output. Every activation
+// therefore stays on chip, and the weights are streamed from L2 into shared
+// memory for each tile of rows.
+//
+// bf16 (the viewer's precision) runs on the tensor cores (mk_front_tc,
+// mk_shade_tc; mlp_wgmma.cuh): a persistent block of one producer and two
+// consumer warpgroups walks 128-row tiles. Each consumer owns 64 rows, the
+// wgmma M, and runs every layer as m64n256k16 (m64n128k16 for the oracle's
+// logits and the views layer) wgmma on bf16 operands in shared memory with
+// fp32 accumulators in registers; the producer brings the layer's weights
+// in 64-row chunks (32 KB at N = 256) by bulk async copy into a 3-stage ring
+// guarded by mbarriers, so loads overlap the multiplies. Both consumers read
+// each staged chunk, so a tile of 128 rows reads each weight byte from L2
+// once: 0.918 MB for the oracle and 1.278 MB for the NeRF per tile, 4.59 GB
+// + 8.08 GB reckoned for an 800x800 frame at 0.2. The shade then runs at
+// about a third of the tensor-core peak; whether that traffic, the chain of
+// wgmma groups before each epilogue or the per-row work sets its pace is
+// not measured (PERF.md section 5). A 2-block cluster multicasting each
+// chunk halves the traffic but was slower: it ties four warpgroups to one
+// ring, so the slowest paces all.
+//
+// fp32 weights run the FMA kernels (mk_front, mk_shade; mlp_tile.cuh): a
+// block owns a 64-row tile, holds the encoded input and two 64x256 fp32
+// activation buffers in shared memory and streams each layer's weights
+// through shared memory in 32-row chunks; each thread accumulates an 8-row
+// x 8-column register tile with fp32 FMAs. They are the exact reference.
 //
 // The kernels live in megakernel.cuh, shared with K2 (megakernel_dense.cu),
 // and are instantiated here with DENSE = false. Three launches on the
 // caller's stream, no host synchronisation:
-//   (a) mk_front:     one block per 64 rays: ray setup, oracle encode + MLP,
-//                     select, per-ray (count, z, p); reserves compact row
-//                     offsets with one atomicAdd per block.
-//   (b) mk_shade:     persistent blocks walk the compact rows (the live count
+//   (a) front:        ray setup, oracle encode + MLP, select, per-ray
+//                     (count, z, p); reserves compact row offsets with one
+//                     atomicAdd per 64 rays (bf16: per consumer warpgroup).
+//   (b) shade:        persistent blocks walk the compact rows (the live count
 //                     is read on the device): normalize, encode, NeRF MLP,
 //                     raw rgba written back by (ray, slot).
 //   (c) mk_composite: one thread per ray.
@@ -53,3 +73,8 @@ extern "C" int mk_compact_launch(int device, const MkParams* P, const float* dir
 }
 
 extern "C" int mk_struct_size() { return static_cast<int>(sizeof(MkParams)); }
+
+// Dynamic shared memory a block of the fp32 (bf16 = 0) or bf16 kernels takes.
+extern "C" int mk_smem_bytes(int bf16) {
+  return static_cast<int>(bf16 ? TC_SMEM_BYTES : SMEM_BYTES);
+}

@@ -12,7 +12,13 @@ it renders a batch of rays to ``(rgb (B, 3), counts (B,))``:
 
 The kernel takes the renderer's precision: fp32 weights when
 ``renderer.dtype`` is None, bf16 weights and bf16-rounded matmul inputs
-with fp32 accumulation when it is ``torch.bfloat16``.
+with fp32 accumulation when it is ``torch.bfloat16``. Both precisions pack
+the matrices in the order the tensor-core kernels walk them
+(``stream_plan``), in two layouts. fp32 keeps each matrix row-major for the
+FMA layer (``csrc/mlp_tile.cuh``), which reads it by its offset. bf16
+writes each MLP as one stream of weight chunks for the tensor-core layer
+(``csrc/mlp_wgmma.cuh``), already in the byte layout of its shared-memory
+stages (``swizzle128``), so that each chunk arrives by one bulk copy.
 """
 
 from __future__ import annotations
@@ -49,8 +55,55 @@ class MkParams(ctypes.Structure):
         [(k, ctypes.c_float) for k in ("z_a", "z_b", "ndc_wf", "ndc_hf")]
 
 
-def _pad32(n: int) -> int:
-    return 32 * math.ceil(n / 32)
+TC_KC = 64  # K rows of a bf16 weight chunk: one 128-byte swizzle atom of bf16
+# rows one walk of a bf16 stream serves: a block's two 64-row consumers
+# read every chunk it fetches from L2
+TC_ROWS_PER_WALK = 128
+
+
+def _pad(n: int, m: int) -> int:
+    return m * math.ceil(n / m)
+
+
+def swizzle128(n_rows: int) -> np.ndarray:
+    """(n_rows, 64) int: where element (n, k) of a bf16 weight chunk (n_rows
+    x 64, K-major) sits in the chunk's flat layout. Row n takes 128 bytes,
+    and its 16-byte group k // 8 sits at group (k // 8) ^ (n % 8): the
+    128-byte swizzle that ``csrc/mlp_wgmma.cuh`` (``sw128``) and wgmma's
+    descriptors read."""
+    n = np.arange(n_rows)[:, None]
+    k = np.arange(TC_KC)[None, :]
+    return n * TC_KC + ((k // 8) ^ (n % 8)) * 8 + k % 8
+
+
+def unpack_chunks(flat: np.ndarray, off: int, rows: int, n: int) -> np.ndarray:
+    """The (rows, n) matrix that ``_Packer.chunks`` wrote at element ``off``
+    of ``flat`` (rows a multiple of 64), as the kernel reads it back."""
+    idx = swizzle128(n)
+    chunks = flat[off:off + rows * n].reshape(rows // TC_KC, n * TC_KC)
+    return np.concatenate([c[idx].T for c in chunks])
+
+
+def stream_plan(P, front: bool):
+    """[(kc0, kc1, n)] for each weight layer of a bf16 stream, as
+    ``csrc/megakernel.cuh::tc_plan`` walks it: kc0 chunks of the layer's
+    first input, kc1 of the encoded input x (a NeRF skip layer, the views
+    layer), n output columns. The front walks the oracle, the shade the NeRF
+    trunk, the feature layer and the views layer."""
+    if front:
+        return [(P.in0 // TC_KC if l == 0 else WIDTH // TC_KC, 0,
+                 128 if l == P.depth0 - 1 else WIDTH) for l in range(P.depth0)]
+    plan = [(P.in1 // TC_KC, 0, WIDTH)]
+    for l in range(1, P.depth1):
+        plan.append((WIDTH // TC_KC, P.in1 // TC_KC if (P.skip_mask >> (l - 1)) & 1 else 0,
+                     WIDTH))
+    return plan + [(WIDTH // TC_KC, 0, WIDTH), (WIDTH // TC_KC, P.in1 // TC_KC, 128)]
+
+
+def stream_bytes(P, front: bool) -> int:
+    """Bytes of one walk of a bf16 stream: what TC_ROWS_PER_WALK rows read
+    from L2."""
+    return sum((kc0 + kc1) * n * TC_KC * 2 for kc0, kc1, n in stream_plan(P, front))
 
 
 class _Packer:
@@ -76,6 +129,22 @@ class _Packer:
         flat[:a.size] = a.reshape(-1)
         self.w.append(flat)
         self.nw += flat.size
+        return off
+
+    def chunks(self, a, n, rows=None):
+        """Appends a (K, <= n) matrix as bf16 weight chunks: rows padded with
+        zeros to ``rows`` (default K) and then to a multiple of 64, columns
+        to n; each 64-row block transposed to (n, 64) and laid out by
+        ``swizzle128``, n * 64 elements a chunk, one after the other."""
+        a = np.asarray(a, np.float32)
+        a = self._pad(a, _pad(rows or a.shape[0], TC_KC), n)
+        idx = swizzle128(n)
+        out = np.zeros((a.shape[0] // TC_KC, n * TC_KC), np.float32)
+        for c in range(out.shape[0]):
+            out[c, idx] = a[c * TC_KC:(c + 1) * TC_KC].T
+        off = self.nw
+        self.w.append(out.reshape(-1))
+        self.nw += out.size
         return off
 
     def vec(self, v, n=None):
@@ -131,38 +200,49 @@ class MegakernelCompact:
         if in_ch != 6 * fp1 + 3 or in_views != 6 * fd1 + 3 \
                 or oracle.n_in != 6 * (fp0 + fd0) + 6:
             raise ValueError("MLP input widths do not match posEncArgs")
-        in0, in1 = _pad32(oracle.n_in), _pad32(in_ch + in_views)
+        if oracle.depth < 2:
+            raise ValueError("kernel needs an oracle of at least 2 layers")
+        bf16 = renderer.dtype is torch.bfloat16
+        # the tensor-core layer takes K in 64-column blocks
+        in0, in1 = (_pad(n, TC_KC if bf16 else 32) for n in (oracle.n_in, in_ch + in_views))
         if in0 > 128 or in1 > 128:
             raise ValueError("encoded inputs wider than 128 columns")
 
         P = MkParams()
         pk = _Packer()
+        # both precisions pack the matrices in stream_plan's order: the
+        # oracle, then the NeRF trunk (a skip layer's h rows before its x
+        # rows), the feature and views layers, then the row-major heads. bf16
+        # writes each as stream chunks, which its kernels walk from o_w[0]
+        # and n_w[0]; fp32 keeps them row-major, read by their offsets
+        mat = (lambda a, rows=None, cols=None: pk.chunks(a, cols or a.shape[1], rows)) \
+            if bf16 else pk.mat
         ow = _numpy_state(oracle)
         for i in range(oracle.depth):
             last = i == oracle.depth - 1
-            P.o_w[i] = pk.mat(ow[f"{i}.w"], rows=in0 if i == 0 else None,
-                              cols=128 if last else None)
+            P.o_w[i] = mat(ow[f"{i}.w"], rows=in0 if i == 0 else None,
+                           cols=128 if last else None)
             P.o_b[i] = pk.vec(ow[f"{i}.b"], 128 if last else None)
         nw = _numpy_state(nerf)
-        P.n_w[0] = pk.mat(nw["pts.0.w"], rows=in1)
+        P.n_w[0] = mat(nw["pts.0.w"], rows=in1)
         P.n_b[0] = pk.vec(nw["pts.0.b"])
         skip_mask = 0
         for i in range(1, nerf.depth):
             w = nw[f"pts.{i}.w"]
-            if (i - 1) in nerf.skips:  # input is [input_pts, h]
-                skip_mask |= 1 << (i - 1)
-                P.n_wx[i] = pk.mat(w[:in_ch], rows=in1)
-                w = w[in_ch:]
-            P.n_w[i] = pk.mat(w)
+            skip = (i - 1) in nerf.skips  # input is [input_pts, h]
+            skip_mask |= skip << (i - 1)
+            P.n_w[i] = mat(w[in_ch:] if skip else w)
+            if skip:
+                P.n_wx[i] = mat(w[:in_ch], rows=in1)
             P.n_b[i] = pk.vec(nw[f"pts.{i}.b"])
-        P.n_wf, P.n_bf = pk.mat(nw["feature.w"]), pk.vec(nw["feature.b"])
-        P.n_wa, P.n_ba = pk.mat(nw["alpha.w"]), pk.vec(nw["alpha.b"])
+        P.n_wf, P.n_bf = mat(nw["feature.w"]), pk.vec(nw["feature.b"])
         wv = nw["views.0.w"]  # input is [feature W | dirs in_views]
-        P.n_wvf = pk.mat(wv[:WIDTH])
+        P.n_wvf = mat(wv[:WIDTH])
         wvd = np.zeros((in1, WIDTH // 2), np.float32)
         wvd[in_ch:in_ch + in_views] = wv[WIDTH:]
-        P.n_wvd = pk.mat(wvd)
+        P.n_wvd = mat(wvd)
         P.n_bv = pk.vec(nw["views.0.b"])
+        P.n_wa, P.n_ba = pk.mat(nw["alpha.w"]), pk.vec(nw["alpha.b"])
         P.n_wrgb, P.n_brgb = pk.mat(nw["rgb.w"]), pk.vec(nw["rgb.b"])
 
         P.S, P.D, P.in0, P.in1 = S, D, in0, in1
@@ -185,7 +265,7 @@ class MegakernelCompact:
             P.ndc_hf = -1.0 / (sc.h / (2.0 * sc.focal))
         P.norm_none = int(rt.norm_name in ("None", "none"))
         P.acc_mode = {None: 0, "alpha": 1, "weights": 2}[rt.accumulation_mult]
-        P.bf16 = int(renderer.dtype is torch.bfloat16)
+        P.bf16 = int(bf16)
         P.threshold = rt.threshold
         P.radius2 = sc.view_cell_radius ** 2
         P.sqrt_max_depth = math.sqrt(sc.depth_max)

@@ -3,12 +3,14 @@
 
   python3 chip_smoke.py
 
-Builds the CUDA kernels from the checkout, holds each against its plain
-PyTorch version on the card, drives the port's three paths (the viewer
-rendering a trained export through K1, the dense trainer taking a few
-steps through K3, and the viewer's ``--megakernel v3`` rendering through
-K2) and prints, as its last two lines, a JSON line of per-kernel numbers
-and a JSON line ``{"ok": true, "device": {...}}``. Exits
+Builds the CUDA kernels from the checkout (printing each kernel's
+registers, spills, shared memory and HGMMA count), holds each against its
+plain PyTorch version on the card, drives the port's three paths (the
+viewer rendering a trained export through K1, the dense trainer taking a
+few steps through K3, and the viewer's ``--megakernel v3`` rendering
+through K2), checks and times K1 in bf16 on the S=16 NDC export at
+800x800, and prints, as its last two lines, a JSON line of per-kernel
+numbers and a JSON line ``{"ok": true, "device": {...}}``. Exits
 non-zero, without those lines, when there is no CUDA device or any phase
 fails. Imports torch, numpy and the standard library besides the port
 itself.
@@ -170,18 +172,6 @@ def check_dense(k2, k1, dirs, pose, rot, label, hold_plain):
     return err_p, err_1, spp, at_cap
 
 
-def time_ms(fn, reps):
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    fn()
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def encoded_samples(n_rays, seed, dev):
     """NeRF inputs as the dense train step makes them: 128 log-spaced depths
     along rays from inside the mscene view cell, InverseSqrtDistCentered,
@@ -214,17 +204,65 @@ def grad_errors(ref, got):
     return out
 
 
+def demangle(name):
+    """A kernel's C++ name, by the toolkit's cu++filt where there is one."""
+    from adanerf_tpu_torch.ops.kernels.build import find_nvcc
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cu++filt")
+    if not os.path.isfile(tool):
+        return name
+    out = subprocess.run([tool, name], capture_output=True, text=True, timeout=60).stdout.strip()
+    return out.replace("(anonymous namespace)::", "").split("(")[0] or name
+
+
+def ptxas_report(log):
+    """[(kernel, "N registers, ... spill ...")] from an nvcc -Xptxas -v log."""
+    out, name, info = [], None, []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            if name:
+                out.append((name, "; ".join(info)))
+            name, info = demangle(line.split("'")[1]), []
+        elif name and ("spill" in line or "Used" in line):
+            info.append(line.split(":", 1)[-1].strip())
+    if name:
+        out.append((name, "; ".join(info)))
+    return out
+
+
+def stage_report(label, n_rows_front, n_rows_shade, oracle, nerf, mk, ms_front, ms_shade):
+    """Per-stage achieved TFLOP/s, and the L2 weight bytes the tensor-core
+    design reckons (one walk of a weight stream per TC_ROWS_PER_WALK rows;
+    printed, not measured, so not returned)."""
+    from adanerf_tpu_torch.ops.kernels.megakernel_compact import TC_ROWS_PER_WALK, stream_bytes
+    tiles_f = math.ceil(n_rows_front / TC_ROWS_PER_WALK)
+    tiles_s = math.ceil(n_rows_shade / TC_ROWS_PER_WALK)
+    l2_f = tiles_f * stream_bytes(mk.params, True)
+    l2_s = tiles_s * stream_bytes(mk.params, False)
+    ops_f = 2.0 * n_rows_front * oracle.macs_per_input()
+    ops_s = 2.0 * n_rows_shade * nerf.macs_per_input()
+    ms_s = ms_shade - ms_front
+    # a shade shorter than the timing noise leaves its rates unresolved
+    rate = (lambda x: f"{x / ms_s / 1e9:.1f}") if ms_s > 0 else (lambda x: "unresolved")
+    print(f"  {label} stages: front {ms_front:.3f} ms, {ops_f / ms_front / 1e9:.1f} TFLOP/s, "
+          f"reckoned L2 weight reads {l2_f / 1e9:.3f} GB ({tiles_f} walks); "
+          f"shade {ms_s:.3f} ms ({n_rows_shade} rows), {rate(ops_s)} TFLOP/s, "
+          f"reckoned L2 weight reads {l2_s / 1e9:.3f} GB ({tiles_s} walks)", flush=True)
+    return dict(front_ms=ms_front, shade_ms=ms_s, front_tflops=ops_f / ms_front / 1e9,
+                shade_tflops=ops_s / ms_s / 1e9 if ms_s > 0 else None)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     from adanerf_tpu_torch import train, viewer
+    from adanerf_tpu_torch.frame_times import card_state, frame_ms, time_ms
     from adanerf_tpu_torch.models.mlp import NeRFDef
     from adanerf_tpu_torch.ops.kernels import build
     from adanerf_tpu_torch.ops.kernels import nerf_train
     from adanerf_tpu_torch.data.png import read_png
-    from adanerf_tpu_torch.ops.kernels import megakernel_dense
+    from adanerf_tpu_torch.ops.kernels import megakernel_dense, sass
     from adanerf_tpu_torch.ops.kernels.megakernel_compact import SOURCE, MegakernelCompact
     from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
     from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel
@@ -242,16 +280,28 @@ def main():
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}", flush=True)
+    print(f"  card: {card_state()}", flush=True)
     done("1 device", t)
 
     t = time.perf_counter()
     phase("2 build")
-    logs = build.build([SOURCE, nerf_train.SOURCE, megakernel_dense.SOURCE])
-    for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}", flush=True)
+    sources = [SOURCE, nerf_train.SOURCE, megakernel_dense.SOURCE]
+    logs = build.build(sources)
     print(f"  built {len(logs)} source(s) in {time.perf_counter() - t:.1f}s", flush=True)
+    for src, log in logs.items():
+        for name, info in ptxas_report(log):
+            print(f"  {src}: {name}: {info}", flush=True)
+    for src in (SOURCE, megakernel_dense.SOURCE):
+        lib = build.library_path(src)
+        smem = build.load(src).mk_smem_bytes
+        print(f"  {src}: dynamic shared memory per block: fp32 kernels {smem(0)} B, "
+              f"bf16 (tensor-core) kernels {smem(1)} B", flush=True)
+        for name, instrs in sass.kernel_sass(lib).items():
+            n_hgmma = sass.hgmma_count(instrs)
+            print(f"  {src}: {demangle(name)}: {len(instrs)} SASS instructions, {n_hgmma} HGMMA",
+                  flush=True)
+            if "_tc" in name and n_hgmma == 0:
+                raise SystemExit(f"{name} has no HGMMA instruction")
     done("2 build", t)
 
     t = time.perf_counter()
@@ -293,6 +343,7 @@ def main():
     print(f"  main path: megakernel_compact launches {launches}", flush=True)
     if launches < 1:
         raise SystemExit("the main path never launched megakernel_compact")
+    print(f"  card: {card_state()}", flush=True)
     done("6", t)
 
     t = time.perf_counter()
@@ -313,10 +364,9 @@ def main():
           f"{dirs800.shape[0]}, rgb max abs err on agreeing rays {err16:.3e}", flush=True)
     if not p_main >= 40.0:
         raise SystemExit("bf16 kernel below 40 dB against its plain version")
-    ms_k = time_ms(lambda: mk16(dirs800, pose, rot), 10)
+    fr = frame_ms(mk16, dirs800, pose, rot)
+    ms_k, ms_front, ms_shade = fr["ms"], fr["front_ms"], fr["front_shade_ms"]
     ms_p = time_ms(lambda: mk16.plain(dirs800, pose_t, rot_t), 3)
-    ms_front = time_ms(lambda: mk16(dirs800, pose, rot, stages=1), 5)
-    ms_shade = time_ms(lambda: mk16(dirs800, pose, rot, stages=2), 5)
     n_pix = dirs800.shape[0]
     n_samp = int(cnt_k.sum())
     oracle, nerf = rt16.oracle, rt16.nerf
@@ -333,6 +383,8 @@ def main():
           f"{bound_ops:.3f} ms; {nbytes / 1e6:.2f} MB over 3.35 TB/s = {bound_bytes:.4f} ms; "
           f"K1 at {100 * bound / ms_k:.2f}% of bound; fp32 FMA bound "
           f"{ops / PEAK_OPS['fp32'] * 1e3:.3f} ms", flush=True)
+    k1_stages = stage_report("K1 bf16", n_pix, n_samp, oracle, nerf, mk16, ms_front, ms_shade)
+    print(f"  card: {card_state()}", flush=True)
     done("7", t)
 
     t = time.perf_counter()
@@ -568,12 +620,17 @@ def main():
               f"{err:.3e}", flush=True)
         if not (p_f >= 40.0 and p_p >= 40.0):
             raise SystemExit("K2 bf16 below 40 dB against its plain version")
-        ms = time_ms(lambda: k2(dirs800, pose, rot), 5)
-        ms_front = time_ms(lambda: k2(dirs800, pose, rot, stages=1), 3)
-        ms_shade = time_ms(lambda: k2(dirs800, pose, rot, stages=2), 3)
+        fr = frame_ms(k2, dirs800, pose, rot)
+        ms, ms_front, ms_shade = fr["ms"], fr["front_ms"], fr["front_shade_ms"]
         ms_plain = time_ms(lambda: k2.plain(dirs800, pose_t, rot_t), 2)
         k1 = MegakernelCompact(rt16d)
-        ms_k1 = time_ms(lambda: k1(dirs800, pose, rot), 5)
+        rgb_1, cnt_1 = k1(dirs800, pose, rot)
+        same = torch.equal(rgb_k, rgb_1) and torch.equal(cnt_k, cnt_1)
+        print(f"  K2 bf16 equal to K1 bf16 bit for bit: {same}", flush=True)
+        if not same:
+            raise SystemExit("K2 bf16 differs from K1 bf16")
+        del rgb_1, cnt_1
+        ms_k1 = frame_ms(k1, dirs800, pose, rot)["ms"]
         # K2 shades all S slots of every ray (its own work), but a dead slot
         # adds exact zeros: the same function needs the NeRF at the live
         # samples only, so the bound counts those, as phase 7's does
@@ -591,7 +648,10 @@ def main():
               f"TFLOP/s bf16 = {bo:.3f} ms; {nbytes / 1e6:.2f} MB over 3.35 TB/s = {bb:.4f} ms; "
               f"K2 at {100 * max(bo, bb) / ms:.2f}% of bound; fp32 FMA bound "
               f"{ops / PEAK_OPS['fp32'] * 1e3:.3f} ms", flush=True)
+        stages = stage_report("K2 bf16", n_pix, n_pix * k2.params.S, rt16d.oracle, rt16d.nerf,
+                              k2, ms_front, ms_shade)
         k2_16[rt16d.threshold] = dict(ms=ms, front=ms_front, shade=ms_shade, plain=ms_plain,
+                                      stages=stages,
                                       k1=ms_k1, err=err, n_bad=n_bad, psnr_fp32=p_f,
                                       psnr_plain=p_p, spp=samp2 / n_pix, bound=max(bo, bb),
                                       bound_by="operations" if bo >= bb else "bytes")
@@ -599,6 +659,7 @@ def main():
     rt16d.threshold = rt32.threshold = scene_thr
     del rt16d
     torch.cuda.empty_cache()
+    print(f"  card: {card_state()}", flush=True)
     done("11", t)
 
     t = time.perf_counter()
@@ -620,10 +681,38 @@ def main():
             raise SystemExit("the v3 viewer's PNG frames are missing or differ from the frame")
         if not torch.isfinite(stats_v3["last_frame"]).all():
             raise SystemExit("the v3 viewer rendered non-finite values")
+    print(f"  card: {card_state()}", flush=True)
     done("12", t)
 
+    t = time.perf_counter()
+    phase("13 bf16 check and time, trained_ndc_export (S=16, NDC), 800x800")
+    rtn16, _ = viewer.build_renderer_from_export(NDC, dtype_str="bf16", device=dev)
+    mkn = MegakernelCompact(rtn16)
+    dirsn = viewer.frame_directions(scn, 800, 800, dev)
+    posen_t = torch.as_tensor(posen, dtype=torch.float32, device=dev)
+    rgb_k, cnt_k = mkn(dirsn, posen, rot)
+    rgb_pb, cnt_pb = mkn.plain(dirsn, posen_t, rot_t)
+    rgb_pf, cnt_pf = MegakernelCompact(rtn).plain(dirsn, posen_t, rot_t)
+    p_b, p_f = psnr(rgb_k, rgb_pb), psnr(rgb_k, rgb_pf)
+    ndc_bad = int((cnt_k != cnt_pb).sum())
+    print(f"  K1 bf16 vs plain bf16 {p_b:.2f} dB, count mismatches {ndc_bad} of {dirsn.shape[0]}; "
+          f"vs plain fp32 {p_f:.2f} dB (count mismatches {int((cnt_k != cnt_pf).sum())}); "
+          f"samples/px {float(cnt_k.float().mean()):.4f} of S={mkn.params.S}", flush=True)
+    if not (p_b >= 40.0 and p_f >= 40.0 and bool(torch.isfinite(rgb_k).all())):
+        raise SystemExit("K1 bf16 on the NDC export below 40 dB against its plain version")
+    fr = frame_ms(mkn, dirsn, posen, rot)
+    ndc_ms, ndc_front, ndc_shade = fr["ms"], fr["front_ms"], fr["front_shade_ms"]
+    ndc_plain = time_ms(lambda: mkn.plain(dirsn, posen_t, rot_t), 3)
+    print(f"  K1 bf16 {ndc_ms:.3f} ms/frame, plain bf16 {ndc_plain:.3f} ms/frame", flush=True)
+    ndc_stages = stage_report("K1 bf16 NDC", dirsn.shape[0], int(cnt_k.sum()), rtn16.oracle,
+                              rtn16.nerf, mkn, ndc_front, ndc_shade)
+    del rtn16, mkn, dirsn, rgb_k, cnt_k, rgb_pb, cnt_pb, rgb_pf, cnt_pf
+    torch.cuda.empty_cache()
+    print(f"  card: {card_state()}", flush=True)
+    done("13", t)
+
     k2_main = k2_16[scene_thr]
-    phase("13 kernels")
+    phase("14 kernels")
     print(json.dumps({"kernels": [{
         "name": "megakernel_compact", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_compact.cu + adanerf_tpu_torch/csrc/megakernel.cuh",
@@ -634,7 +723,9 @@ def main():
         "library_ms": None,
         "viewer_device_ms": stats_view["device_ms_per_frame"],
         "viewer_device_ms_median": stats_view["device_ms_median"],
-        "samples_per_pixel": n_samp / n_pix}, {
+        "samples_per_pixel": n_samp / n_pix, "stages": k1_stages,
+        "ndc_800_ms": ndc_ms, "ndc_800_plain_ms": ndc_plain, "ndc_psnr_vs_plain_bf16": p_b,
+        "ndc_psnr_vs_plain_fp32": p_f, "ndc_stages": ndc_stages}, {
         "name": "nerf_train_forward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
@@ -662,6 +753,7 @@ def main():
         "bound_ms_by_threshold": {str(k): v["bound"] for k, v in k2_16.items()},
         "k1_ms_by_threshold": {str(k): v["k1"] for k, v in k2_16.items()},
         "samples_per_pixel_by_threshold": {str(k): v["spp"] for k, v in k2_16.items()},
+        "stages_by_threshold": {str(k): v["stages"] for k, v in k2_16.items()},
         "viewer_device_ms": stats_v3["device_ms_per_frame"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -95,6 +95,57 @@ def test_dense_kernel_matches_plain_and_k1(threshold):
     if threshold == 1e-4:
         assert int(cnt2.min()) == rt.max_samples
 
+
+RAGGED = 16383  # not a multiple of the tensor-core kernels' 128-row tile
+
+
+def _ragged_inputs(scene):
+    dirs, pose, rot = _frame_inputs(scene, 16384)
+    return dirs[:RAGGED].contiguous().cuda(), pose, rot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mscene", "ndc"])
+def test_bf16_tensor_core_kernel_matches_plain_on_a_ragged_batch(name):
+    """K1 in bf16 (the wgmma path) against its plain bf16 version on 16,383
+    rays: both round the same operands to bf16 and sum in fp32, in other
+    orders, so a logit within rounding of the threshold may keep another
+    bin; at most 1 ray in 1,000 may differ in count, and the frame is held
+    to chip_smoke.py's 40 dB. The ragged last tile's rays are checked like
+    the rest."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rt, scene = tviewer.build_renderer_from_export(EXPORTS[name], dtype_str="bf16", device="cuda")
+    dirs, pose, rot = _ragged_inputs(scene)
+    mk = MegakernelCompact(rt)
+    rgb_k, cnt_k = mk(dirs, pose, rot)
+    rgb_p, cnt_p = mk.plain(dirs, torch.from_numpy(pose).cuda(), torch.from_numpy(rot).cuda())
+    assert rgb_k.shape == (RAGGED, 3) and bool(torch.isfinite(rgb_k).all())
+    assert int((cnt_k != cnt_p).sum()) <= RAGGED // 1000
+    mse = float(((rgb_k.clamp(0, 1) - rgb_p.clamp(0, 1)) ** 2).mean())
+    assert mse == 0 or -10 * np.log10(mse) >= 40.0
+    tail = slice(RAGGED - RAGGED % 128, RAGGED)  # the last, partial tile
+    mse = float(((rgb_k[tail].clamp(0, 1) - rgb_p[tail].clamp(0, 1)) ** 2).mean())
+    assert mse == 0 or -10 * np.log10(mse) >= 40.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [None, 0.01, 1e-4])
+def test_bf16_dense_kernel_is_bit_identical_to_k1(threshold):
+    """K2 and K1 in bf16 share the tensor-core front and shade: each output
+    row of an MMA depends on its own input row and the weights only, and a
+    dead slot adds exact zeros, so K2's frame equals K1's bit for bit."""
+    _need_card()
+    rt, scene = tviewer.build_renderer_from_export(EXPORTS["mscene"], dtype_str="bf16",
+                                                   device="cuda")
+    if threshold is not None:
+        rt.threshold = threshold
+    dirs, pose, rot = _ragged_inputs(scene)
+    rgb2, cnt2 = MegakernelDense(rt)(dirs, pose, rot)
+    rgb1, cnt1 = MegakernelCompact(rt)(dirs, pose, rot)
+    assert torch.equal(cnt2, cnt1) and torch.equal(rgb2, rgb1)
+
+
 U = 2.0 ** -24  # unit roundoff of fp32
 
 
