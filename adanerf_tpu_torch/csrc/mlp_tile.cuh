@@ -2,8 +2,8 @@
 // (sm_90a): a block owns an R-row tile whose activations live in shared
 // memory, and each layer streams its weights through shared memory in
 // KC-row chunks while every thread accumulates an 8-row x 8-column register
-// tile with fp32 FMAs. Included by megakernel.cuh (K1 and K2) and
-// nerf_train.cu (K3).
+// tile with fp32 FMAs. Included by megakernel.cuh: the fp32 kernels of K1
+// and K2.
 
 #pragma once
 

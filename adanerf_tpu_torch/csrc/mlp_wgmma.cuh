@@ -1,5 +1,6 @@
 // The layer core of the bf16 frame renderers, K1 and K2 (megakernel.cuh),
-// for Hopper (sm_90a): warpgroup matrix multiplies (wgmma) on bf16 operands
+// and of the train step's K3 (nerf_train.cu), for Hopper (sm_90a): warpgroup
+// matrix multiplies (wgmma) on bf16 operands
 // in shared memory with fp32 accumulators in registers, fed by a producer
 // that brings each layer's weights, chunk after chunk, by bulk async copy
 // into a ring of shared-memory stages guarded by mbarriers.

@@ -1,5 +1,5 @@
 // K3: the NeRF shading MLP's fused forward and backward for the train step,
-// for Hopper (sm_90a).
+// on Hopper's tensor cores (sm_90a).
 //
 // Replaces adanerf_tpu/ops/pallas/train_kernel.py::make_nerf_train_apply,
 // the Pallas kernel pair (forward, recomputing backward) behind a
@@ -10,403 +10,881 @@
 // What it computes, with the TPU kernel's arithmetic: every product rounds
 // both operands to bf16 and accumulates in fp32 (in the weight gradients
 // too, where the activation AND the cotangent are rounded); biases and bias
-// gradients are fp32 sums of unrounded values. x (N, 63+27) -> [rgb, alpha]
-// (N, 4); the backward returns dW and db for every NeRF leaf and dX.
+// gradients are fp32 sums of unrounded values, and a cotangent is masked by
+// its layer's relu, summed for the bias, then rounded. x (N, n_in) ->
+// [rgb, alpha] (N, 4); the backward gives dW and db for every NeRF leaf and
+// dX. Written for width 256 and at most 128 input columns.
 //
-// What bounds it: arithmetic. One row costs 593,408 multiply-adds forward
-// and about three times that backward (recompute, the dX chain, dW); the
-// dense train step has N = 524,288 rows against ~1.2 MB of weights. The
-// design keeps the per-row chain on chip, as the TPU kernel keeps it in VMEM:
+// What bounds it: arithmetic (593,408 multiply-adds a row forward, about
+// three times that backward), and in the backward the bf16 scratch that
+// carries each row's activations and cotangents from the chain to the
+// weight gradients (~10 KB a row, written once and read once). The forward
+// is one launch, the backward four:
 //
-//   k3_fwd        one block per 64-row tile: the 8x256 trunk, the heads and
-//                 the views branch in shared memory (mlp_tile.cuh), weights
-//                 streamed in bf16 through L2.
-//   k3_bwd        one block per 64-row tile: recomputes the forward, writes
-//                 each layer's bf16 input activation to scratch, walks the
-//                 chain back (cotangent @ W^T with pre-transposed weights),
-//                 writes each layer's bf16 pre-activation cotangent to
-//                 scratch, per-tile fp32 bias partial sums, and dX.
-//   k3_dw_partial split-K weight gradients dW = A^T G over 4096-row slices
-//                 of the scratch, one fp32 partial per slice ...
-//   k3_dw_reduce  ... summed over the slices in a fixed order (deterministic;
-//                 the TPU kernel summed per-tile partials along its
-//                 sequential grid, which a CUDA grid does not have).
-//   k3_bias_reduce the bias partials summed over the tiles in order.
+//   k3_fwd       persistent blocks of two consumer warpgroups and a
+//                producer warpgroup (mlp_wgmma.cuh's core). Each consumer
+//                walks 64-row tiles through the trunk, the feature and the
+//                views layers on wgmma, the weights streaming in by bulk
+//                copies; the alpha head runs under the feature layer's
+//                wgmmas, the rgb head after the views layer; the next
+//                tile's x loads under the trunk's layers.
+//   k3_recompute the same blocks and the same device functions
+//                (forward_pass), so the relu signs the backward masks with
+//                are those of the values the forward's output came from.
+//                Each layer's bf16 output and x go to the scratch, the relu
+//                signs to a bit buffer (per 64-row tile), and the heads'
+//                gradients (alpha.w, rgb.w: N = 1 and 3; their biases) are
+//                summed on the CUDA cores from the tile in shared memory.
+//   k3_chain     the same blocks on the transposed weights (a second
+//                stream): g_hv on the CUDA cores (K = 3), dX's terms, g_feat
+//                and the trunk from its last layer down, each cotangent
+//                masked, column-summed into the consumer's bias partial,
+//                rounded, written in place as the next product's A operand
+//                and stored to the scratch. Recompute and chain are two
+//                kernels because one consumer holding both, with its
+//                128-float accumulator, spilled it around every wgmma.
+//   k3_dw        every other weight gradient dW = A^T G in one launch: a
+//                table of output tiles (<= 128 rows of dW x 256 or 128
+//                columns) times row slices, each block one wgmma GEMM over
+//                its slice, its fp32 partial to its own slot.
+//   k3_reduce    the dW partials summed over the slices and the bias
+//                partials over the consumers, in a fixed order: no float
+//                atomics, so two backward calls give the same bits.
 //
-// The scratch (~10 GB-rows of bf16: 2 x (depth + 1) x N x 256 + 2 x N x 128)
-// trades device memory for not holding a 256x256 fp32 partial per block.
-// CUDA-core fp32 FMAs only; tensor cores are later work.
+// The scratch layout (mirrored by nerf_train.py's tile_rows): a matrix of N
+// rows and F features is stored per 64-row tile as F / 64 blocks of 64
+// features x 64 rows, each feature's 64 rows in 128 bytes with the 128-byte
+// swizzle of mlp_wgmma.cuh (its 16-byte group g at g ^ (feature % 8)). The
+// chain writes it from its accumulators, transposed by movmatrix; in k3_dw
+// one bulk copy lands a block as a K-major wgmma operand (K = rows), the
+// 64 x 64 A block and the F x 64 B tile alike, read by sw128_desc.
 
-#include "mlp_tile.cuh"
+#include "mlp_wgmma.cuh"
 
 namespace {
 
-constexpr int XS = 128;    // row stride of the input / dX buffer
-constexpr int MAXL = 16;   // most trunk layers
-constexpr int DW_T = 64;   // dW output tile (DW_T x DW_T) per block
-constexpr int DW_RC = 32;  // rows per staged chunk in the dW kernel
+typedef __nv_bfloat16 bf16;
 
-constexpr size_t SMEM_BYTES = sizeof(float) * (R * XS + 2 * R * W + KC * W);
+constexpr int MAXL = 16;              // most trunk layers
+constexpr int HW = 256;               // hidden width
+constexpr int VW = 128;               // views layer width
+constexpr int XW = 128;               // x columns, padded: two 64-column blocks
+constexpr int KH = HW / TC_KC, KV = VW / TC_KC, KX = XW / TC_KC;  // chunks per A operand
+constexpr int THREADS = 3 * 128;      // two consumer warpgroups, then the producer's
+constexpr int TILE = 2 * TC_ROWS;     // rows per block tile
+constexpr int BLK = 64 * 64;          // elements of one 64-feature x 64-row scratch block
+constexpr int MASK_WORDS = 512;       // relu-sign words of one layer of one 64-row tile
+
+constexpr int X_BYTES = TC_ROWS * XW * 2;
+constexpr int H_BYTES = TC_ROWS * HW * 2;
+
+// k3_fwd and k3_recompute: stages, two x buffers and h per consumer, then
+// the small part
+constexpr int F_OFF_X = TC_STAGES * TC_STAGE_BYTES;
+constexpr int F_OFF_H = F_OFF_X + 4 * X_BYTES;
+constexpr int F_OFF_SMALL = F_OFF_H + 2 * H_BYTES;
+struct FwdSmall {
+  unsigned long long full[TC_STAGES], empty[TC_STAGES];
+  float alpha[TILE];            // k3_fwd: the alpha head's output
+  float4 gout[2][TC_ROWS];      // k3_recompute: each consumer's output cotangents
+};
+constexpr size_t F_SMEM = F_OFF_SMALL + sizeof(FwdSmall);
+
+// k3_chain: stages and h per consumer, then the small part
+constexpr int C_OFF_H = TC_STAGES * TC_STAGE_BYTES;
+constexpr int C_OFF_SMALL = C_OFF_H + 2 * H_BYTES;
+struct ChainSmall {
+  unsigned long long full[TC_STAGES], empty[TC_STAGES];
+  float cs[2][4][HW];           // per consumer: each warp's column sums
+  float4 gout[2][TC_ROWS];      // per consumer: the tile's output cotangents
+};
+constexpr size_t C_SMEM = C_OFF_SMALL + sizeof(ChainSmall);
+
+// k3_dw: stages of two A blocks and one B tile (<= 256 x 64)
+constexpr int DW_STAGES = 4;
+constexpr int DW_A_BYTES = BLK * 2;
+constexpr int DW_STAGE_BYTES = 2 * DW_A_BYTES + HW * TC_KC * 2;
+constexpr int DW_PART = 2 * TC_ROWS * HW;  // floats of one partial slot
+constexpr size_t DW_SMEM = DW_STAGES * DW_STAGE_BYTES + 2 * DW_STAGES * 8;
 
 }  // namespace
 
 extern "C" {
 
-// Mirrored field for field by the ctypes Structures in nerf_train.py.
-// Weight offsets index the bf16 weight buffer, bias offsets the fp32 bias
-// buffer, s_* the bf16 scratch, bp_* a row of the bias partials.
+// Mirrored field for field by the ctypes Structures in nerf_train.py. vec
+// offsets index the fp32 vector buffer (biases; the heads' weights, bf16
+// values), s_* the bf16 scratch (each a matrix region, tile t at s + t * F *
+// 64), bp* the columns of a consumer's row of the bias partials.
 struct K3Params {
-  long long w[MAXL], wx[MAXL], wT[MAXL], wxT[MAXL], b[MAXL];
-  long long wf, wa, wvf, wvd, wrgb;   // forward: [K][N] row-major, K padded
-  long long wfT, waT, wvfT, wvdT, wrgbT;  // backward: transposed, padded
-  long long bf, ba, bv, brgb, zero;   // biases; `zero` is 256 zeros
-  long long s_h[MAXL], s_g[MAXL];     // scratch: trunk activations, cotangents
-  long long s_feat, s_hv, s_gfeat, s_ghv;
-  long long bp[MAXL];                 // bias-partial columns of trunk layer i
-  long long bp_f, bp_a, bp_v, bp_rgb, bp_width;
-  int N, n_in, in_ch, in_pad, depth, skip_mask;  // skip bit i: layer i+1 takes [x, h]
+  long long b[MAXL];
+  long long bf, ba, bv, brgb, wa, wrgb;
+  long long s_x, s_h[MAXL], s_feat, s_hv, s_g[MAXL], s_gfeat, s_ghv;
+  long long bp[MAXL], bp_f, bp_v, bp_rgb, bp_a, bp_wa, bp_wrgb, bp_width;
+  int N, n_in, depth, skip_mask;  // skip bit i: layer i+1 takes [h, x]
+  int tiles, blocks;              // 64-row tiles (even); the persistent grid
 };
 
-// One weight gradient: out[k * ldo + m] = sum_n bf16(A[n, a_col + k]) *
-// bf16(G[n, g_col + m]), k < K, m < M, over rows n < N.
-struct DwJob {
-  const void* a;
-  const void* g;
-  float* out;
-  int a_f32, g_f32;   // operand stored as fp32 (rounded on load) or bf16
-  int lda, a_col, ldg, g_col;
-  int K, M, ldo, N, splits, rows_per_split;
+// One output tile of k3_dw: dW rows k0 + 64 g + r (g < nslab slabs of A's
+// features) by n columns, summed over rows. A's block of row tile t is at
+// a + t * a_stride (+ BLK for the second slab), B's tile at b + t *
+// b_stride; rows k in [k_lo, k_hi) and columns < m_valid go to the grads
+// buffer at dst + (k - k_lo) * ldo + column.
+struct DwTile {
+  long long a, b, dst;
+  int a_stride, b_stride, n, nslab, k0, k_lo, k_hi, ldo, m_valid, pad;
 };
 
 }  // extern "C"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-// x rows row0.. into X (row stride XS), rounded to bf16, zero beyond N and
-// beyond n_in up to in_pad.
-__device__ void load_x(const K3Params& P, const float* __restrict__ x, float* X, int row0) {
-  for (int e = threadIdx.x; e < R * P.in_pad; e += NT) {
-    const int r = e / P.in_pad, c = e % P.in_pad, row = row0 + r;
-    const float v = (row < P.N && c < P.n_in) ? x[(size_t)row * P.n_in + c] : 0.f;
-    X[r * XS + c] = round_bf16(v);
-  }
+__device__ __forceinline__ bool takes_x(const K3Params& P, int l) {
+  return l > 0 && ((P.skip_mask >> (l - 1)) & 1);
 }
 
-// Shared-memory rows (values already bf16-exact) to a bf16 [N][width] array.
-__device__ void store_rows(const float* src, int stride, int width, bf16* dst, int row0, int N) {
-  const int half = width / 2;
-  for (int e = threadIdx.x; e < R * half; e += NT) {
-    const int r = e / half, c = 2 * (e % half), row = row0 + r;
-    if (row < N)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * width + c) =
-          __floats2bfloat162_rn(src[r * stride + c], src[r * stride + c + 1]);
-  }
+__device__ __forceinline__ float bfr(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(v.x)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(v.y)) << 16);
 }
 
-// Recomputes the forward of one tile. With TRAIN, stores every trunk
-// activation, the feature and the views activation to the scratch; without,
-// computes the heads into out (N, 4). Leaves the feature in *feat and the
-// views activation (row stride 128) in *hv.
-template <bool TRAIN>
-__device__ void forward_tile(const K3Params& P, const bf16* __restrict__ wts,
-                             const float* __restrict__ bias, float* X, float* hA, float* hB,
-                             float* wt, bf16* scr, float* alpha_s, float* out, int row0,
-                             float** feat, float** hv) {
-  const int lane = threadIdx.x & 31, wy = threadIdx.x >> 5;
-  mlp_layer<bf16, W>({X, XS, P.in_pad, wts + P.w[0]}, {}, 1, bias + P.b[0], hA, W, true, true, wt);
-  float* cur = hA;
-  float* nxt = hB;
-  if (TRAIN) { __syncthreads(); store_rows(cur, W, W, scr + P.s_h[0], row0, P.N); }
-  for (int l = 1; l < P.depth; ++l) {
-    const Seg<bf16> sh{cur, W, W, wts + P.w[l]};
-    if ((P.skip_mask >> (l - 1)) & 1)
-      mlp_layer<bf16, W>(sh, {X, XS, P.in_pad, wts + P.wx[l]}, 2, bias + P.b[l], nxt, W, true, true, wt);
-    else
-      mlp_layer<bf16, W>(sh, {}, 1, bias + P.b[l], nxt, W, true, true, wt);
-    float* tmp = cur; cur = nxt; nxt = tmp;
-    if (TRAIN) { __syncthreads(); store_rows(cur, W, W, scr + P.s_h[l], row0, P.N); }
+// The 8 x 8 b16 matrix a warp holds in the accumulator's fragment layout
+// (lane l: row l / 4, columns 2 (l % 4) and + 1), transposed.
+__device__ __forceinline__ uint32_t transpose8x8(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// Element offset of (feature f, row s) in a tile of a scratch matrix.
+__device__ __forceinline__ int tile_off(int f, int s) {
+  return (f >> 6) * BLK + (f & 63) * 64 + ((((s >> 3) ^ f) & 7) << 3) + (s & 7);
+}
+
+// One bulk async copy counted against a barrier whose expected bytes were
+// set for the whole stage (mbar_expect).
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];"
+               :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Barrier set-up of the warp-specialised kernels: the producer warpgroup
+// (threads 256.., after the two consumers) runs `produce` on its first
+// thread and returns false; a consumer returns true. setmaxnreg moves the
+// producer's registers to the consumers: a 384-thread block launches with
+// 168 a thread, and the consumers grow to 232.
+template <class Produce>
+__device__ __forceinline__ bool split_roles(uint8_t* sm, unsigned long long* full,
+                                            unsigned long long* empty, int stages,
+                                            Produce produce) {
+  if (smem_u32(sm) & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(smem_u32(full + i), 1);
+      mbar_init(smem_u32(empty + i), TC_CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  // feature = h @ wf + bf (no activation) into the other buffer
-  mlp_layer<bf16, W>({cur, W, W, wts + P.wf}, {}, 1, bias + P.bf, nxt, W, false, true, wt);
   __syncthreads();
-  if (!TRAIN) {  // alpha head: one warp per row, lanes split K
-    for (int i = 0; i < 8; ++i) {
-      const int row = wy * 8 + i;
-      float s = 0.f;
-      for (int k = lane; k < W; k += 32) s = fmaf(cur[row * W + k], __bfloat162float(wts[P.wa + k]), s);
+  if (threadIdx.x >= 2 * 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (threadIdx.x == 2 * 128) produce();
+    return false;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  return true;
+}
+
+// The producer of k3_fwd, k3_recompute and k3_chain: per block tile, a
+// weight stream in the order the consumers' tc_layer calls take it. The
+// forward stream: trunk layer 0 on x, layer l on [h, x] where takes_x,
+// feature, views on [feature, x]. The backward stream: wv_d^T, wv_f^T,
+// wf^T, then from the trunk's last layer down wx_i^T where layer i takes x
+// and w_i^T, then w_0^T's x columns. nerf_train.py::stream_plan mirrors
+// this walk.
+__device__ void k3_produce(const K3Params& P, const bf16* stream, bool backward, int ntiles,
+                           uint32_t full, uint32_t empty, uint32_t buf) {
+  int stage = 0;
+  uint32_t phase = 0;
+  const char* src = nullptr;
+  auto walk = [&](int chunks, int n) {
+    const uint32_t bytes = n * TC_KC * 2;
+    for (int c = 0; c < chunks; ++c) {
+      mbar_wait(empty + 8 * stage, phase ^ 1);
+      bulk_load(buf + stage * TC_STAGE_BYTES, src, bytes, full + 8 * stage);
+      src += bytes;
+      if (++stage == TC_STAGES) { stage = 0; phase ^= 1; }
+    }
+  };
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    src = reinterpret_cast<const char*>(stream);
+    if (!backward) {
+      for (int l = 0; l < P.depth; ++l) walk(l == 0 ? KX : KH + (takes_x(P, l) ? KX : 0), HW);
+      walk(KH, HW);
+      walk(KH + KX, VW);
+      continue;
+    }
+    walk(KV, XW);
+    walk(KV, HW);
+    walk(KH, HW);
+    for (int i = P.depth - 1; i >= 1; --i) {
+      if (takes_x(P, i)) walk(KH, XW);
+      walk(KH, HW);
+    }
+    walk(KH, XW);
+  }
+}
+
+// Rows [8 q0, 8 q1) of the 64-row tile at row0: x (N, n_in) fp32 into xs,
+// the tile's bf16 A operand (128 columns, zero beyond n_in and N); with xt
+// (the tile's block of the x scratch matrix), there too. Thread t of the
+// consumer takes column t.
+__device__ __forceinline__ void load_x(const K3Params& P, const float* __restrict__ x,
+                                       uint8_t* xs, bf16* xt, int row0, int q0, int q1) {
+  const int f = threadIdx.x & 127;
+  const bool col = f < P.n_in;
+  for (int q = q0; q < q1; ++q) {
+    uint32_t pk[4];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) alpha_s[row] = s + bias[P.ba];
+    for (int i = 0; i < 8; i += 2) {
+      const int r = 8 * q + i, row = row0 + r;
+      const float v0 = (col && row < P.N) ? x[(size_t)row * P.n_in + f] : 0.f;
+      const float v1 = (col && row + 1 < P.N) ? x[(size_t)(row + 1) * P.n_in + f] : 0.f;
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<bf16*>(xs + sw128(r, f)) = b.x;
+      *reinterpret_cast<bf16*>(xs + sw128(r + 1, f)) = b.y;
+      pk[i / 2] = as_u32(b);
+    }
+    if (xt != nullptr)
+      *reinterpret_cast<uint4*>(xt + tile_off(f, 8 * q)) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+  }
+}
+
+// A copy of v the compiler cannot see through: the addresses an epilogue
+// derives from it are computed where they are used, rather than shared by
+// every inlined epilogue and kept live (spilled) across the kernel.
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+template <class T>
+__device__ __forceinline__ T* opaque(T* v) {
+  asm volatile("" : "+l"(v));
+  return v;
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" :: "r"(addr), "r"(v) : "memory");
+}
+
+// A forward layer's epilogue, shared by k3_fwd and the recompute:
+// h (64-row bf16 tile) = round_bf16(relu?(acc + bias)) (no bias where
+// bias is null: a cotangent's store). With TRAIN, also the rounded values
+// into the layer's scratch block st (transposed), and with BITS, bit e of
+// bits[e / 32] set where accumulator element e came out > 0 after
+// rounding: the relu signs the backward masks with.
+template <int N, bool TRAIN, bool BITS>
+__device__ __forceinline__ void put_act(const float (&acc)[N / 2], const float* bias, bool relu,
+                                        uint8_t* h, bf16* st, uint32_t (&bits)[N / 64]) {
+  const int t = threadIdx.x & 127, l = t & 31, w = t >> 5, q = l >> 2, p = l & 3;
+  // element (row r0 + 8 i, column 8 j + 2 p) of h: sw128 with r0 % 8 == q
+  const uint32_t hb = opaque(smem_u32(h)) + (w * 16 + q) * 128 + 4 * p;
+  // its transpose (feature 8 j + q, rows 16 w + 8 i + 2 p, + 1) in st:
+  // tile_off, which is j * 512 past the element of j = 0
+  bf16* sb[2];
+  if constexpr (TRAIN)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) sb[i] = opaque(st) + q * 64 + ((((2 * w + i) ^ q) & 7) << 3) + 2 * p;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = j * 8 + 2 * p;
+    const float2 b = bias != nullptr ? *reinterpret_cast<const float2*>(bias + c)
+                                     : make_float2(0.f, 0.f);
+    const uint32_t col = (j >> 3) * TC_BLOCK_BYTES + (((j & 7) ^ q) << 4);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float v0 = acc[j * 4 + 2 * i], v1 = acc[j * 4 + 2 * i + 1];
+      if (bias != nullptr) { v0 += b.x; v1 += b.y; }
+      if (relu) { v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); }
+      const __nv_bfloat162 pk = __floats2bfloat162_rn(v0, v1);
+      const uint32_t u = as_u32(pk), lo = u & 0xffffu, hi = u >> 16;
+      st_shared(hb + i * 8 * 128 + col, u);
+      if constexpr (TRAIN) {
+        if constexpr (BITS) {
+          const int e = (j & 7) * 4 + 2 * i;
+          bits[j >> 3] |= (lo != 0u ? 1u << e : 0u) | (hi != 0u ? 2u << e : 0u);
+        }
+        *reinterpret_cast<uint32_t*>(sb[i] + j * 512) = transpose8x8(u);
+      }
     }
   }
-  // views = relu([feature, input_views] @ wv + bv), 128 wide, over the trunk
-  mlp_layer<bf16, 128>({nxt, W, W, wts + P.wvf}, {X, XS, P.in_pad, wts + P.wvd}, 2,
-                       bias + P.bv, cur, 128, true, true, wt);
-  __syncthreads();
-  *feat = nxt;
-  *hv = cur;
-  if (TRAIN) {
-    store_rows(nxt, W, W, scr + P.s_feat, row0, P.N);
-    store_rows(cur, 128, 128, scr + P.s_hv, row0, P.N);
+}
+
+// The column sums of a 64 x N accumulator over this warp's 16 rows into
+// cs[warp][column]: per 4 column groups, a lane's two rows are added, then
+// lanes 16, 8 and 4 apart swap halves of what they hold and add, so each
+// lane ends with one column's sum.
+template <int N>
+__device__ __forceinline__ void col_sums(const float (&acc)[N / 2], float* cs) {
+  const int t = threadIdx.x & 127, l = t & 31, w = t >> 5, q = l >> 2, p = l & 3;
+  float* cb = opaque(cs) + w * HW + 8 * (q >> 1) + 2 * p + (q & 1);
+#pragma unroll
+  for (int j0 = 0; j0 < N / 8; j0 += 4) {
+    float s[8];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) s[2 * jj + e] = acc[(j0 + jj) * 4 + e] + acc[(j0 + jj) * 4 + 2 + e];
+#pragma unroll
+    for (int half = 4; half >= 1; half >>= 1) {
+      const int mask = 4 * half;  // lanes 16, 8, 4 apart: bits 2, 1, 0 of l / 4
+      const bool up = (l & mask) != 0;
+#pragma unroll
+      for (int k = 0; k < half; ++k) {
+        const float mine = up ? s[half + k] : s[k], other = up ? s[k] : s[half + k];
+        s[k] = mine + __shfl_xor_sync(0xffffffffu, other, mask);
+      }
+    }
+    // s[0] now holds column 8 (j0 + q / 2) + 2 p + q % 2
+    cb[8 * j0] = s[0];
+  }
+}
+
+// A finished cotangent (acc: the gradient at a layer's output, 64 x N fp32)
+// masked by the layer's relu signs (MASK), summed over the tile's rows into
+// this consumer's bias partial bp (first: its first tile), rounded to bf16
+// and written in place as the next product's A operand (h) and into the
+// scratch block st. Returns with h ready for wgmma.
+template <int N, bool MASK>
+__device__ __forceinline__ void put_cot(float (&acc)[N / 2], const uint32_t (&bits)[N / 64],
+                                        float* cs, float* bp, bool first, uint8_t* h, bf16* st,
+                                        int bar) {
+  if constexpr (MASK) {
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e)
+      if (!((bits[e >> 5] >> (e & 31)) & 1u)) acc[e] = 0.f;
+  }
+  col_sums<N>(acc, cs);
+  wg_sync(bar);  // every warp's wgmma has read h; cs is complete
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int c = t; c < N; c += 128) {
+    const float s = ((cs[c] + cs[HW + c]) + cs[2 * HW + c]) + cs[3 * HW + c];
+    bp[c] = first ? s : bp[c] + s;
+  }
+  uint32_t none[N / 64];
+  put_act<N, true, false>(acc, nullptr, false, h, st, none);
+  fence_async_smem();
+  wg_sync(bar);
+}
+
+// dx rows of this consumer's tile (fp32, n_in columns) = (first ? 0 : dx) +
+// acc, acc the tile's 64 x 128 product.
+__device__ __forceinline__ void dx_add(const K3Params& P, const float (&acc)[64],
+                                       float* __restrict__ dx, int row0, bool first) {
+  const int t = threadIdx.x & 127, l = t & 31, r0 = (t >> 5) * 16 + (l >> 2), p = l & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + r0 + 8 * i;
+    if (row >= P.N) continue;
+    float* d = opaque(dx) + (size_t)row * P.n_in + 2 * p;
+#pragma unroll
+    for (int j = 0; j < XW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (8 * j + 2 * p + e < P.n_in) {
+          const float v = acc[j * 4 + 2 * i + e];
+          d[8 * j + e] = first ? v : d[8 * j + e] + v;
+        }
+  }
+}
+
+// The forward of one 64-row tile (x: the tile's bf16 x, ready), shared by
+// k3_fwd and the recompute: the trunk, the feature layer and the views
+// layer, leaving the views output in h. side_t(c) runs under the trunk
+// layers 1.., side_f(c) under the feature layer's chunk c while h holds the
+// trunk's output. TRAIN stores each layer's output to its scratch block of
+// tile ti (scr), the trunk's relu signs to masks (layer l at l *
+// MASK_WORDS) and the views layer's to hvbits.
+template <bool TRAIN, class SideT, class SideF>
+__device__ __forceinline__ void forward_tile(const K3Params& P, Ring& ring,
+                                             const float* __restrict__ vec, uint32_t xa,
+                                             uint8_t* h, int bar, bf16* scr, long long ti,
+                                             uint32_t* masks, uint32_t (&hvbits)[VW / 64],
+                                             SideT side_t, SideF side_f) {
+  const uint32_t ha = smem_u32(h);
+  const long long oh = ti * HW * 64, ov = ti * VW * 64;
+  float acc[128];
+  for (int l = 0; l < P.depth; ++l) {
+    if (l == 0) {
+      tc_layer<256>(ring, acc, xa, KX, 0, 0);
+    } else {
+      fence_async_smem();
+      wg_sync(bar);
+      tc_layer<256>(ring, acc, ha, KH, xa, takes_x(P, l) ? KX : 0, side_t);
+      wg_sync(bar);  // every warp's wgmma has read h
+    }
+    uint32_t bits[4] = {0u, 0u, 0u, 0u};
+    put_act<256, TRAIN, TRAIN>(acc, vec + P.b[l], true, h, TRAIN ? scr + P.s_h[l] + oh : nullptr,
+                               bits);
+    if constexpr (TRAIN)
+      *reinterpret_cast<uint4*>(masks + l * MASK_WORDS) = make_uint4(bits[0], bits[1], bits[2], bits[3]);
+  }
+  fence_async_smem();
+  wg_sync(bar);
+  // feature = h @ wf + bf, no activation
+  tc_layer<256>(ring, acc, ha, KH, 0, 0, side_f);
+  wg_sync(bar);
+  uint32_t none[4];
+  put_act<256, TRAIN, false>(acc, vec + P.bf, false, h, TRAIN ? scr + P.s_feat + oh : nullptr,
+                             none);
+  fence_async_smem();
+  wg_sync(bar);
+  // views = relu([feature, x] @ wv + bv), 128 wide
+  float v[64];
+  tc_layer<128>(ring, v, ha, KH, xa, KX);
+  wg_sync(bar);
+  put_act<128, TRAIN, TRAIN>(v, vec + P.bv, true, h, TRAIN ? scr + P.s_hv + ov : nullptr, hvbits);
+}
+
+// The forward over the block's tiles, shared by k3_fwd and k3_recompute.
+// k3_fwd (TRAIN false) computes the heads into out (N, 4). k3_recompute
+// (TRAIN) stores every layer's output and x to the scratch, the trunk's
+// and the views layer's relu signs to masks (layer D: the views layer), and
+// sums, on the CUDA cores, the heads' gradients from the output cotangents
+// gout: alpha.w from the trunk output under the feature layer's wgmmas,
+// rgb.w from the views output, and the heads' biases, into the consumer's
+// row of the partials.
+template <bool TRAIN>
+__device__ __forceinline__ void forward_pass(const K3Params& P, const float* __restrict__ x,
+                                             const bf16* __restrict__ fstream,
+                                             const float* __restrict__ vec, float* __restrict__ out,
+                                             const float* __restrict__ gout, bf16* __restrict__ scr,
+                                             uint32_t* __restrict__ masks,
+                                             float* __restrict__ bpart) {
+  extern __shared__ float4 smem4[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
+  FwdSmall* small = reinterpret_cast<FwdSmall*>(sm + F_OFF_SMALL);
+  const int ntiles = P.tiles / 2;
+  Ring ring{smem_u32(small->full), smem_u32(small->empty), smem_u32(sm), 0, 0};
+  if (!split_roles(sm, small->full, small->empty, TC_STAGES, [&] {
+        k3_produce(P, fstream, false, ntiles, ring.full, ring.empty, ring.buf);
+      }))
+    return;
+  const int g = threadIdx.x >> 7, bar = 1 + g, tl = threadIdx.x & 127;
+  const int lane = tl & 31, wq = tl >> 5;
+  uint8_t* xb[2] = {sm + F_OFF_X + 2 * g * X_BYTES, sm + F_OFF_X + (2 * g + 1) * X_BYTES};
+  uint8_t* h = sm + F_OFF_H + g * H_BYTES;
+  float* alpha_s = small->alpha + g * TC_ROWS;
+  float4* gr = small->gout[g];
+  const int slot = 2 * blockIdx.x + g;
+  float* bp = TRAIN ? bpart + (size_t)slot * P.bp_width : nullptr;
+  // the heads' weight gradients, alpha.w columns 2 tl and + 1 and rgb.w row
+  // tl, are summed per tile and added to the consumer's partials row in tile
+  // order (held in registers across the tiles, they would spill)
+  float dwa0 = 0.f, dwa1 = 0.f;
+  auto x_tile = [&](int tile) -> bf16* {  // the tile's block of the x scratch matrix
+    return TRAIN ? scr + P.s_x + (long long)(2 * tile + g) * XW * 64 : nullptr;
+  };
+
+  if (blockIdx.x < ntiles)
+    load_x(P, x, xb[0], x_tile(blockIdx.x), blockIdx.x * TILE + g * TC_ROWS, 0, 8);
+  int b = 0;
+  bool first = true;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, b ^= 1) {
+    const int row0 = tile * TILE + g * TC_ROWS, next = tile + gridDim.x;
+    int part = 0;  // the next tile's x, an 8-row part under each trunk chunk
+    auto side_t = [&](int) {
+      if (part < 8 && next < ntiles)
+        load_x(P, x, xb[b ^ 1], x_tile(next), next * TILE + g * TC_ROWS, part, part + 1);
+      ++part;
+    };
+    // under the feature layer's wgmmas, chunk c: the alpha head (4 rows a
+    // warp) or alpha.w's gradient (16 rows), from the trunk output in h
+    auto side_f = [&](int c) {
+      if constexpr (TRAIN) {
+        for (int r = 16 * c; r < 16 * c + 16; ++r) {
+          const float ga = bfr(gr[r].w);
+          const float2 hv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(h + sw128(r, 2 * tl)));
+          dwa0 = fmaf(hv.x, ga, dwa0);
+          dwa1 = fmaf(hv.y, ga, dwa1);
+        }
+      } else {
+        for (int r = 4 * c; r < 4 * c + 4; ++r) {
+          const int row = wq * 16 + r;
+          float s = 0.f;
+          for (int k = lane; k < HW; k += 32) s = fmaf(ld_bf16(h, row, k), vec[P.wa + k], s);
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+          if (lane == 0) alpha_s[row] = s + vec[P.ba];
+        }
+      }
+    };
+    if (TRAIN && tl < TC_ROWS)
+      gr[tl] = row0 + tl < P.N ? *reinterpret_cast<const float4*>(gout + (size_t)(row0 + tl) * 4)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    fence_async_smem();
+    wg_sync(bar);  // x(b) and the cotangents are loaded; the previous tile's readers of h are done
+    uint32_t hvb[2] = {0u, 0u};
+    uint32_t* mk = TRAIN ? masks + (size_t)(2 * tile + g) * (P.depth + 1) * MASK_WORDS + 4 * tl
+                         : nullptr;
+    forward_tile<TRAIN>(P, ring, vec, smem_u32(xb[b]), h, bar, scr, 2 * tile + g, mk, hvb, side_t,
+                        side_f);
+    while (part < 8) side_t(0);  // a shallow trunk leaves parts over
+    wg_sync(bar);  // h holds the views output
+    if constexpr (TRAIN) {
+      *reinterpret_cast<uint2*>(mk + P.depth * MASK_WORDS) = make_uint2(hvb[0], hvb[1]);
+      float dr0 = 0.f, dr1 = 0.f, dr2 = 0.f;
+      for (int r = 0; r < TC_ROWS; ++r) {
+        const float hv = ld_bf16(h, r, tl);
+        const float4 g4 = gr[r];
+        dr0 = fmaf(hv, bfr(g4.x), dr0);
+        dr1 = fmaf(hv, bfr(g4.y), dr1);
+        dr2 = fmaf(hv, bfr(g4.z), dr2);
+      }
+      float* d = bp + P.bp_wrgb + 3 * tl;
+      const float da0 = dwa0, da1 = dwa1;
+      dwa0 = dwa1 = 0.f;
+      if (first) {
+        d[0] = dr0; d[1] = dr1; d[2] = dr2;
+        bp[P.bp_wa + 2 * tl] = da0; bp[P.bp_wa + 2 * tl + 1] = da1;
+      } else {
+        d[0] += dr0; d[1] += dr1; d[2] += dr2;
+        bp[P.bp_wa + 2 * tl] += da0; bp[P.bp_wa + 2 * tl + 1] += da1;
+      }
+      if (tl < 4) {  // rgb.b and alpha.b: sums of the unrounded cotangents
+        float s = 0.f;
+        for (int r = 0; r < TC_ROWS; ++r) {
+          const float4 g4 = gr[r];
+          s += tl == 0 ? g4.x : tl == 1 ? g4.y : tl == 2 ? g4.z : g4.w;
+        }
+        float* d = bp + (tl < 3 ? P.bp_rgb + tl : P.bp_a);
+        *d = first ? s : *d + s;
+      }
+      wg_sync(bar);  // every reader of this tile's cotangents is done: the next tile loads its own
+    } else {
+      // rgb head and the (N, 4) rows: rgb in columns 0..2, alpha in 3
+      for (int i = 0; i < 16; ++i) {
+        const int row = wq * 16 + i;
+        float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+        for (int k = lane; k < VW; k += 32) {
+          const float hv = ld_bf16(h, row, k);
+          s0 = fmaf(hv, vec[P.wrgb + 3 * k], s0);
+          s1 = fmaf(hv, vec[P.wrgb + 3 * k + 1], s1);
+          s2 = fmaf(hv, vec[P.wrgb + 3 * k + 2], s2);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+          s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+        }
+        const int n = row0 + row;
+        if (lane == 0 && n < P.N)
+          *reinterpret_cast<float4*>(out + (size_t)n * 4) = make_float4(
+              s0 + vec[P.brgb], s1 + vec[P.brgb + 1], s2 + vec[P.brgb + 2], alpha_s[row]);
+      }
+    }
+    first = false;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+k3_fwd(const K3Params P, const float* __restrict__ x, const bf16* __restrict__ fstream,
+       const float* __restrict__ vec, float* __restrict__ out) {
+  forward_pass<false>(P, x, fstream, vec, out, nullptr, nullptr, nullptr, nullptr);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+k3_recompute(const K3Params P, const float* __restrict__ x, const float* __restrict__ gout,
+             const bf16* __restrict__ fstream, const float* __restrict__ vec,
+             bf16* __restrict__ scr, uint32_t* __restrict__ masks, float* __restrict__ bpart) {
+  forward_pass<true>(P, x, fstream, vec, nullptr, gout, scr, masks, bpart);
+}
+
+// The chain walked back, per tile: g_hv = (g_rgb @ wrgb^T) * (hv > 0) on the
+// CUDA cores (K = 3), dX's first term g_hv @ wv_d^T, g_feat = g_hv @
+// wv_f^T, the trunk output's g_feat @ wf^T + g_alpha wa^T (the rank-1 term
+// on the CUDA cores), then the trunk from its last layer down; every
+// cotangent through put_cot (mask, bias partial, bf16, in place as the next
+// A operand, scratch), every dX term added into the tile's rows of dx.
+__global__ void __launch_bounds__(THREADS, 1)
+k3_chain(const K3Params P, const float* __restrict__ gout, const bf16* __restrict__ bstream,
+         const float* __restrict__ vec, bf16* __restrict__ scr,
+         const uint32_t* __restrict__ masks, float* __restrict__ bpart, float* __restrict__ dx) {
+  extern __shared__ float4 smem4[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
+  ChainSmall* small = reinterpret_cast<ChainSmall*>(sm + C_OFF_SMALL);
+  const int ntiles = P.tiles / 2;
+  Ring ring{smem_u32(small->full), smem_u32(small->empty), smem_u32(sm), 0, 0};
+  if (!split_roles(sm, small->full, small->empty, TC_STAGES, [&] {
+        k3_produce(P, bstream, true, ntiles, ring.full, ring.empty, ring.buf);
+      }))
+    return;
+  const int g = threadIdx.x >> 7, bar = 1 + g, tl = threadIdx.x & 127;
+  const int lane = tl & 31, r0 = (tl >> 5) * 16 + (lane >> 2), p = lane & 3;
+  uint8_t* h = sm + C_OFF_H + g * H_BYTES;
+  const uint32_t ha = smem_u32(h);
+  float* cs = &small->cs[g][0][0];
+  float4* gr = small->gout[g];
+  const int slot = 2 * blockIdx.x + g, D = P.depth;
+  float* bp = bpart + (size_t)slot * P.bp_width;
+  bool first = true;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long ti = 2 * tile + g;  // 64-row tile
+    const int row0 = (int)ti * TC_ROWS;
+    const long long oh = ti * HW * 64, ov = ti * VW * 64;
+    const uint32_t* mk = masks + ti * (D + 1) * MASK_WORDS + 4 * tl;  // the tile's relu signs
+    if (tl < TC_ROWS)
+      gr[tl] = row0 + tl < P.N ? *reinterpret_cast<const float4*>(gout + (size_t)(row0 + tl) * 4)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    wg_sync(bar);  // the cotangents are loaded
+    // each product's accumulator is its own, scoped to its block: no
+    // accumulator stays live between products
+    {
+      const uint2 hw = *reinterpret_cast<const uint2*>(mk + D * MASK_WORDS);
+      const uint32_t bits[2] = {hw.x, hw.y};
+      float v[64], gq[2][3];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float4 g4 = gr[r0 + 8 * i];
+        gq[i][0] = bfr(g4.x); gq[i][1] = bfr(g4.y); gq[i][2] = bfr(g4.z);
+      }
+#pragma unroll
+      for (int j = 0; j < VW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float* wr = vec + P.wrgb + 3 * (8 * j + 2 * p + e);
+          const float w0 = wr[0], w1 = wr[1], w2 = wr[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            v[j * 4 + 2 * i + e] = fmaf(gq[i][2], w2, fmaf(gq[i][1], w1, gq[i][0] * w0));
+        }
+      put_cot<128, true>(v, bits, cs, bp + P.bp_v, first, h, scr + P.s_ghv + ov, bar);
+    }
+    {  // dX = g_hv @ wv_d^T, the first of its terms
+      float v[64];
+      tc_layer<128>(ring, v, ha, KV, 0, 0);
+      dx_add(P, v, dx, row0, true);
+    }
+    uint32_t none[4];
+    {  // g_feat = g_hv @ wv_f^T (the feature layer has no relu)
+      float acc[128];
+      tc_layer<256>(ring, acc, ha, KV, 0, 0);
+      put_cot<256, false>(acc, none, cs, bp + P.bp_f, first, h, scr + P.s_gfeat + oh, bar);
+    }
+    {  // g_h = g_feat @ wf^T + g_alpha wa^T at the trunk's output
+      const uint4 mw = *reinterpret_cast<const uint4*>(mk + (D - 1) * MASK_WORDS);
+      float acc[128];
+      tc_layer<256>(ring, acc, ha, KH, 0, 0);
+      const float ga0 = bfr(gr[r0].w), ga1 = bfr(gr[r0 + 8].w);
+#pragma unroll
+      for (int j = 0; j < HW / 8; ++j) {
+        const float2 wa = *reinterpret_cast<const float2*>(vec + P.wa + 8 * j + 2 * p);
+        acc[j * 4 + 0] = fmaf(ga0, wa.x, acc[j * 4 + 0]);
+        acc[j * 4 + 1] = fmaf(ga0, wa.y, acc[j * 4 + 1]);
+        acc[j * 4 + 2] = fmaf(ga1, wa.x, acc[j * 4 + 2]);
+        acc[j * 4 + 3] = fmaf(ga1, wa.y, acc[j * 4 + 3]);
+      }
+      const uint32_t bits[4] = {mw.x, mw.y, mw.z, mw.w};
+      put_cot<256, true>(acc, bits, cs, bp + P.bp[D - 1], first, h, scr + P.s_g[D - 1] + oh, bar);
+    }
+    // the trunk from its last layer down: where layer i took x, dX +=
+    // g_pre_i @ wx_i^T; the cotangent at layer i-1's output g_pre_i @ w_i^T
+    for (int i = D - 1; i >= 1; --i) {
+      if (takes_x(P, i)) {
+        float v[64];
+        tc_layer<128>(ring, v, ha, KH, 0, 0);
+        dx_add(P, v, dx, row0, false);
+      }
+      const uint4 mw = *reinterpret_cast<const uint4*>(mk + (i - 1) * MASK_WORDS);
+      float acc[128];
+      tc_layer<256>(ring, acc, ha, KH, 0, 0);
+      const uint32_t bits[4] = {mw.x, mw.y, mw.z, mw.w};
+      put_cot<256, true>(acc, bits, cs, bp + P.bp[i - 1], first, h, scr + P.s_g[i - 1] + oh, bar);
+    }
+    {  // dX += g_pre_0 @ w_0^T
+      float v[64];
+      tc_layer<128>(ring, v, ha, KH, 0, 0);
+      dx_add(P, v, dx, row0, false);
+    }
+    first = false;
+  }
+}
+
+// The consumers of k3_dw: consumer g multiplies A's slab g by B, over the
+// slice's row tiles, and writes its 64 x N fp32 partial to out. A consumer
+// without a slab only frees the stages.
+template <int N>
+__device__ __forceinline__ void dw_consume(const DwTile& D, int t0, int t1, uint32_t full,
+                                           uint32_t empty, uint32_t buf, float* __restrict__ out) {
+  const int g = threadIdx.x >> 7;
+  const bool lead = (threadIdx.x & 31) == 0;
+  int stage = 0;
+  uint32_t phase = 0;
+  if (g >= D.nslab) {
+    for (int t = t0; t < t1; ++t) {
+      mbar_wait(full + 8 * stage, phase);
+      if (lead) mbar_arrive(empty + 8 * stage);
+      if (++stage == DW_STAGES) { stage = 0; phase ^= 1; }
+    }
     return;
   }
-  // rgb head and the (N, 4) row: rgb in columns 0..2, alpha in column 3
-  for (int i = 0; i < 8; ++i) {
-    const int row = wy * 8 + i;
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    for (int k = lane; k < 128; k += 32) {
-      const float h = cur[row * 128 + k];
-      s0 = fmaf(h, __bfloat162float(wts[P.wrgb + k * 3 + 0]), s0);
-      s1 = fmaf(h, __bfloat162float(wts[P.wrgb + k * 3 + 1]), s1);
-      s2 = fmaf(h, __bfloat162float(wts[P.wrgb + k * 3 + 2]), s2);
-    }
+  float acc[N / 2];
+  int prev = -1;
+  wgmma_fence();
+  for (int t = t0; t < t1; ++t) {
+    mbar_wait(full + 8 * stage, phase);
+    const uint32_t st = buf + stage * DW_STAGE_BYTES;
+    const uint64_t da = sw128_desc(st + g * DW_A_BYTES), db = sw128_desc(st + 2 * DW_A_BYTES);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    for (int kk = 0; kk < TC_KC / 16; ++kk)
+      wgmma_k16<N>(acc, da + 2 * kk, db + 2 * kk, t > t0 || kk > 0);
+    wgmma_commit();
+    if (prev >= 0) {
+      wgmma_wait<1>();
+      if (lead) mbar_arrive(empty + 8 * prev);
     }
-    const int n = row0 + row;
-    if (lane == 0 && n < P.N)
-      *reinterpret_cast<float4*>(out + (size_t)n * 4) =
-          make_float4(s0 + bias[P.brgb], s1 + bias[P.brgb + 1], s2 + bias[P.brgb + 2], alpha_s[row]);
+    prev = stage;
+    if (++stage == DW_STAGES) { stage = 0; phase ^= 1; }
   }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (lead) mbar_arrive(empty + 8 * prev);
+  const int tl = threadIdx.x & 127, l = tl & 31, r0 = (tl >> 5) * 16 + (l >> 2), p = l & 3;
+  float* o = out + g * TC_ROWS * N;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(o + (r0 + 8 * i) * N + 8 * j + 2 * p) =
+          make_float2(acc[j * 4 + 2 * i], acc[j * 4 + 2 * i + 1]);
 }
 
-__global__ void __launch_bounds__(NT, 1)
-k3_fwd(const K3Params P, const float* __restrict__ x, const bf16* __restrict__ wts,
-       const float* __restrict__ bias, float* __restrict__ out) {
+// Block b: output tile b % n_tiles of the table over row slice b / n_tiles
+// (row tiles [s tps, (s + 1) tps) of T), its partial into slot (tile * S +
+// s) of part.
+__global__ void __launch_bounds__(THREADS, 1)
+k3_dw(const DwTile* __restrict__ tiles, int n_tiles, int tps, int T,
+      const bf16* __restrict__ scr, float* __restrict__ part) {
   extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);
-  float* hA = X + R * XS;
-  float* hB = hA + R * W;
-  float* wt = hB + R * W;
-  __shared__ float alpha_s[R];
-  const int row0 = blockIdx.x * R;
-  load_x(P, x, X, row0);
-  float *feat, *hv;
-  forward_tile<false>(P, wts, bias, X, hA, hB, wt, nullptr, alpha_s, out, row0, &feat, &hv);
+  uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(sm + DW_STAGES * DW_STAGE_BYTES);
+  unsigned long long* empty = full + DW_STAGES;
+  const int ti = blockIdx.x % n_tiles, s = blockIdx.x / n_tiles, S = gridDim.x / n_tiles;
+  const DwTile D = tiles[ti];
+  const int t0 = s * tps, t1 = min(T, t0 + tps);
+  const uint32_t buf = smem_u32(sm), fb = smem_u32(full), eb = smem_u32(empty);
+  if (!split_roles(sm, full, empty, DW_STAGES, [&] {
+        int stage = 0;
+        uint32_t phase = 0;
+        const uint32_t bytes = DW_A_BYTES * D.nslab + D.n * TC_KC * 2;
+        for (int t = t0; t < t1; ++t) {
+          mbar_wait(eb + 8 * stage, phase ^ 1);
+          const uint32_t dst = buf + stage * DW_STAGE_BYTES, bar = fb + 8 * stage;
+          const bf16* a = scr + D.a + (long long)t * D.a_stride;
+          mbar_expect(bar, bytes);
+          bulk_copy(dst, a, DW_A_BYTES, bar);
+          if (D.nslab == 2) bulk_copy(dst + DW_A_BYTES, a + BLK, DW_A_BYTES, bar);
+          bulk_copy(dst + 2 * DW_A_BYTES, scr + D.b + (long long)t * D.b_stride, D.n * TC_KC * 2,
+                    bar);
+          if (++stage == DW_STAGES) { stage = 0; phase ^= 1; }
+        }
+      }))
+    return;
+  float* out = part + ((size_t)ti * S + s) * DW_PART;
+  if (D.n == HW) dw_consume<HW>(D, t0, t1, fb, eb, buf, out);
+  else dw_consume<XW>(D, t0, t1, fb, eb, buf, out);
 }
 
-// A finished cotangent block g (R x width, in shared memory, fp32): masks it
-// with the relu of its layer's output (h from the scratch, when given),
-// writes its column sums (the tile's bias-gradient partial), rounds it to
-// bf16 in place and stores it to the scratch.
-__device__ void finish_cotangent(const K3Params& P, float* g, int stride, int width,
-                                 const bf16* h, float* bpart, bf16* gstore, int row0) {
-  __syncthreads();
-  if (h != nullptr) {
-    for (int e = threadIdx.x; e < R * width; e += NT) {
-      const int r = e / width, c = e % width, row = row0 + r;
-      const bool live = row < P.N && __bfloat162float(h[(size_t)row * width + c]) > 0.f;
-      if (!live) g[r * stride + c] = 0.f;
-    }
-    __syncthreads();
-  }
-  for (int c = threadIdx.x; c < width; c += NT) {
-    float s = 0.f;
-    for (int r = 0; r < R; ++r) s += g[r * stride + c];
-    bpart[c] = s;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < R * width; e += NT) {
-    const int r = e / width, c = e % width;
-    g[r * stride + c] = round_bf16(g[r * stride + c]);
-  }
-  __syncthreads();
-  store_rows(g, stride, width, gstore, row0, P.N);
-}
-
-__global__ void __launch_bounds__(NT, 1)
-k3_bwd(const K3Params P, const float* __restrict__ x, const float* __restrict__ gout,
-       const bf16* __restrict__ wts, const float* __restrict__ bias, bf16* scr,
-       float* __restrict__ bpart_all, float* __restrict__ dx) {
-  extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);
-  float* hA = X + R * XS;
-  float* hB = hA + R * W;
-  float* wt = hB + R * W;
-  __shared__ __align__(16) float gs[R][32];  // the heads' cotangents, one chunk wide
-  const int t = threadIdx.x;
-  const int row0 = blockIdx.x * R;
-  float* bpart = bpart_all + (size_t)blockIdx.x * P.bp_width;
-  const float* zero = bias + P.zero;
-
-  load_x(P, x, X, row0);
-  float *F, *V;  // feature and views activation left by the forward
-  forward_tile<true>(P, wts, bias, X, hA, hB, wt, scr, nullptr, nullptr, row0, &F, &V);
-
-  // heads: g_rgb = g[:, 0:3], g_alpha = g[:, 3]; fp32 bias partials first
-  for (int e = t; e < R * 32; e += NT) {
-    const int r = e / 32, c = e % 32, row = row0 + r;
-    gs[r][c] = (row < P.N && c < 3) ? gout[(size_t)row * 4 + c] : 0.f;
-  }
-  if (t < 4) {
-    float s = 0.f;
-    for (int r = 0; r < R && row0 + r < P.N; ++r) s += gout[(size_t)(row0 + r) * 4 + t];
-    bpart[t < 3 ? P.bp_rgb + t : P.bp_a] = s;
-  }
-  __syncthreads();
-  for (int e = t; e < R * 32; e += NT) gs[e / 32][e % 32] = round_bf16(gs[e / 32][e % 32]);
-  // g_hv = (g_rgb @ wrgb^T) * (hv > 0) into the upper half of V
-  float* Ghv = V + R * 128;
-  mlp_layer<bf16, 128>({&gs[0][0], 32, 32, wts + P.wrgbT}, {}, 1, zero, Ghv, 128, false, false, wt);
-  finish_cotangent(P, Ghv, 128, 128, scr + P.s_hv, bpart + P.bp_v, scr + P.s_ghv, row0);
-  // g_feat = g_hv @ wv_f^T into F (the feature is in the scratch)
-  mlp_layer<bf16, W>({Ghv, 128, 128, wts + P.wvfT}, {}, 1, zero, F, W, false, false, wt);
-  finish_cotangent(P, F, W, W, nullptr, bpart + P.bp_f, scr + P.s_gfeat, row0);
-  // dX = g_hv @ wv_d^T into X (x is no longer needed here)
-  mlp_layer<bf16, 128>({Ghv, 128, 128, wts + P.wvdT}, {}, 1, zero, X, XS, false, false, wt);
-  __syncthreads();  // every reader of gs (g_rgb) is done
-  for (int e = t; e < R * 32; e += NT) {
-    const int r = e / 32, c = e % 32, row = row0 + r;
-    gs[r][c] = (row < P.N && c == 0) ? round_bf16(gout[(size_t)row * 4 + 3]) : 0.f;
-  }
-  // g_h = g_feat @ wf^T + g_alpha @ wa^T into V (hv and g_hv are done)
-  mlp_layer<bf16, W>({F, W, W, wts + P.wfT}, {&gs[0][0], 32, 32, wts + P.waT}, 2, zero, V, W,
-                     false, false, wt);
-  float* G = V;
-  float* Gn = F;
-  for (int i = P.depth - 1; i >= 0; --i) {
-    // g_pre = g_h * (h_i > 0): bias partial, bf16, scratch
-    finish_cotangent(P, G, W, W, scr + P.s_h[i], bpart + P.bp[i], scr + P.s_g[i], row0);
-    if (i == 0) {
-      mlp_layer<bf16, 128, true>({G, W, W, wts + P.wT[0]}, {}, 1, zero, X, XS, false, false, wt);
-      break;
-    }
-    if ((P.skip_mask >> (i - 1)) & 1)  // layer i also took x: dX += g_pre @ wx_i^T
-      mlp_layer<bf16, 128, true>({G, W, W, wts + P.wxT[i]}, {}, 1, zero, X, XS, false, false, wt);
-    mlp_layer<bf16, W>({G, W, W, wts + P.wT[i]}, {}, 1, zero, Gn, W, false, false, wt);
-    float* tmp = G; G = Gn; Gn = tmp;
-  }
-  __syncthreads();
-  for (int e = t; e < R * P.n_in; e += NT) {
-    const int r = e / P.n_in, c = e % P.n_in, row = row0 + r;
-    if (row < P.N) dx[(size_t)row * P.n_in + c] = X[r * XS + c];
-  }
-}
-
-__device__ __forceinline__ float load_rounded(const void* p, int is_f32, size_t i) {
-  return is_f32 ? round_bf16(static_cast<const float*>(p)[i])
-                : __bfloat162float(static_cast<const bf16*>(p)[i]);
-}
-
-// Block (tile_k, tile_m, split): a DW_T x DW_T tile of one slice's partial
-// A^T G; each thread owns a 4 x 4 register tile.
-__global__ void __launch_bounds__(NT)
-k3_dw_partial(const DwJob J, float* __restrict__ part) {
-  __shared__ __align__(16) float As[DW_RC][DW_T];
-  __shared__ __align__(16) float Gs[DW_RC][DW_T];
-  const int tiles_k = (J.K + DW_T - 1) / DW_T, tiles_m = (J.M + DW_T - 1) / DW_T;
-  const int tk = blockIdx.x % tiles_k, tm = (blockIdx.x / tiles_k) % tiles_m;
-  const int split = blockIdx.x / (tiles_k * tiles_m);
-  const int n0 = split * J.rows_per_split;
-  const int n1 = min(J.N, n0 + J.rows_per_split);
-  const int t = threadIdx.x, ty = t / 16, tx = t % 16;
-  const int k0 = tk * DW_T, m0 = tm * DW_T;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int nc = n0; nc < n1; nc += DW_RC) {
-    __syncthreads();
-    for (int e = t; e < DW_RC * DW_T; e += NT) {
-      const int r = e / DW_T, c = e % DW_T, n = nc + r;
-      As[r][c] = (n < n1 && k0 + c < J.K)
-                     ? load_rounded(J.a, J.a_f32, (size_t)n * J.lda + J.a_col + k0 + c) : 0.f;
-      Gs[r][c] = (n < n1 && m0 + c < J.M)
-                     ? load_rounded(J.g, J.g_f32, (size_t)n * J.ldg + J.g_col + m0 + c) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < DW_RC; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[r][ty * 4]);
-      const float4 g = *reinterpret_cast<const float4*>(&Gs[r][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, gv[4] = {g.x, g.y, g.z, g.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + ty * 4 + i, m = m0 + tx * 4 + j;
-      if (k < J.K && m < J.M) part[((size_t)split * J.K + k) * J.M + m] = acc[i][j];
-    }
-}
-
-__global__ void k3_dw_reduce(const DwJob J, const float* __restrict__ part) {
+// blockIdx.y < n_tiles: one dW output tile, its partials summed over the S
+// slices in order; blockIdx.y == n_tiles: the bias partials (and the heads'
+// weight gradients) summed over the consumers in order. Into gbuf.
+__global__ void k3_reduce(const DwTile* __restrict__ tiles, int n_tiles, int S,
+                          const float* __restrict__ part, const float* __restrict__ bpart,
+                          int slots, int bp_width, float* __restrict__ gbuf) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= J.K * J.M) return;
+  if (blockIdx.y == n_tiles) {
+    if (e >= bp_width) return;
+    float s = 0.f;
+    for (int i = 0; i < slots; ++i) s += bpart[(size_t)i * bp_width + e];
+    gbuf[e] = s;
+    return;
+  }
+  const DwTile D = tiles[blockIdx.y];
+  if (e >= D.nslab * TC_ROWS * D.n) return;
+  const int slab = e / (TC_ROWS * D.n), r = (e / D.n) % TC_ROWS, c = e % D.n;
+  const int k = D.k0 + TC_ROWS * slab + r;
+  if (k < D.k_lo || k >= D.k_hi || c >= D.m_valid) return;
+  const float* src = part + (size_t)blockIdx.y * S * DW_PART + e;
   float s = 0.f;
-  for (int sp = 0; sp < J.splits; ++sp) s += part[(size_t)sp * J.K * J.M + e];
-  J.out[(size_t)(e / J.M) * J.ldo + e % J.M] = s;
-}
-
-__global__ void k3_bias_reduce(const float* __restrict__ bpart, int tiles, int width,
-                               float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= width) return;
-  float s = 0.f;
-  for (int i = 0; i < tiles; ++i) s += bpart[(size_t)i * width + c];
-  out[c] = s;
+  for (int i = 0; i < S; ++i) s += src[(size_t)i * DW_PART];
+  gbuf[D.dst + (long long)(k - D.k_lo) * D.ldo + c] = s;
 }
 
 cudaError_t set_smem() {
   cudaError_t e = cudaFuncSetAttribute(k3_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)SMEM_BYTES);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(k3_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)SMEM_BYTES);
+                                       (int)F_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k3_recompute, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)F_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k3_chain, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k3_dw, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DW_SMEM);
+  return e;
 }
 
 }  // namespace
 
-extern "C" int k3_forward(int device, const K3Params* P, const float* x, const void* wts,
-                          const float* bias, float* out, void* stream) {
+extern "C" int k3_forward(int device, const K3Params* P, const float* x, const void* fstream,
+                          const float* vec, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaSetDevice(device);
   if (e == cudaSuccess) e = set_smem();
   if (e != cudaSuccess) return static_cast<int>(e);
-  k3_fwd<<<(P->N + R - 1) / R, NT, SMEM_BYTES, s>>>(*P, x, static_cast<const bf16*>(wts), bias,
-                                                    out);
+  k3_fwd<<<P->blocks, THREADS, F_SMEM, s>>>(*P, x, static_cast<const bf16*>(fstream), vec, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The whole backward: the chain kernel, then every weight gradient of
-// `jobs` (partials into `part`, then reduced into the job's output), then
-// the bias gradients into bias_grad (bp_width columns).
+// The whole backward in four launches: the recompute (scratch, relu bits,
+// the heads' gradients), the chain (cotangents, bias partials, dx), the
+// weight-gradient GEMMs of the n_tiles table entries over S slices of tps
+// row tiles (partials into part), and the reduce into gbuf.
 extern "C" int k3_backward(int device, const K3Params* P, const float* x, const float* gout,
-                           const void* wts, const float* bias, void* scratch, float* bpart,
-                           float* dx, const DwJob* jobs, int n_jobs, float* part,
-                           float* bias_grad, void* stream) {
+                           const void* fstream, const void* bstream, const float* vec,
+                           void* scratch, void* masks, float* bpart, float* dx,
+                           const void* tiles, int n_tiles, int S, int tps, float* part,
+                           float* gbuf, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaSetDevice(device);
   if (e == cudaSuccess) e = set_smem();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles = (P->N + R - 1) / R;
-  k3_bwd<<<tiles, NT, SMEM_BYTES, s>>>(*P, x, gout, static_cast<const bf16*>(wts), bias,
-                                       static_cast<bf16*>(scratch), bpart, dx);
+  bf16* scr = static_cast<bf16*>(scratch);
+  uint32_t* mk = static_cast<uint32_t*>(masks);
+  k3_recompute<<<P->blocks, THREADS, F_SMEM, s>>>(*P, x, gout, static_cast<const bf16*>(fstream),
+                                                  vec, scr, mk, bpart);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  for (int j = 0; j < n_jobs; ++j) {
-    const DwJob& J = jobs[j];
-    const int blocks = ((J.K + DW_T - 1) / DW_T) * ((J.M + DW_T - 1) / DW_T) * J.splits;
-    k3_dw_partial<<<blocks, NT, 0, s>>>(J, part);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-    k3_dw_reduce<<<(J.K * J.M + 255) / 256, 256, 0, s>>>(J, part);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  }
-  k3_bias_reduce<<<(int)((P->bp_width + 255) / 256), 256, 0, s>>>(bpart, tiles, (int)P->bp_width,
-                                                                  bias_grad);
+  k3_chain<<<P->blocks, THREADS, C_SMEM, s>>>(*P, gout, static_cast<const bf16*>(bstream), vec,
+                                              scr, mk, bpart, dx);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const DwTile* tt = static_cast<const DwTile*>(tiles);
+  k3_dw<<<n_tiles * S, THREADS, DW_SMEM, s>>>(tt, n_tiles, tps, P->tiles, scr, part);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  k3_reduce<<<dim3(DW_PART / 256, n_tiles + 1), 256, 0, s>>>(tt, n_tiles, S, part, bpart,
+                                                             2 * P->blocks, (int)P->bp_width, gbuf);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int k3_struct_size(int which) {
-  return which == 0 ? static_cast<int>(sizeof(K3Params)) : static_cast<int>(sizeof(DwJob));
+  return which == 0 ? static_cast<int>(sizeof(K3Params)) : static_cast<int>(sizeof(DwTile));
 }

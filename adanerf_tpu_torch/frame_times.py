@@ -1,13 +1,21 @@
-"""Frame times of the bf16 render kernels, K1 and K2, on one NVIDIA card.
+"""Times of the port's kernels on one NVIDIA card: the bf16 frame
+renderers K1 and K2, and the train step's K3.
 
-  python adanerf_tpu_torch/frame_times.py [--root DIR]
+  python adanerf_tpu_torch/frame_times.py [--root DIR] [--only frames|k3]
 
-Renders ``demo/trained_mscene_export`` at 800x800 from chip_smoke.py's
-pose through K1 (``MegakernelCompact``) and K2 (``MegakernelDense``) in
-bf16, at the export's threshold, at 0.01 and at 1e-4, and prints for each
-the times of the ``stages`` ladder (``frame_ms``: the whole frame, the
-front, front + shade), the timing chip_smoke.py's phases 7, 11 and 13 use
-too. ``--root`` imports the port from another checkout (its
+Frames: renders ``demo/trained_mscene_export`` at 800x800 from
+chip_smoke.py's pose through K1 (``MegakernelCompact``) and K2
+(``MegakernelDense``) in bf16, at the export's threshold, at 0.01 and at
+1e-4, and prints for each the times of the ``stages`` ladder
+(``frame_ms``: the whole frame, the front, front + shade), the timing
+chip_smoke.py's phases 7, 11 and 13 use too. K3: the export's NeRF through
+``NerfTrainKernel`` at the dense step's 524,288 rows (seeded inputs in the
+encoding's range): the forward and the backward as the train step calls
+them (the autograd function, packing included; the median of ROUNDS means
+of REPS calls), and the dense step itself (``train.main`` on
+``configs/dense_training.ini`` and ``demo/mscene``, bf16, the NeRF
+unlocked: the mean and median of K3_STEPS steps after K3_WARMUP).
+``--root`` imports the port from another checkout (its
 ``adanerf_tpu_torch``, built into its own ``_build``), so two versions can
 be timed in turns on one card: run it for each, in the order A, B, B, A.
 The card's clocks, power and processes (``card_state``) are printed before
@@ -34,6 +42,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROUNDS, REPS = 5, 4  # ladder rounds; launches per timed mean
+K3_ROWS = 2 * 2048 * 128  # the dense step's shading rows
+K3_WARMUP, K3_STEPS = 3, 10
 
 
 def time_ms(fn, reps):
@@ -95,9 +105,50 @@ def card_state():
     return f"{line}; compute processes {len(apps)}: {'; '.join(apps) or 'none listed'}"
 
 
+def k3_times(dev, export: str) -> dict:
+    """K3's forward, backward and dense step times (ms), through the
+    entry points the train step uses."""
+    import tempfile
+    from adanerf_tpu_torch import train
+    from adanerf_tpu_torch.models.mlp import NeRFDef
+    from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel
+    from adanerf_tpu_torch.utils.weights import load_export_weights
+    nerf = load_export_weights(NeRFDef(), os.path.join(export, "model1.weights")).to(dev)
+    k3 = NerfTrainKernel(nerf)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(-1, 1, (K3_ROWS, 90)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((K3_ROWS, 4)).astype(np.float32)).to(dev) / (4 * K3_ROWS)
+    leaves = list(nerf.parameters())
+    xr = x.clone().requires_grad_(True)
+    out = k3(xr)
+    fwd, bwd = [], []
+    for _ in range(ROUNDS):
+        with torch.no_grad():
+            fwd.append(time_ms(lambda: k3(x), REPS))
+        bwd.append(time_ms(lambda: torch.autograd.grad(out, [xr] + leaves, g, retain_graph=True),
+                           REPS))
+    del out, xr, x, g
+    torch.cuda.empty_cache()
+    steps = K3_WARMUP + K3_STEPS
+    with tempfile.TemporaryDirectory(prefix="frame_times_logs_") as log_dir:
+        stats = train.main([
+            "-c", os.path.join(HERE, "configs", "dense_training.ini"),
+            "-data", os.path.join(HERE, "demo", "mscene"), "-log", log_dir, "--bf16",
+            "--epochs", str(1 + steps), "--randomSeed", "0",
+            # one value per network (an append option): neither is locked
+            "--epochsLockWeightsBefore", "-1", "--epochsLockWeightsBefore", "-1",
+            "--epochsRender", "1000000", "--epochsValidate", "1000000",
+            "--epochsCheckpoint", "1000000", "--no-performEvaluation", "--verboseEvery", "1000"])
+    step_ms = [float(v) for v in stats["step_ms"][K3_WARMUP:]]
+    return {"rows": K3_ROWS, "forward_ms": float(np.median(fwd)), "backward_ms": float(np.median(bwd)),
+            "forward_rounds": fwd, "backward_rounds": bwd, "step_ms_mean": float(np.mean(step_ms)),
+            "step_ms_median": float(np.median(step_ms)), "steps": step_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE, help="checkout whose adanerf_tpu_torch to time")
+    ap.add_argument("--only", choices=("frames", "k3"), help="time only these kernels")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)  # import the port from `root`
@@ -119,7 +170,7 @@ def main(argv=None) -> int:
     rot = np.eye(3, dtype=np.float32)
     dirs = viewer.frame_directions(scene, 800, 800, dev)
     out = {"card": card, "root": root, "rounds": ROUNDS, "reps": REPS, "times": {}}
-    for thr in (rt.threshold, 0.01, 1e-4):
+    for thr in (rt.threshold, 0.01, 1e-4) if args.only != "k3" else ():
         rt.threshold = thr
         for name, cls in (("K1", MegakernelCompact), ("K2", MegakernelDense)):
             k = cls(rt)
@@ -129,6 +180,12 @@ def main(argv=None) -> int:
             print(f"{name} threshold {thr}: {rec['ms']:.3f} ms/frame (front {rec['front_ms']:.3f}, "
                   f"front+shade {rec['front_shade_ms']:.3f}), samples/px "
                   f"{rec['samples_per_px']:.4f}", flush=True)
+    if args.only != "frames":
+        out["k3"] = k3_times(dev, export)
+        k = out["k3"]
+        print(f"K3 at {k['rows']} rows: forward {k['forward_ms']:.3f} ms, backward "
+              f"{k['backward_ms']:.3f} ms; dense step {k['step_ms_mean']:.3f} ms (mean of "
+              f"{len(k['steps'])}, median {k['step_ms_median']:.3f})", flush=True)
     print(f"card after: {card_state()}", flush=True)
     print(json.dumps(out), flush=True)
     return 0

@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_paths: Dict[str, str] = {}  # source -> library path, hashed once a process
 
 
 def find_nvcc() -> str:
@@ -88,9 +89,13 @@ def build(sources: List[str]) -> Dict[str, str]:
 
 
 def load(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source``, built first if needed."""
+    """The loaded library of ``source``, built first if needed. Its path is
+    hashed from the sources once a process: the wrappers call this at every
+    launch, and hashing reads every source and header."""
     with _lock:
-        path = library_path(source)
+        path = _paths.get(source)
+        if path is None:
+            path = _paths[source] = library_path(source)
         if path not in _loaded:
             build([source])
             _loaded[path] = ctypes.CDLL(path)

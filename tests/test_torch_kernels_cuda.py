@@ -17,6 +17,7 @@ from adanerf_tpu_torch import viewer as tviewer
 from adanerf_tpu_torch.models.mlp import NeRFDef
 from adanerf_tpu_torch.ops.kernels.megakernel_compact import MegakernelCompact
 from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
+from adanerf_tpu_torch.ops.kernels import nerf_train_check
 from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -146,160 +147,42 @@ def test_bf16_dense_kernel_is_bit_identical_to_k1(threshold):
     assert torch.equal(cnt2, cnt1) and torch.equal(rgb2, rgb1)
 
 
-U = 2.0 ** -24  # unit roundoff of fp32
-
-
-def _gamma(n):
-    """Bound on the relative error of an n-term fp32 sum (Higham's gamma_n)."""
-    return n * U / (1 - n * U)
-
-
-def k3_layers(k3, nerf, x, relu_outs, feature):
-    """Each relu layer of K3's recomputed forward checked against float64 sums
-    of its own bf16 inputs: returns [(name, z64, bound, kernel output)], z64
-    the exact pre-activation and bound the fp32 sum's error bound, after
-    asserting that the kernel's bf16 output is relu(z) rounded to bf16 within
-    that bound and its sign is z64's wherever |z64| exceeds it."""
-    f64 = torch.float64
-    ic, n_in = nerf.input_ch, k3.n_in
-    xb = x.to(torch.bfloat16).to(f64)
-
-    def bfw(p):
-        return p.detach().to(torch.bfloat16).to(f64)
-    layers, h = [], None
-    for i, layer in enumerate(nerf.pts):
-        a = xb[:, :ic] if i == 0 else h
-        if i > 0 and (i - 1) in nerf.skips:
-            a = torch.cat([xb[:, :ic], h], 1)
-        h = relu_outs[i].to(f64)
-        layers.append((f"pts.{i}", a, layer, h, True))
-    layers.append(("feature", h, nerf.feature, feature.to(f64), False))
-    layers.append(("views.0", torch.cat([feature.to(f64), xb[:, ic:n_in]], 1), nerf.views[0],
-                   relu_outs[-1].to(f64), True))
-    out = []
-    for name, a, layer, h_k, relu in layers:
-        w, b = bfw(layer.w), layer.b.detach().to(f64)
-        z = a @ w + b
-        bound = _gamma(a.shape[1] + 1) * (a.abs() @ w.abs() + b.abs())
-        ref = z.clamp(min=0) if relu else z
-        assert bool(((h_k - ref).abs() <= 2.0 ** -8 * ref.abs() + bound).all()), name
-        if relu:
-            sure = z.abs() > bound
-            assert torch.equal((h_k > 0)[sure], (z > 0)[sure]), name
-            out.append((name, z, bound, h_k))
-    return out
-
-
 def k3_against_plain(rows):
     """K3 and its plain version on the 8x256 NeRF with seeded initial
     weights and inputs in the encoding's range [-1, 1], both differentiated
-    through mean((out - t)^2) with targets from a numpy seed. Returns a dict: the
-    outputs and grads [dX, leaves...] of the kernel (k), the plain version
-    (p) and the plain version with every relu's sign forced to the kernel's
-    (f); the rows where the two sides' relu signs differ; report lines.
-    Checks the kernel's recomputed forward layer by layer (k3_layers) on the
-    way."""
+    through mean((out - t)^2) with targets from a numpy seed
+    (nerf_train_check.compare)."""
     nerf = NeRFDef()
     nerf.reset_parameters(torch.Generator().manual_seed(rows))
     nerf = nerf.cuda()
     rng = np.random.default_rng(rows)
     x = torch.from_numpy(rng.uniform(-1, 1, (rows, 90)).astype(np.float32)).cuda()
     t = torch.from_numpy(rng.standard_normal((rows, 4)).astype(np.float32)).cuda()
-    k3 = NerfTrainKernel(nerf)
-    names = [n for n, _ in nerf.named_parameters()]
-    leaves = list(nerf.parameters())
-    relus = list(nerf.pts) + list(nerf.views)
-
-    def grads(fn, hook=None):
-        hooks = [m.register_forward_hook(hook) for m in relus] if hook else []
-        xr = x.clone().requires_grad_(True)
-        out = fn(xr)
-        for h in hooks:
-            h.remove()
-        g = torch.autograd.grad(torch.mean((out - t) ** 2), out, retain_graph=True)[0]
-        return out.detach(), g, torch.autograd.grad(out, [xr] + leaves, g)
-
-    f0, b0 = NerfTrainKernel.forward_launches, NerfTrainKernel.backward_launches
-    out_k, g_out, g_k = grads(k3)
-    launched = (NerfTrainKernel.forward_launches - f0, NerfTrainKernel.backward_launches - b0)
-    pre = []  # the plain version's pre-activations, in call order
-    out_p, _, g_p = grads(k3.plain, lambda m, a, z: pre.append(z.detach()))
-
-    # the kernel's own relu outputs, from its backward's scratch
-    wts, bias = k3.pack(dict(nerf.named_parameters()), x.device)
-    scratch = k3.new_scratch(rows, x.device)
-    dx, _ = k3.backward_kernel(x, g_out, wts, bias,
-                               list(zip(names, [p.shape for p in leaves])), scratch)
-    assert torch.equal(dx, g_k[0])  # the same cotangent, a deterministic kernel
-    feature = scratch[k3._base(rows).s_feat:][:rows * 256].view(rows, 256)
-    layers = k3_layers(k3, nerf, x, k3.relu_outputs(scratch, rows), feature)
-    flips = torch.zeros(rows, dtype=torch.bool, device=x.device)
-    report = []
-    for (name, z, bound, h_k), z_p in zip(layers, pre):
-        differ = (h_k > 0) != (z_p > 0)
-        flips |= differ.any(1)
-        for r, c in differ.nonzero().tolist():
-            report.append(f"row {r}: {name} unit {c}: pre-activation {float(z[r, c]):.3e} "
-                          f"(float64 of the kernel's inputs), {float(z_p[r, c]):.3e} (plain), "
-                          f"fp32 bound {float(bound[r, c]):.3e}")
-    signs = iter([h_k > 0 for _, _, _, h_k in layers])
-
-    def force(m, a, z):  # the value keeps its size, the sign is the kernel's
-        differ = (z > 0) != next(signs)
-        return z - 2 * torch.where(differ, z.detach(), torch.zeros_like(z))
-    out_f, _, g_f = grads(k3.plain, force)
-    return dict(names=names, launched=launched, out_k=out_k, out_p=out_p, out_f=out_f,
-                g_k=g_k, g_p=g_p, g_f=g_f, flips=flips, report=report)
-
-
-def _leaf_rel(ref, got):
-    return float((ref - got).abs().max()) / (float(ref.abs().max()) + 1e-12)
+    return nerf_train_check.compare(
+        NerfTrainKernel(nerf), x,
+        lambda out: torch.autograd.grad(torch.mean((out - t) ** 2), out, retain_graph=True)[0])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [4096, 1000, 130])
+@pytest.mark.parametrize("rows", [4096, 1000, 130, 40000])
 def test_nerf_train_kernel_matches_plain(rows):
     """K3 against its plain version (the module's bf16 forward under
-    autograd), at row counts on and off the 64-row tile (k3_against_plain).
-    Bars of the TPU kernel's own test (tests/test_train_kernel.py), whose
-    outputs have this O(1) scale: forward max abs <= 4e-3; every weight and
-    bias gradient within 2e-2 of the leaf's max |ref|.
-
-    dX is held per row. Every layer of the kernel's recomputed forward is
-    first checked against float64 sums of its own inputs (k3_layers). Where
-    a pre-activation lies near 0, the kernel and the plain version (which
-    sum in different orders, and whose inputs may differ by a bf16 rounding
-    flip upstream) may take opposite relu signs; the row then passes or
-    drops that unit's whole cotangent, and its dX differs by as much as that
-    unit carries, while the weight gradients, sums over all rows, barely
-    move. So every dX element is held within 2e-2 of max |dX| except in the
-    rows where the two sides' relu signs differ, which are printed; and the
-    plain version run with the kernel's relu signs is held to the kernel
-    at the same bars on every leaf, every dX element included."""
+    autograd), at row counts on and off the 64-row tile (k3_against_plain);
+    at 40,000 rows each of the card's persistent blocks walks two or three
+    128-row tiles. Bars of the TPU kernel's own test
+    (tests/test_train_kernel.py), whose outputs have this O(1) scale:
+    forward max abs <= 4e-3; every weight and bias gradient within 2e-2 of
+    the leaf's max |ref|. They hold as nerf_train_check states: on every
+    row where the two sides' bf16 layer outputs agree, and on every row
+    for the plain version run with the kernel's bf16 layer outputs; the
+    rows where a bf16 rounding or a relu sign flips between the two sides'
+    summation orders are capped in number and held to the looser bars
+    stated there; and every layer of the kernel's recomputed forward is
+    held on every element against float64 sums of its own inputs."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     res = k3_against_plain(rows)
+    ok, lines = nerf_train_check.verdict(res)
+    print(f"{rows} rows:\n  " + "\n  ".join(lines + res["report"]))
     assert res["launched"] == (1, 1)
-    g_k, g_p, g_f = res["g_k"], res["g_p"], res["g_f"]
-    rel = (g_k[0] - g_p[0]).abs() / float(g_p[0].abs().max())
-    bad_rows = (rel > 2e-2).any(1)
-    leaves = {n: (_leaf_rel(a, b), _leaf_rel(c, b))
-              for n, a, b, c in zip(res["names"], g_p[1:], g_k[1:], g_f[1:])}
-    worst = max((v[0], n) for n, v in leaves.items())
-    worst_f = max((v[1], n) for n, v in leaves.items())
-    rel_f = (g_k[0] - g_f[0]).abs() / float(g_f[0].abs().max())
-    print(f"{rows} rows: forward max abs err {float((res['out_k'] - res['out_p']).abs().max()):.3e}; "
-          f"worst leaf {worst[1]} {worst[0]:.3e}; dX max rel err {float(rel.max()):.3e}, "
-          f"{int((rel > 2e-2).sum())} elements in {int(bad_rows.sum())} rows beyond 2e-2; "
-          f"relu sign differences in {int(res['flips'].sum())} rows:\n  "
-          + "\n  ".join(res["report"]))
-    for r in bad_rows.nonzero().flatten().tolist():
-        print(f"  row {r}: dX max rel err {float(rel[r].max()):.3e}")
-    print(f"  with the kernel's relu signs: forward max abs err "
-          f"{float((res['out_k'] - res['out_f']).abs().max()):.3e}, worst leaf {worst_f[1]} "
-          f"{worst_f[0]:.3e}, dX max rel err {float(rel_f.max()):.3e}")
-    assert float((res["out_k"] - res["out_p"]).abs().max()) <= 4e-3
-    assert worst[0] <= 2e-2, worst
-    assert not bool((bad_rows & ~res["flips"]).any())
-    assert float((res["out_k"] - res["out_f"]).abs().max()) <= 4e-3
-    assert worst_f[0] <= 2e-2 and float(rel_f.max()) <= 2e-2, (worst_f, float(rel_f.max()))
+    assert ok, lines

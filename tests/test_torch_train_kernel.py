@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from adanerf_tpu.models.mlp import NeRFDef as JNeRFDef
 from adanerf_tpu.ops.pallas.train_kernel import make_nerf_train_apply
 from adanerf_tpu_torch.models.mlp import NeRFDef
+from adanerf_tpu_torch.ops.kernels.megakernel_compact import unpack_chunks
 from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel
 from adanerf_tpu_torch.utils.weights import flatten_params, from_jax_params
 
@@ -24,61 +25,71 @@ from adanerf_tpu_torch.utils.weights import flatten_params, from_jax_params
 def k3_replay(kernel, nerf, x, g):
     """The TPU kernel's arithmetic (train_kernel.py: bf16 operands, fp32
     sums, cotangents rounded before each product) replayed in PyTorch from
-    K3's packed weight buffers, on x's device. Returns (out, {leaf: grad})
-    for the weight matrices and x, given the cotangent g of out. Holds the
-    packing (offsets, transposes, padding) that the CUDA source reads."""
+    K3's packed buffers, on x's device: every matrix is un-tiled from the
+    forward and backward weight streams by walking their plan, as the CUDA
+    source walks them, and the biases and heads' weights are read from the
+    vector buffer by their offsets. Returns (out, {leaf: grad}, acts) for
+    the weight matrices and x, given the cotangent g of out; acts holds the
+    bf16 matrices the backward's scratch carries, by ``scratch_layout``
+    name."""
     def bf(v):
         return v.to(torch.bfloat16).float()
     P = kernel.params
-    wts, bias = kernel.pack(dict(nerf.named_parameters()), x.device)
-    wts = wts.float()
+    fs, bs, vec = kernel.pack(dict(nerf.named_parameters()), x.device)
 
-    def mat(off, r, c):
-        return wts[off:off + r * c].view(r, c)
+    def walk(stream, plan):
+        flat, mats, off = stream.float().cpu().numpy(), {}, 0
+        for what, K, N in plan:
+            mats[what] = torch.from_numpy(unpack_chunks(flat, off, K, N)).to(x.device)
+            off += K * N
+        assert off == flat.size
+        return mats
+    Fm, Bm = walk(fs, kernel.plan[0]), walk(bs, kernel.plan[1])
 
-    def vec(off, n):
-        return bias[off:off + n]
-    W, H, D, ic, ip, n_in = 256, 128, nerf.depth, nerf.input_ch, kernel.in_pad, kernel.n_in
+    def v(off, n):
+        return vec[off:off + n]
+    W, H, D, ic, n_in = 256, 128, nerf.depth, nerf.input_ch, kernel.n_in
     N, dev = x.shape[0], x.device
-    X = torch.zeros(N, ip, device=dev)
+    X = torch.zeros(N, 128, device=dev)
     X[:, :n_in] = bf(x)
-    hs = [bf(torch.relu(X @ mat(P.w[0], ip, W) + vec(P.b[0], W)))]
+    hs = [bf(torch.relu(X @ Fm["pts.0"] + v(P.b[0], W)))]
     for i in range(1, D):
-        z = hs[-1] @ mat(P.w[i], W, W)
+        z = hs[-1] @ Fm[f"pts.{i}"]
         if (P.skip_mask >> (i - 1)) & 1:
-            z = z + X @ mat(P.wx[i], ip, W)
-        hs.append(bf(torch.relu(z + vec(P.b[i], W))))
-    feat = bf(hs[-1] @ mat(P.wf, W, W) + vec(P.bf, W))
-    alpha = hs[-1] @ mat(P.wa, 1, W).t() + vec(P.ba, 1)
-    hv = bf(torch.relu(feat @ mat(P.wvf, W, H) + X @ mat(P.wvd, ip, H) + vec(P.bv, H)))
-    out = torch.cat([hv @ mat(P.wrgb, H, 3) + vec(P.brgb, 3), alpha], dim=1)
-    g_rgb = torch.zeros(N, 32, device=dev)
-    g_rgb[:, :3] = bf(g[:, :3])
-    g_hv = bf((g_rgb @ mat(P.wrgbT, 32, H)) * (hv > 0))
-    g_feat = bf(g_hv @ mat(P.wvfT, H, W))
-    dx = g_hv @ mat(P.wvdT, H, 128)
-    g_a = torch.zeros(N, 32, device=dev)
-    g_a[:, 0] = bf(g[:, 3])
-    g_h = g_feat @ mat(P.wfT, W, W) + g_a @ mat(P.waT, 32, W)
+            z = z + X @ Fm[f"pts.{i}.x"]
+        hs.append(bf(torch.relu(z + v(P.b[i], W))))
+    feat = bf(hs[-1] @ Fm["feature"] + v(P.bf, W))
+    wa, wrgb = v(P.wa, W), v(P.wrgb, 3 * H).view(H, 3)
+    alpha = hs[-1] @ wa[:, None] + v(P.ba, 1)
+    hv = bf(torch.relu(feat @ Fm["views.f"] + X @ Fm["views.x"] + v(P.bv, H)))
+    out = torch.cat([hv @ wrgb + v(P.brgb, 3), alpha], dim=1)
+    g_rgb, g_a = bf(g[:, :3]), bf(g[:, 3:])
+    g_hv = bf((g_rgb @ wrgb.t()) * (hv > 0))
+    dx = g_hv @ Bm["views.x^T"]
+    g_feat = bf(g_hv @ Bm["views.f^T"])
+    g_h = g_feat @ Bm["feature^T"] + g_a @ wa[None, :]
     g_pre = [None] * D
     for i in range(D - 1, -1, -1):
         g_pre[i] = bf(g_h * (hs[i] > 0))
         if i == 0:
-            dx = dx + g_pre[0] @ mat(P.wT[0], W, 128)
+            dx = dx + g_pre[0] @ Bm["pts.0^T"]
             break
         if (P.skip_mask >> (i - 1)) & 1:
-            dx = dx + g_pre[i] @ mat(P.wxT[i], W, 128)
-        g_h = g_pre[i] @ mat(P.wT[i], W, W)
+            dx = dx + g_pre[i] @ Bm[f"pts.{i}.x^T"]
+        g_h = g_pre[i] @ Bm[f"pts.{i}^T"]
     xb = bf(x)
     grads = {"x": dx[:, :n_in], "pts.0.w": xb[:, :ic].t() @ g_pre[0],
-             "feature.w": hs[-1].t() @ g_feat, "alpha.w": hs[-1].t() @ bf(g[:, 3:]),
+             "feature.w": hs[-1].t() @ g_feat, "alpha.w": hs[-1].t() @ g_a,
              "views.0.w": torch.cat([feat.t() @ g_hv, xb[:, ic:n_in].t() @ g_hv], 0),
-             "rgb.w": hv.t() @ bf(g[:, :3])}
+             "rgb.w": hv.t() @ g_rgb}
     for i in range(1, D):
         hw = hs[i - 1].t() @ g_pre[i]
         grads[f"pts.{i}.w"] = torch.cat([xb[:, :ic].t() @ g_pre[i], hw], 0) \
             if (i - 1) in nerf.skips else hw
-    return out, grads
+    acts = {"x": X, "feat": feat, "hv": hv, "g.feat": g_feat, "g.hv": g_hv}
+    for i in range(D):
+        acts[f"h.{i}"], acts[f"g.{i}"] = hs[i], g_pre[i]
+    return out, grads, acts
 
 
 def _jax_kernel_grads(jdef, params, x, g):
@@ -124,12 +135,13 @@ def test_plain_version_matches_jax_kernel(rows):
 @pytest.mark.parametrize("rows", [200, 130])
 def test_cuda_kernel_arithmetic_matches_jax_kernel(rows):
     """The replay of nerf_train.cu's data flow from K3's packed buffers (the
-    offsets, transposes and padding the CUDA source reads) at the kernel's
-    8x256 width."""
+    weight streams' chunk order, transposes and padding, and the vector
+    buffer's offsets, as the CUDA source reads them) at the kernel's 8x256
+    width."""
     jdef, params, tdef, x, g = _setup(8, 256, (4,), rows, 1)
     out_ref, grads_ref = _jax_kernel_grads(jdef, params, x, g)
     with torch.no_grad():
-        out, grads = k3_replay(NerfTrainKernel(tdef), tdef, torch.from_numpy(x),
+        out, grads, _ = k3_replay(NerfTrainKernel(tdef), tdef, torch.from_numpy(x),
                                torch.from_numpy(g))
     grads_ref = {k: v for k, v in grads_ref.items() if k in grads}
     assert len(grads_ref) == len(grads) == 1 + 8 + 4  # x, trunk, feature, alpha, views, rgb
