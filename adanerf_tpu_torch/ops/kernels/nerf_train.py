@@ -12,7 +12,8 @@ returns ``[rgb, alpha] (..., 4)``, and autograd reaches every NeRF leaf and
     launches ``k3_forward`` and whose backward launches ``k3_backward`` (the
     recompute, the chain, one launch of the weight-gradient GEMMs and one
     fixed-order reduce: BACKWARD_KERNELS launches); each call adds one to
-    ``forward_launches`` or ``backward_launches``;
+    ``forward_launches`` or ``backward_launches``, and the forward keeps
+    its row count in ``forward_rows``;
   * on a CPU tensor it runs the plain version, ``plain``: the module's own
     bf16 forward (bf16 operands, fp32 accumulation) under autograd.
 
@@ -142,10 +143,12 @@ def _pad(a: np.ndarray, rows: int, cols: int, fill, at=(0, 0)) -> np.ndarray:
 class NerfTrainKernel:
     """K3 wrapper around a ``NeRFDef`` (whose bf16 forward is the plain
     version). Counts calls over all instances in ``forward_launches`` and
-    ``backward_launches``."""
+    ``backward_launches``; ``forward_rows`` is the row count of the last
+    forward launch."""
 
     forward_launches = 0
     backward_launches = 0
+    forward_rows = None
 
     def __init__(self, nerf):
         if nerf.width != WIDTH:
@@ -385,6 +388,7 @@ class NerfTrainKernel:
         if rc != 0:
             raise RuntimeError(f"nerf_train forward launch failed: CUDA error {rc}")
         NerfTrainKernel.forward_launches += 1
+        NerfTrainKernel.forward_rows = N
         return out
 
     def backward_kernel(self, x, g, packed, scratch=None):

@@ -5,21 +5,25 @@
 
 Counterpart of the JAX package's root ``train.py``: initialize, resume (or
 bootstrap from a dense teacher), the training loop with periodic
-checkpoints every ``epochsCheckpoint`` epochs, and a final save. On a CUDA
-device with ``--bf16`` the shading MLP's forward and backward run through
-the K3 kernel.
+checkpoints (``epochsCheckpoint``), debug renders (``epochsRender``),
+camera-path videos (``epochsVideo``, PNG frames) and validation passes
+(``epochsValidate``), whose best loss goes to ``opt.txt`` with the
+``_opt`` checkpoints and the ``opt/val`` images; then a final save and,
+with ``performEvaluation``, the evaluation of the ``checkPointName``
+checkpoint (``evaluation/evaluate.py``). On a CUDA device with ``--bf16``
+the shading MLP's forward and backward run through the K3 kernel.
 
 Refused before step 0, each naming its ROADMAP item: GT pretraining
-(``epochsPretrain`` > 0), an epoch range that reaches an ``epochsRender``,
-``epochsValidate`` or ``epochsVideo`` point, ``--performEvaluation``, and
-``--meshDevices`` > 1 (rendering, validation and evaluation belong to a
-later slice; the port trains on one device), and a NeRF that the JAX
-package would train through its TPU kernel but K3 does not take yet (a
-width other than 256) on a run that asks for K3.
+(``epochsPretrain`` > 0), ``--meshDevices`` > 1 (the port trains on one
+device), and a NeRF that the JAX package would train through its TPU
+kernel but K3 does not take yet (a width other than 256) on a run that
+asks for K3.
 """
 
 from __future__ import annotations
 
+import csv
+import os
 import sys
 import time
 
@@ -28,35 +32,18 @@ import torch
 
 from .config import Config
 from .data.prefetch import BatchPrefetcher, epoch_image_indices
+from .pipeline.keys import FSK
+from .render import calculate_mse, render_img, render_rays_chunked, render_video
 from .train_state import TrainState, parse_device
+from .utils.saveimage import Dim, save_img, transform_img
 
 
-def _first_point(every: int, start: int, end: int):
-    """The first epoch e in [start, end) with e > 0 and e % every == 0."""
-    if every <= 0:
-        return None
-    e = max(start, 1)
-    e += (-e) % every
-    return e if e < end else None
-
-
-def unsupported(config, epoch0: int, epochs: int) -> list:
+def unsupported(config) -> list:
     """What this run asks for that the port cannot do yet, one message each."""
     out = []
     if config.epochsPretrain and max(config.epochsPretrain) > 0:
         out.append(f"epochsPretrain {config.epochsPretrain}: GT pretraining "
                    "(make_pretrain_step) is not ported yet (ROADMAP Queue 1, item 5)")
-    for flag, every in (("epochsRender", config.epochsRender),
-                        ("epochsValidate", config.epochsValidate),
-                        ("epochsVideo", config.epochsVideo)):
-        e = _first_point(every, epoch0, epochs)
-        if e is not None:
-            out.append(f"--{flag} {every}: epoch {e} of this run reaches it; rendering, "
-                       "validation and video are not ported yet (ROADMAP Queue 1, items "
-                       "10-11); pass a value beyond --epochs")
-    if config.performEvaluation:
-        out.append("--performEvaluation: evaluation is not ported yet (ROADMAP Queue 1, "
-                   "item 11); pass --no-performEvaluation")
     if config.meshDevices > 1:
         out.append(f"--meshDevices {config.meshDevices}: multi-device training is not "
                    "ported yet (ROADMAP Queue 1, item 9)")
@@ -87,75 +74,196 @@ def unsupported_by_k3(config) -> list:
 
 class _StepClock:
     """Per-step times: CUDA events on a CUDA device (read once at the end,
-    no per-step synchronisation), the host clock on the CPU."""
+    no per-step synchronisation), the host clock on the CPU. A step runs
+    from the end of the one before it (or from ``restart``) to its
+    ``mark``; ``restart`` after the work done between two steps (a render,
+    a video, a validation pass) keeps that work out of the next step."""
 
     def __init__(self, device):
         self.cuda = device.type == "cuda"
-        self.marks = []
+        self.spans = []
+        self.start = None
 
-    def mark(self):
+    def _now(self):
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
+            return ev
+        return time.perf_counter()
+
+    def restart(self):
+        self.start = self._now()
+
+    def mark(self):
+        end = self._now()
+        self.spans.append((self.start, end))
+        self.start = end
 
     def step_ms(self):
         if self.cuda:
-            self.marks[-1].synchronize()
-            return [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
-        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+            if self.spans:
+                self.spans[-1][1].synchronize()
+            return [a.elapsed_time(b) for a, b in self.spans]
+        return [(b - a) * 1e3 for a, b in self.spans]
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def validate_batch(ts: TrainState, epoch, train_loss, model_idx=-1):
+    """Full-image validation pass over the validation split: the loss of
+    net ``model_idx`` on every image (its MSE where that loss cannot be
+    evaluated on a whole image), the share of channels within 1e-3 of the
+    target, ``logs.txt`` and the ``trainStatsName`` CSV. Returns (mean
+    loss, per-image {"images", "psnr"})."""
+    c = ts.config_file
+    dataset = ts.valid_dataset
+    dim = Dim(ts.h, ts.w)
+    losses, accuracies, validation_images = [], [], []
+    for i in range(len(dataset)):
+        imgs, extras = render_rays_chunked(ts, dataset.poses[i], dataset.rotations[i],
+                                           c.inferenceChunkSize,
+                                           collect=[FSK.nerf_weights_output])
+        target = dataset.color_images[i].reshape(-1, 3)
+        inference_dict = {FSK.nerf_weights_output:
+                          torch.from_numpy(extras[FSK.nerf_weights_output])
+                          if FSK.nerf_weights_output in extras else None}
+        try:
+            loss_val = float(ts.losses[model_idx](
+                torch.from_numpy(imgs[-1]), torch.from_numpy(target),
+                inference_dict=inference_dict, epoch=epoch))
+        except (KeyError, TypeError, ValueError, RuntimeError):
+            # a loss that needs what a whole-image render does not give
+            # (other nets' outputs, matching shapes): its MSE, as JAX does
+            loss_val = calculate_mse(imgs[-1] - target)
+        losses.append(loss_val)
+        diff = np.abs(imgs[-1] - target)
+        accuracies.append(float((diff < 0.001).sum()) / diff.size)
+        psnr = 10 * np.log10(1.0 / np.mean(diff ** 2))
+        validation_images.append({"images": [transform_img(img, dim) for img in imgs],
+                                  "psnr": psnr})
+
+    loss = float(np.mean(losses))
+    accuracy = float(np.mean(accuracies))
+    print(f"\nvalidation epoch={epoch:<10} loss={loss:.8f} acc={accuracy:.8f}")
+    with open(os.path.join(ts.logDir, "logs.txt"), "a") as f:
+        f.write(f"epoch={epoch} loss={loss:.4f}  acc={accuracy:.8f} "
+                f"train_loss={train_loss:.8f}\r")
+    stats_path = os.path.join(ts.logDir, c.trainStatsName)
+    add_header = not os.path.isfile(stats_path)
+    with open(stats_path, "a", newline="") as csv_file:
+        writer = csv.DictWriter(csv_file, fieldnames=["epoch", "loss", "accuracy", "train_loss"])
+        if add_header:
+            writer.writeheader()
+        writer.writerow({"epoch": f"{epoch}", "loss": f"{loss}", "accuracy": f"{accuracy}",
+                         "train_loss": f"{train_loss}"})
+    return loss, validation_images
+
+
+def _save_opt(ts: TrainState, epoch: int, val_loss: float, img_data):
+    """A new best validation loss: opt.txt, the ``_opt`` checkpoints and
+    the validation images under ``opt/val``."""
+    with open(os.path.join(ts.logDir, "opt.txt"), "w") as f:
+        f.write(f"Optimal validation loss {val_loss} at epoch {epoch}")
+    ts.save_weights(name_suffix="_opt")
+    valid_dir = os.path.join(ts.logDir, "opt", "val")
+    os.makedirs(valid_dir, exist_ok=True)
+    psnrs = []
+    for i, data in enumerate(img_data):
+        psnrs.append(data["psnr"])
+        print(f"Render all img psnr {i} {psnrs[i]}")
+        for net_index, img in enumerate(data["images"]):
+            save_img(img, ts.dataset_info, os.path.join(valid_dir, f"_{net_index}_{i}.png"),
+                     False)
+    print(f"Average PSNR: {np.array(psnrs).mean()}")
 
 
 def train(ts: TrainState) -> dict:
-    """The training loop from ts.epoch0 to ts.epochs - 1. Returns per-step
-    losses (steps, nets) and step times in ms."""
+    """The training loop from ts.epoch0 to ts.epochs - 1, with its
+    checkpoint, render, video and validation legs. Returns per-step losses
+    (steps, nets), step times in ms (the legs excluded) and the legs' own
+    times in ms: {"render": [...], "video": [...], "validate": [...]}, and
+    the validation passes' images."""
     c = ts.config_file
     step = ts.make_train_step()
     n_images = len(ts.train_dataset)
     batch_images = c.batchImages if c.batchImages != -1 else n_images
     seed = c.randomSeed if c.randomSeed != -1 else 0
+    best_val_loss = sys.float_info.max if ts.best_valid_loss is None else ts.best_valid_loss
     prefetcher = BatchPrefetcher(
         lambda idx: ts.assemble_train_batch(ts.train_dataset, idx),
         epoch_image_indices(n_images, batch_images, ts.epochs - ts.epoch0 + 1, seed))
     clock = _StepClock(ts.device)
-    losses = []
+    losses, legs = [], {"render": [], "video": [], "validate": []}
+    loss_host = 0.0
     t0 = time.perf_counter()
+
+    def leg(name, fn, *args, **kwargs):
+        _sync(ts.device)
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        _sync(ts.device)
+        legs[name].append((time.perf_counter() - t) * 1e3)
+        return out
+
     try:
-        clock.mark()
+        clock.restart()
         for epoch in range(ts.epoch0, ts.epochs):
             batch, targets = next(prefetcher)
             per_net = step(batch, targets, epoch)
             losses.append(torch.stack(per_net))
             clock.mark()
             if not c.nonVerbose and c.verboseEvery > 0 and epoch % c.verboseEvery == 0:
-                vals = ", ".join(f"{float(v):.8f}" for v in per_net)
-                print(f"epoch={epoch:<10} losses=[{vals}] "
+                vals = [float(v) for v in per_net]
+                loss_host = vals[-1]
+                print(f"epoch={epoch:<10} losses=[{', '.join(f'{v:.8f}' for v in vals)}] "
                       f"({time.perf_counter() - t0:.1f}s)", flush=True)
             if epoch % c.epochsCheckpoint == 0 and epoch > 0:
                 ts.save_weights(name_suffix=f"{epoch:07d}",
                                 params_only=bool(c.checkpointParamsOnly))
+            ran_leg = False
+            if epoch % c.epochsRender == 0 and epoch > 0:
+                leg("render", render_img, ts, 0, ts.valid_dataset, img_name=f"{epoch:07d}")
+                ran_leg = True
+            rendered_video = False
+            if c.epochsVideo >= 0 and epoch % c.epochsVideo == 0 and epoch > 0:
+                leg("video", render_video, ts, vid_name=f"{epoch:07d}")
+                rendered_video = ran_leg = True
+            if epoch % c.epochsValidate == 0 and epoch > 0 and (
+                    c.adaptiveSamplingThreshold > 0.0
+                    or epoch > c.lossBlendingStart + c.lossBlendingDuration
+                    or c.lossBlendingStart > ts.epochs):
+                val_loss, img_data = leg("validate", validate_batch, ts, epoch, loss_host)
+                ran_leg = True
+                if val_loss < best_val_loss:
+                    best_val_loss = val_loss
+                    _save_opt(ts, epoch, val_loss, img_data)
+                    # (the JAX package copies an epoch's mp4 videos to _opt;
+                    # the port writes frames, which it does not copy)
+                    if not rendered_video and c.epochsVideo >= 0:
+                        leg("video", render_video, ts, vid_name="_opt")
+            if ran_leg:
+                clock.restart()
     finally:
         prefetcher.close()
     return {"losses": torch.stack(losses).cpu().numpy() if losses else np.zeros((0, 0)),
-            "step_ms": clock.step_ms()}
+            "step_ms": clock.step_ms(), "legs_ms": legs}
 
 
 def main(argv=None) -> dict:
-    """Parse ``argv`` (default: the command line), train, save. Returns the
-    train-loop statistics, the paths of the final checkpoint and the
+    """Parse ``argv`` (default: the command line), train, save and, with
+    ``performEvaluation``, evaluate. Returns the train-loop statistics, the
+    paths of the final checkpoint, the evaluation's time in ms and the
     TrainState."""
     config = Config.init(argv=argv)
-    early = unsupported(config, 1, config.epochs) + unsupported_by_k3(config)
+    early = unsupported(config) + unsupported_by_k3(config)
     if early:  # refuse before loading any data
         raise SystemExit("adanerf_tpu_torch.train: not supported yet:\n  " + "\n  ".join(early))
     ts = TrainState()
     ts.initialize(config)
     ts.load_latest_weights()
-    late = unsupported(config, ts.epoch0, ts.epochs)
-    if late:
-        raise SystemExit("adanerf_tpu_torch.train: not supported yet:\n  " + "\n  ".join(late))
     try:
         routes = ts.train_apply_fns() or [None] * len(ts.models)
     except ValueError as err:  # a NeRF shape K3 does not take yet
@@ -166,6 +274,13 @@ def main(argv=None) -> dict:
               for m, r in zip(ts.models, routes)), flush=True)
     stats = train(ts)
     stats["checkpoint"] = ts.save_weights(name_suffix=f"{ts.epochs - 1:07d}")
+    if config.performEvaluation:
+        from .evaluation.evaluate import evaluate
+        t = time.perf_counter()
+        ts.load_specific_weights(config.checkPointName.replace(".weights", ""))
+        evaluate(ts, None, ["complexity", "images", "flip", "psnr", "output_images"])
+        _sync(ts.device)
+        stats["evaluate_ms"] = (time.perf_counter() - t) * 1e3
     stats["state"] = ts
     return stats
 

@@ -12,8 +12,14 @@ Checkpoints are npz files with the JAX package's names and keys
 (``{net name}_{suffix}.weights`` / ``.optimizer``), written atomically, so
 either package resumes from the other's files.
 
-Not ported yet: GT pretraining (``make_pretrain_step``), the validation and
-test splits (they serve rendering and evaluation), multi-device training.
+``initialize`` loads the train and validation splits (``training=True``)
+and the test split at the full ``w*h`` rays per image, all on the host;
+``inference`` runs the plain cascade for rendering, validation and
+evaluation, and ``load_specific_weights`` picks a named checkpoint (the
+best-validation ``_opt`` one by default).
+
+Not ported yet: GT pretraining (``make_pretrain_step``), multi-device
+training.
 """
 
 from __future__ import annotations
@@ -118,13 +124,17 @@ class TrainState:
         self.dataset_info = None
         self.scene = None
         self.train_dataset = None
+        self.valid_dataset = None
+        self.test_dataset = None
+        self.best_valid_loss = None
         self.pixel_idx_sequence_gen = None
+        self.h = self.w = -1
         self.device = torch.device("cpu")
         self.generator = None
 
     # -- construction -------------------------------------------------------
 
-    def initialize(self, config, load_data=True, log_path=None):
+    def initialize(self, config, load_data=True, log_path=None, training=True):
         self.config_file = config
         self.device = resolve_device(config.device)
         seed = config.randomSeed if config.randomSeed != -1 else 0
@@ -137,6 +147,7 @@ class TrainState:
 
         self.dataset_info = DatasetInfo(config)
         self.scene = self.dataset_info.scene_static()
+        self.h, self.w = self.dataset_info.h, self.dataset_info.w
         self.f_in, self.f_out = get_feature_sets(config, self.scene)
 
         self.models, self.losses, self.loss_weights = [], [], []
@@ -165,12 +176,25 @@ class TrainState:
         config.logDir = self.logDir
         os.makedirs(self.logDir, exist_ok=True)
         self.epochs = config.epochs
+
+        # the best validation loss of an earlier run in this directory
+        opt_txt = os.path.join(self.logDir, "opt.txt")
+        if os.path.exists(opt_txt):
+            with open(opt_txt) as f:
+                m = re.search(r"\d+\.\d+", f.readline())
+            if m:
+                self.best_valid_loss = float(m.group(0))
         write_config_echo(config, self.logDir)
 
         if load_data:
             self.pixel_idx_sequence_gen = get_sequence_generator(config.sampleGenerator, dims=2)
-            self.train_dataset = load_dataset_split(config, self.dataset_info, "train",
-                                                    config.samples)
+            if training:
+                self.train_dataset = load_dataset_split(config, self.dataset_info, "train",
+                                                        config.samples)
+                self.valid_dataset = load_dataset_split(config, self.dataset_info, "val",
+                                                        config.samples)
+            self.test_dataset = load_dataset_split(config, self.dataset_info, "test",
+                                                   self.w * self.h)
 
     # -- weight locking -----------------------------------------------------
 
@@ -287,6 +311,16 @@ class TrainState:
 
         return step
 
+    # -- inference ----------------------------------------------------------
+
+    def inference(self, batch):
+        """The plain cascade with ``is_inference=True`` in the run's
+        precision, without gradients: (per-net outputs, inference dicts)."""
+        dtype = torch.bfloat16 if self.config_file.bf16 else None
+        with torch.no_grad():
+            return run_cascade(self.models, self.f_in, batch, is_inference=True,
+                               generator=None, dtype=dtype)
+
     # -- checkpoints --------------------------------------------------------
 
     def save_weights(self, name_suffix: str, model_idx: int = -1, params_only: bool = False):
@@ -354,6 +388,12 @@ class TrainState:
             return True
         return False
 
+    def teacher_experiment_name(self) -> str:
+        """The dense run a fine run bootstraps from: this run's experiment
+        name with its sample count and threshold set to the dense config's
+        (``128_LSfCDA_(0.0)``)."""
+        return re.sub(r"\d+_LSfCDA_\(\d+\.\d+\)", "128_LSfCDA_(0.0)", self.experiment_name)
+
     def load_latest_weights(self):
         """Resume from the newest complete checkpoint; otherwise bootstrap
         fine training from the dense run through the regex-derived
@@ -365,9 +405,7 @@ class TrainState:
             self.epoch0 = 1
             if (c.preTrainedSuffix != "" and c.adaptiveSamplingThreshold > 0
                     and c.preTrained and len(c.preTrained) > i):
-                base_name = re.sub(r"\d+_LSfCDA_\(\d+\.\d+\)", "128_LSfCDA_(0.0)",
-                                   self.experiment_name)
-                path = os.path.join(c.preTrained[i], base_name)
+                path = os.path.join(c.preTrained[i], self.teacher_experiment_name())
                 cands = [x for x in self._ckpt_candidates(path, m.name, include_opt=True)
                          if c.preTrainedSuffix in x]
                 if not cands:
@@ -385,6 +423,19 @@ class TrainState:
                 if os.path.exists(wpath):
                     print(f"loading pretrained weights from {wpath}")
                     self._load_net(i, wpath, with_optimizer=False)
+
+    def load_specific_weights(self, name: str, model_idx: int = -1):
+        """Load, for every (selected) net, the newest checkpoint in the log
+        directory whose file name contains ``name`` (``_opt`` ones included),
+        with its ``.optimizer`` file where there is one."""
+        for i, m in enumerate(self.models):
+            if model_idx in (-1, i):
+                cands = [x for x in self._ckpt_candidates(self.logDir, m.name, include_opt=True)
+                         if name in os.path.basename(x)]
+                if not cands:
+                    print("no Checkpoints found")
+                    continue
+                self._load_net(i, cands[-1])
 
     # -- batch assembly -----------------------------------------------------
 

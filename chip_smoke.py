@@ -8,10 +8,15 @@ registers, spills, shared memory and HGMMA count), holds each against its
 plain PyTorch version on the card (K3's backward also against itself: two
 calls must agree bit for bit), drives the port's three paths (the viewer
 rendering a trained export through K1, the dense trainer taking a few
-steps through K3, and the viewer's ``--megakernel v3`` rendering through
-K2), checks and times K1 in bf16 on the S=16 NDC export at
-800x800, and prints, as its last two lines, a JSON line of per-kernel
-numbers and a JSON line ``{"ok": true, "device": {...}}``. Exits
+steps through K3 and validating at its last, the fine trainer
+bootstrapped from that run's ``_opt`` checkpoints taking a few steps
+through K3 with its render, video, validation and evaluation legs, and the
+viewer's ``--megakernel v3`` rendering through K2), checks and times K1 in
+bf16 on the S=16 NDC export at 800x800, evaluates the committed JAX run
+against the JAX package's own CPU evaluation of it
+(``tests/torch_fixtures/eval_mscene_fine02.json``), and prints, as its
+last two lines, a JSON line of per-kernel numbers and a JSON line
+``{"ok": true, "device": {...}}``. Exits
 non-zero, without those lines, when there is no CUDA device or any phase
 fails. Imports torch, numpy and the standard library besides the port
 itself.
@@ -37,8 +42,20 @@ MSCENE = os.path.join(ROOT, "demo", "trained_mscene_export")
 NDC = os.path.join(ROOT, "demo", "trained_ndc_export")
 MSCENE_DATA = os.path.join(ROOT, "demo", "mscene")
 DENSE_INI = os.path.join(ROOT, "configs", "dense_training.ini")
+FINE_INI = os.path.join(ROOT, "configs", "fine_training.ini")
 K3_ROWS = 2 * 2048 * 128  # batchImages x samples x numRaymarchSamples of the dense config
+K3_FINE_ROWS = 2 * 2048 * 16  # the same of the fine config (numRaymarchSamples = [16, 16])
 TRAIN_WARMUP, TRAIN_TIMED = 3, 30
+FINE_STEPS = 20
+# the JAX package's fine run committed in the repo (S=8, threshold 0.2, fp32),
+# its evaluation on this host's CPU by the JAX package, and the bars the
+# port's evaluation on the card is held to against that fixture
+JAX_RUN = os.path.join(
+    ROOT, "demo", "mlogs", "mscene",
+    "lo_SpPoDi(nerf(10-4))-relu0(256x8)-S-128_RayMarchFromPoses_nSD[8_LSfCDA_(0.2)_128_0.0]_"
+    "acc_alpha(nerf(10-4))-NeRF1(256x8[4])-RGBARayMarch_[0.025_1.0]_[10k_30k]_O_Z_N")
+EVAL_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures", "eval_mscene_fine02.json")
+EVAL_BARS = {"psnr": 0.01, "flip": 1e-4, "samples": 1e-4}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and the bf16
 # tensor-core and fp32 FMA operation rates
@@ -253,11 +270,366 @@ def stage_report(label, n_rows_front, n_rows_shade, oracle, nerf, mk, ms_front, 
                 shade_tflops=ops_s / ms_s / 1e9 if ms_s > 0 else None)
 
 
+def step_grads_vs_plain(ts, kernel, epoch):
+    """One train step's grads through K3 and through the plain path, same
+    params and batch (train images 0 and 1; no update is applied). Returns
+    ((worst leaf's max |diff| / max |plain|, its name), batch, targets, the
+    rows K3's forward was given (N, n_in))."""
+    batch, targets = ts.assemble_train_batch(ts.train_dataset, np.array([0, 1]))
+    seen, launch = [], kernel.forward_kernel
+
+    def keep_rows(self, x, packed):
+        seen.append(x.detach().clone())
+        return launch(self, x, packed)
+
+    kernel.forward_kernel = keep_rows
+    try:
+        _, grads_k = ts.make_loss_and_grads()(batch, targets, epoch)
+    finally:
+        kernel.forward_kernel = launch
+    ts.config_file.fusedTrainKernel = 0
+    try:
+        _, grads_p = ts.make_loss_and_grads()(batch, targets, epoch)
+    finally:
+        ts.config_file.fusedTrainKernel = 1
+    errs = {f"{m.name}.{k}": rel for i, m in enumerate(ts.models)
+            for k, (rel, _) in grad_errors(grads_p[i], grads_k[i]).items()}
+    return max((v, k) for k, v in errs.items()), batch, targets, seen[-1]
+
+
+def profile_steps(ts, batch, targets, epoch0, n=3):
+    """n train steps through K3 under the profiler, device-side events only
+    (an aten op's "self" device time repeats its kernels'). Returns
+    {kernels: [(ms a step, name)] longest first, device_ms and k3_ms a
+    step, wall_ms a step, k3_counts: {K3 kernel: launches a step}}."""
+    step = ts.make_train_step()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t_prof = time.perf_counter()
+        for epoch in range(epoch0, epoch0 + n):
+            step(batch, targets, epoch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_prof) * 1e3 / n
+    averages = prof.key_averages()
+    kernels = sorted(((e.self_device_time_total / 1e3 / n, e.key) for e in averages
+                      if e.self_device_time_total > 0 and e.device_type.name == "CUDA"),
+                     reverse=True)
+    counts = {re.search(r"k3_\w+", e.key).group(0): e.count / n for e in averages
+              if e.device_type.name == "CUDA" and "k3_" in e.key}
+    return dict(kernels=kernels, device_ms=sum(ms for ms, _ in kernels),
+                k3_ms=sum(ms for ms, name in kernels if "k3_" in name), wall_ms=wall_ms,
+                k3_counts=counts)
+
+
+def print_profile(label, prof, top):
+    if prof["device_ms"] > 0:
+        print(f"  {label}: device busy {prof['device_ms']:.3f} ms of {prof['wall_ms']:.3f} ms "
+              f"wall a step ({100 * prof['device_ms'] / prof['wall_ms']:.1f}%, profiler on); "
+              f"K3 kernels {prof['k3_ms']:.3f} ms, the rest "
+              f"{prof['device_ms'] - prof['k3_ms']:.3f} ms", flush=True)
+        for ms, name in prof["kernels"][:top]:
+            print(f"    {ms:9.3f} ms  {name[:90]}", flush=True)
+    else:
+        print(f"  {label}: the profiler recorded no device time (not measured)", flush=True)
+
+
+def k3_bounds(rows, nerf):
+    """{"fwd"|"bwd": (bound ms, "operations"|"bytes", fp32 FMA ms)}: K3's
+    least time at this row count, from the bf16 peak and HBM rates (each
+    input read once, each output written once; the backward's products are
+    the recompute, the dX chain and dW, three times the forward's)."""
+    ops_f = 2.0 * rows * nerf.macs_per_input()
+    nbytes_w = sum(p.numel() for p in nerf.parameters()) * 4
+    out = {}
+    for key, ops, nbytes in (("fwd", ops_f, rows * (90 + 4) * 4 + nbytes_w),
+                             ("bwd", 3.0 * ops_f, rows * (90 + 4 + 90) * 4 + 2 * nbytes_w)):
+        bo, bb = ops / PEAK_OPS["bf16"] * 1e3, nbytes / HBM_BPS * 1e3
+        out[key] = (max(bo, bb), "operations" if bo >= bb else "bytes",
+                    ops / PEAK_OPS["fp32"] * 1e3)
+    return out
+
+
+def fine_leg(train, port_test, kernel, check, log_dir, dense_dir):
+    """Phase 9b: ``configs/fine_training.ini`` as shipped, in bf16 through
+    K3, bootstrapped from the dense leg's ``_opt`` checkpoints through the
+    teacher name its regex derives, for FINE_STEPS steps; the last epoch
+    renders, writes a video, validates (and saves ``_opt``), and the run
+    evaluates as the ini asks. Then K3 at the rows the leg gave it: one
+    step's grads against the plain path's, the kernel against its plain
+    version (``nerf_train_check``) on that step's NeRF inputs, its times
+    and a profile of 3 steps; and ``python -m adanerf_tpu_torch.test`` on
+    the run. Fails unless every loss is finite, K3 ran every step, every
+    check holds and the legs' and the offline render's files exist."""
+    from adanerf_tpu_torch.frame_times import time_ms
+    from adanerf_tpu_torch.ops.kernels.nerf_train import BACKWARD_KERNEL_NAMES
+    steps = FINE_STEPS
+    teachers = os.path.join(log_dir, "mscene")
+    argv = ["-c", FINE_INI, "-data", MSCENE_DATA, "-log", log_dir, "--bf16",
+            "--epochs", str(1 + steps), "--randomSeed", "0",
+            "--preTrained", teachers, "--preTrained", teachers,
+            "--epochsRender", str(steps), "--epochsValidate", str(steps),
+            "--epochsVideo", str(steps), "--epochsCheckpoint", "1000000",
+            # demo/mscene has no camera path file: a 4-frame orbit in the view cell
+            "--camType", "RotatingCamera", "--camCenter", "0", "--camCenter", "0",
+            "--camCenter", "3", "--camRadius", "0.3", "--videoFrames", "4",
+            "--verboseEvery", "5"]
+    kernel.forward_launches = kernel.backward_launches = 0
+    kernel.forward_rows = None
+    stats = train.main(argv)
+    launches = (kernel.forward_launches, kernel.backward_launches)
+    rows = kernel.forward_rows
+    ts = stats["state"]
+    teacher = ts.teacher_experiment_name()
+    dense_name = os.path.basename(dense_dir.rstrip("/"))
+    print(f"  teacher from the fine run's name: {teacher}; the dense leg's: {dense_name}; "
+          f"same: {teacher == dense_name}", flush=True)
+    if teacher != dense_name:
+        raise SystemExit("the fine leg's regex-derived teacher is not the dense leg's run")
+    losses = stats["losses"]
+    step_ms = stats["step_ms"][TRAIN_WARMUP:]
+    fine_ms = float(np.mean(step_ms))
+    n_val, n_test = len(ts.valid_dataset), len(ts.test_dataset)
+    legs = stats["legs_ms"]
+    val_ms = legs["validate"][0] / n_val if legs["validate"] else float("nan")
+    print(f"  K3 launches on the fine leg: forward {launches[0]}, backward {launches[1]} "
+          f"({steps} steps) at {rows} rows", flush=True)
+    print(f"  fine train step {fine_ms:.3f} ms at {rows} rows (mean of {len(step_ms)} after "
+          f"{TRAIN_WARMUP}; median {float(np.median(step_ms)):.3f}, min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}), {rows / fine_ms / 1e3:.3f} M shading rows/s; each step (ms): "
+          + ", ".join(f"{v:.3f}" for v in stats["step_ms"]), flush=True)
+    print(f"  legs (not in the step times): render {legs['render']} ms, video {legs['video']} ms, "
+          f"validation {legs['validate']} ms = {val_ms:.1f} ms per image ({n_val} images); "
+          f"evaluation {stats.get('evaluate_ms', float('nan')):.1f} ms ({n_test} test images)",
+          flush=True)
+    print(f"  MSE of the first 5 steps {float(losses[:5, 1].mean()):.6f}, of the last 5 "
+          f"{float(losses[-5:, 1].mean()):.6f}; all losses finite: "
+          f"{bool(np.isfinite(losses).all())}", flush=True)
+    # where a validation image's time goes: one more render of it under the
+    # profiler, device-side events only
+    from adanerf_tpu_torch.render import render_rays_chunked
+    vd = ts.valid_dataset
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t_prof = time.perf_counter()
+        render_rays_chunked(ts, vd.poses[0], vd.rotations[0], ts.config_file.inferenceChunkSize,
+                            collect=["NeRFWeightsOutput"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_prof) * 1e3
+    events = sorted(((e.self_device_time_total / 1e3, e.key) for e in prof.key_averages()
+                     if e.self_device_time_total > 0 and e.device_type.name == "CUDA"),
+                    reverse=True)
+    busy = sum(ms for ms, _ in events)
+    print(f"  one validation image ({ts.h}x{ts.w}, chunks of {ts.config_file.inferenceChunkSize} "
+          f"rays) under the profiler: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall "
+          f"({100 * busy / wall_ms:.1f}%); top device events: "
+          + "; ".join(f"{ms:.3f} ms {name[:60]}" for ms, name in events[:6]), flush=True)
+    del prof
+    d = ts.logDir
+    e = f"{steps:07d}"
+    want = [f"{e}_0.png", f"{e}_1.png", f"{e}_1_train_targets.png", f"{e}_estimated_depth.png",
+            f"{e}_nerf_weights.png", f"{e}_oracle_weights.png", f"{e}_oracle_histogram.png",
+            f"{e}_0_frames/00003.png", f"{e}_1_frames/00003.png", "opt.txt",
+            "complexity.txt", "network_description.txt", "image_quality_images.csv",
+            "image_quality_images.txt", "logs.csv", "logs.txt", "eval/opt.txt"]
+    want += [f"{m.name}__opt.weights" for m in ts.models]
+    want += [f"opt/val/_{net}_{i}.png" for net in range(len(ts.models)) for i in range(n_val)]
+    want += [f"eval/{i}_out.png" for i in range(n_test)]
+    missing = [f for f in want if not os.path.exists(os.path.join(d, f))]
+    flips = sorted(f for f in os.listdir(os.path.join(d, "eval")) if "_flip_" in f)
+    adaptive = os.path.exists(os.path.join(d, e + "_adaptive_samples.png"))
+    print(f"  files: {len(want) - len(missing)} of {len(want)} expected present; "
+          f"{e}_adaptive_samples.png: {adaptive}; "
+          f"eval flip images {len(flips)}; opt.txt: {open(os.path.join(d, 'opt.txt')).read()!r}",
+          flush=True)
+    if missing or len(flips) != n_test:
+        raise SystemExit(f"the fine leg did not write {missing or 'its flip images'}")
+    if launches != (steps, steps):
+        raise SystemExit(f"the fine leg launched K3 {launches} times, expected {steps}")
+    if rows != K3_FINE_ROWS:
+        raise SystemExit(f"the fine leg ran K3 at {rows} rows, expected {K3_FINE_ROWS}")
+    if not np.isfinite(losses).all():
+        raise SystemExit("the fine leg's losses are not all finite")
+
+    # K3 at the fine leg's shape: one step's grads through K3 and through
+    # the plain path, then the kernel against its plain version on the NeRF
+    # inputs of that step, with a mean loss's cotangent
+    worst_step, batch, targets, x = step_grads_vs_plain(ts, kernel, steps + 1)
+    print(f"  fine train step grads, K3 vs plain: worst leaf {worst_step[1]} rel "
+          f"{worst_step[0]:.3e} (allowed 2e-2)", flush=True)
+    if not worst_step[0] <= 2e-2:
+        raise SystemExit("the fine step's grads through K3 disagree with the plain path")
+    k3 = kernel(ts.models[-1])
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal((x.shape[0], 4)).astype(
+        np.float32)).to(x.device) / (x.shape[0] * 4)
+    res = check.compare(k3, x, lambda out: g)
+    torch.cuda.synchronize()
+    out_k, out_p = res["out"]["k"], res["out"]["p"]
+    fwd_abs = float((out_k - out_p).abs().max())
+    bwd_abs = max(float((a - res["grads"]["k"][n]).abs().max())
+                  for n, a in res["grads"]["p"].items())
+    ok, lines = check.verdict(res, scale=float(out_p.abs().max()))
+    print(f"  K3 vs plain on the fine step's {x.shape[0]} NeRF input rows:\n    "
+          + "\n    ".join(lines + res["report"]), flush=True)
+    if not ok:
+        raise SystemExit("K3 disagrees with its plain version at the fine leg's shape")
+    del res, out_k, out_p
+    packed = k3.pack(dict(k3.nerf.named_parameters()), x.device)
+    ms_f = time_ms(lambda: k3.forward_kernel(x, packed), 10)
+    ms_b = time_ms(lambda: k3.backward_kernel(x, g, packed), 10)
+    with torch.no_grad():
+        ms_pf = time_ms(lambda: k3.plain(x), 10)
+    xr = x.clone().requires_grad_(True)
+    out_graph = k3.plain(xr)
+    leaves = [p for _, p in k3.nerf.named_parameters()]
+    ms_pb = time_ms(lambda: torch.autograd.grad(out_graph, [xr] + leaves, g, retain_graph=True),
+                    10)
+    del out_graph, xr, packed
+    bounds = k3_bounds(x.shape[0], k3.nerf)
+    print(f"  K3 at {x.shape[0]} rows: forward {ms_f:.3f} ms, backward {ms_b:.3f} ms; plain "
+          f"forward {ms_pf:.3f} ms, plain backward {ms_pb:.3f} ms; bounds {bounds['fwd'][0]:.3f} "
+          f"/ {bounds['bwd'][0]:.3f} ms", flush=True)
+    prof = profile_steps(ts, batch, targets, steps + 2)
+    expected = {k: 1.0 for k in ("k3_fwd",) + BACKWARD_KERNEL_NAMES}
+    print(f"  K3 kernels launched per fine step: {prof['k3_counts']}", flush=True)
+    if prof["k3_counts"] != expected:
+        raise SystemExit(f"K3 launched {prof['k3_counts']} a fine step, expected {expected}")
+    print_profile("profiled fine step (3 steps)", prof, 8)
+    del batch, targets, x, g, k3
+
+    # the offline render of the run: python -m adanerf_tpu_torch.test
+    t = time.perf_counter()
+    psnrs = port_test.main(argv)
+    torch.cuda.synchronize()
+    test_ms = (time.perf_counter() - t) * 1e3
+    splits = {"train": ts.train_dataset, "val": ts.valid_dataset, "test": ts.test_dataset}
+    absent = []
+    for name, ds in splits.items():
+        for f in ds.image_filenames:
+            base = os.path.splitext(os.path.basename(f))[0]
+            absent += [p for p in (f"1_{base}.png", f"{base}_estimated_depth.png",
+                                   f"{base}_depth.npz", f"{base}_weights.trch.npy")
+                       if not os.path.exists(os.path.join(d, "test_images", name, p))]
+    n_img = sum(len(ds) for ds in splits.values())
+    print(f"  offline render (adanerf_tpu_torch.test): {n_img} images in {test_ms:.1f} ms; mean "
+          f"PSNR " + ", ".join(f"{k} {float(np.mean(v)):.3f} dB" for k, v in psnrs.items())
+          + f"; files missing {len(absent)}", flush=True)
+    if absent or any(len(psnrs[k]) != len(ds) or not np.isfinite(psnrs[k]).all()
+                     for k, ds in splits.items()):
+        raise SystemExit(f"the offline render did not write {absent[:4]} or its PSNRs")
+    return dict(launches=launches, step_ms=fine_ms, rows=rows, val_ms_per_image=val_ms,
+                evaluate_ms=stats.get("evaluate_ms"), val_image_device_busy_ms=busy,
+                val_image_wall_ms=wall_ms, step_grads_worst_rel=worst_step[0],
+                k3_fwd_ms=ms_f, k3_bwd_ms=ms_b, plain_fwd_ms=ms_pf, plain_bwd_ms=ms_pb,
+                bound_fwd_ms=bounds["fwd"][0], bound_bwd_ms=bounds["bwd"][0],
+                max_abs_err_fwd=fwd_abs, max_abs_err_bwd=bwd_abs,
+                step_device_ms=prof["device_ms"], step_k3_ms=prof["k3_ms"],
+                step_wall_ms_profiled=prof["wall_ms"], test_ms=test_ms, test_images=n_img)
+
+
+def read_quality_csv(path):
+    """[{mse, psnr, ssim, flip, samples, sparsity}] of an
+    image_quality_images.csv (``\\r`` line ends)."""
+    with open(path, newline="") as f:
+        rows = [r for r in f.read().replace("\r", "\n").splitlines() if r.strip()]
+    keys = rows[0].split(",")
+    return [dict(zip(keys, map(float, r.split(",")))) for r in rows[1:]]
+
+
+def count_near_ties(ts, index, chunk=40000):
+    """One test image of an evaluated run on the card: the per-ray sample
+    counts of the fp32 render (``render_rays_chunked``) against those the
+    same oracle gives in float64 on the same encoded inputs. Returns (rays,
+    count mismatches, rays keeping another set of bins, of which at a near
+    tie: every bin that one side keeps and the other drops has a float64
+    logit within NEAR of the threshold)."""
+    from adanerf_tpu_torch.pipeline.keys import FSK, DatasetKeys
+    from adanerf_tpu_torch.render import render_rays_chunked
+    ds, dev = ts.test_dataset, ts.device
+    S, thr = ts.config_file.numRaymarchSamples[-1], ts.config_file.adaptiveSamplingThreshold
+    imgs, extras = render_rays_chunked(ts, ds.poses[index], ds.rotations[index],
+                                       ts.config_file.inferenceChunkSize,
+                                       collect=[FSK.adaptive_sample_positions])
+    counts32 = torch.from_numpy(np.rint(extras[FSK.adaptive_sample_positions] * S)).to(dev)
+    logits32 = torch.from_numpy(imgs[0]).to(dev)
+    oracle64 = copy.deepcopy(ts.models[0]).double()
+    pose = torch.as_tensor(ds.poses[index][None], device=dev)
+    rot = torch.as_tensor(ds.rotations[index][None], device=dev)
+    logits64 = []
+    with torch.no_grad():
+        for s in range(0, ds.directions.shape[0], chunk):
+            dirs = torch.from_numpy(ds.directions[s:s + chunk][None]).to(dev)
+            x = ts.f_in[0].batch({DatasetKeys.image_pose: pose, DatasetKeys.image_rotation: rot,
+                                  DatasetKeys.ray_directions_samples: dirs},
+                                 prev_outs=[], is_inference=True)[FSK.input_feature_batch]
+            logits64.append(oracle64(x.double()))
+    logits64 = torch.cat(logits64)
+    counts64 = (logits64 >= thr).sum(dim=1).clamp(1, S)
+    flipped = (logits32 >= thr) ^ (logits64 >= thr)
+    rays = torch.nonzero(flipped.any(dim=1)).flatten()
+    near = sum(bool(((logits64[r] - thr).abs()[flipped[r]] <= NEAR).all()) for r in rays.tolist())
+    return (ds.directions.shape[0], int((counts32 != counts64).sum()), len(rays), near)
+
+
+def evaluate_jax_run(port_evaluate):
+    """Phase 13b: ``python -m adanerf_tpu_torch.evaluate`` on the committed
+    JAX run, in fp32 as it was trained, on the card; per image PSNR, FLIP
+    and samples/px held to EVAL_BARS against the JAX package's CPU
+    evaluation (the fixture), and the gap to the committed CSV printed."""
+    with open(EVAL_FIXTURE) as f:
+        fixture = json.load(f)["images"]
+    committed = read_quality_csv(os.path.join(JAX_RUN, "image_quality_images.csv"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as out:
+        t = time.perf_counter()
+        results = port_evaluate.main(["-data", MSCENE_DATA, "-log", JAX_RUN, "--outDir", out,
+                                      "--force"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        (ts, _q), = results.values()
+        got = read_quality_csv(os.path.join(out, "mscene", os.path.basename(JAX_RUN),
+                                            "image_quality_images.csv"))
+        n_eval_png = len(os.listdir(os.path.join(out, "mscene", os.path.basename(JAX_RUN),
+                                                 "eval")))
+    worst = {k: 0.0 for k in EVAL_BARS}
+    for i, (g, fx, cm) in enumerate(zip(got, fixture, committed)):
+        for k in EVAL_BARS:
+            worst[k] = max(worst[k], abs(g[k] - fx[k]))
+        print(f"  image {i}: PSNR {g['psnr']:.4f} dB (JAX CPU {fx['psnr']:.4f}, committed "
+              f"{cm['psnr']:.4f}), FLIP {g['flip']:.6f} (JAX CPU {fx['flip']:.6f}, committed "
+              f"{cm['flip']:.6f}), samples/px {g['samples']:.6f} (JAX CPU {fx['samples']:.6f}, "
+              f"committed {cm['samples']:.6f}), IW-SSIM {g['ssim']:.6f}", flush=True)
+    # the near ties behind any count that differs: fp32 on the card against
+    # float64 sums of the same oracle inputs, every test image
+    ties = [count_near_ties(ts, i) for i in range(len(ts.test_dataset))]
+    print("  per-ray counts, fp32 on the card vs a float64 oracle on the same inputs: "
+          + "; ".join(f"image {i}: {m} of {n} rays differ (allowed {n // 10000}), {f} keep other "
+                      f"bins, {k} of them at a near tie" for i, (n, m, f, k) in enumerate(ties)),
+          flush=True)
+    gap = {k: max(abs(g[k] - cm[k]) for g, cm in zip(got, committed)) for k in EVAL_BARS}
+    print(f"  against the JAX package's CPU evaluation: worst |PSNR| {worst['psnr']:.3e} dB "
+          f"(allowed {EVAL_BARS['psnr']}), |FLIP| {worst['flip']:.3e} (allowed "
+          f"{EVAL_BARS['flip']}), |samples/px| {worst['samples']:.3e} (allowed "
+          f"{EVAL_BARS['samples']}); gap to the committed CSV (not gated): PSNR {gap['psnr']:.4f} "
+          f"dB, FLIP {gap['flip']:.3e}, samples/px {gap['samples']:.3e}; {len(got)} images in "
+          f"{ms:.1f} ms, {n_eval_png} files in eval/ on {ts.device}", flush=True)
+    if len(got) != len(fixture) or any(worst[k] > EVAL_BARS[k] for k in EVAL_BARS) \
+            or not all(np.isfinite(g[k]) for g in got for k in EVAL_BARS) \
+            or any(m > n // 10000 or k != f for n, m, f, k in ties):
+        raise SystemExit("the port's evaluation of the committed JAX run disagrees with the "
+                         "JAX package's")
+    return dict(ms=ms, worst=worst, gap_to_committed=gap, count_ties=ties,
+                psnr=[g["psnr"] for g in got], flip=[g["flip"] for g in got],
+                samples=[g["samples"] for g in got])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from adanerf_tpu_torch import evaluate as port_evaluate
+    from adanerf_tpu_torch import test as port_test
     from adanerf_tpu_torch import train, viewer
     from adanerf_tpu_torch.frame_times import card_state, frame_ms, time_ms
     from adanerf_tpu_torch.models.mlp import NeRFDef
@@ -487,23 +859,16 @@ def main():
     out_graph = k3.plain(xr)
     ms_pb = time_ms(lambda: torch.autograd.grad(out_graph, [xr] + leaves, g, retain_graph=True), 3)
     del out_graph
-    macs = nerf.macs_per_input()
-    ops_f = 2.0 * K3_ROWS * macs
+    ops_f = 2.0 * K3_ROWS * nerf.macs_per_input()
     ops_b = 3.0 * ops_f  # recompute, the dX chain, dW
-    nbytes_w = sum(p.numel() for p in leaves) * 4
-    bytes_f = K3_ROWS * (90 + 4) * 4 + nbytes_w
-    bytes_b = K3_ROWS * (90 + 4 + 90) * 4 + 2 * nbytes_w
-    k3_bounds = {}
-    for key, ops, nbytes in (("fwd", ops_f, bytes_f), ("bwd", ops_b, bytes_b)):
-        bo, bb = ops / PEAK_OPS["bf16"] * 1e3, nbytes / HBM_BPS * 1e3
-        k3_bounds[key] = (max(bo, bb), "operations" if bo >= bb else "bytes",
-                          ops / PEAK_OPS["fp32"] * 1e3)
+    k3_bounds_dense = k3_bounds(K3_ROWS, nerf)
     scratch_bytes = 2 * k3.scratch_layout(K3_ROWS)[""][0]
     print(f"  K3 forward {ms_k3f:.3f} ms ({ops_f / ms_k3f / 1e9:.1f} TFLOP/s), backward "
           f"{ms_k3b:.3f} ms ({ops_b / ms_k3b / 1e9:.1f} TFLOP/s); plain forward {ms_pf:.3f} ms, "
           f"plain backward {ms_pb:.3f} ms", flush=True)
-    print(f"  bounds: forward {k3_bounds['fwd'][0]:.3f} ms, backward {k3_bounds['bwd'][0]:.3f} ms "
-          f"(bf16 peak; fp32 FMA {k3_bounds['fwd'][2]:.2f} / {k3_bounds['bwd'][2]:.2f} ms); the "
+    bf, bb = k3_bounds_dense["fwd"], k3_bounds_dense["bwd"]
+    print(f"  bounds: forward {bf[0]:.3f} ms, backward {bb[0]:.3f} ms (bf16 peak; fp32 FMA "
+          f"{bf[2]:.2f} / {bb[2]:.2f} ms); the "
           f"backward's scratch ({scratch_bytes / 1e9:.2f} GB written and read) alone takes "
           f"{2 * scratch_bytes / HBM_BPS * 1e3:.2f} ms", flush=True)
     del x, g, out_k, out_p, packed
@@ -512,88 +877,82 @@ def main():
 
     t = time.perf_counter()
     steps = TRAIN_WARMUP + TRAIN_TIMED
-    phase(f"9 main path: train, dense_training.ini on demo/mscene, bf16, {steps} steps")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_logs_") as log_dir:
-        argv = ["-c", DENSE_INI, "-data", MSCENE_DATA, "-log", log_dir, "--bf16",
-                "--epochs", str(1 + steps), "--randomSeed", "0",
-                # one value per network (an append option): neither is locked
-                "--epochsLockWeightsBefore", "-1", "--epochsLockWeightsBefore", "-1",
-                "--epochsRender", "1000000", "--epochsValidate", "1000000",
-                "--epochsCheckpoint", "1000000", "--no-performEvaluation",
-                "--verboseEvery", "10"]
-        NerfTrainKernel.forward_launches = NerfTrainKernel.backward_launches = 0
-        stats = train.main(argv)
-        k3_launches = (NerfTrainKernel.forward_launches, NerfTrainKernel.backward_launches)
-        ts = stats["state"]
-        mse = stats["losses"][:, 1]
-        step_ms = stats["step_ms"][TRAIN_WARMUP:]
-        train_ms = float(np.mean(step_ms))
-        print(f"  K3 launches on the main path: forward {k3_launches[0]}, backward "
-              f"{k3_launches[1]} ({steps} steps)", flush=True)
-        print(f"  train step {train_ms:.3f} ms (mean of {len(step_ms)}; median "
-              f"{float(np.median(step_ms)):.3f}, min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
-              f"{K3_ROWS / train_ms / 1e3:.3f} M shading rows/s", flush=True)
-        print(f"  MSE mean of the first 10 steps {float(mse[:10].mean()):.6f}, of the last 10 "
-              f"{float(mse[-10:].mean()):.6f}; all losses finite: "
-              f"{bool(np.isfinite(stats['losses']).all())}", flush=True)
-        print(f"  checkpoint: {[os.path.basename(p) for p in stats['checkpoint']]}", flush=True)
-        if k3_launches != (steps, steps):
-            raise SystemExit(f"the train path launched K3 {k3_launches} times, expected {steps}")
-        if not (np.isfinite(stats["losses"]).all() and mse[-10:].mean() < mse[:10].mean()):
-            raise SystemExit("training loss did not fall or is not finite")
-        if not all(os.path.exists(p) for p in stats["checkpoint"]):
-            raise SystemExit("the final checkpoint is missing")
-        # one step's grads through K3 and through the plain path, same
-        # params and batch (no update is applied)
-        batch, targets = ts.assemble_train_batch(ts.train_dataset, np.array([0, 1]))
-        _, grads_k = ts.make_loss_and_grads()(batch, targets, steps + 1)
-        ts.config_file.fusedTrainKernel = 0
-        _, grads_p = ts.make_loss_and_grads()(batch, targets, steps + 1)
-        step_errs = {}
-        for i, m in enumerate(ts.models):
-            for k, (rel, _) in grad_errors(grads_p[i], grads_k[i]).items():
-                step_errs[f"{m.name}.{k}"] = rel
-        worst_step = max((v, k) for k, v in step_errs.items())
-        print(f"  train step grads, K3 vs plain: worst leaf {worst_step[1]} rel "
-              f"{worst_step[0]:.3e} (allowed 2e-2)", flush=True)
-        if not worst_step[0] <= 2e-2:
-            raise SystemExit("the train step's grads through K3 disagree with the plain path")
-        # where a step's device time goes: 3 more steps through K3 under the
-        # profiler, counting device-side events only (an aten op's "self"
-        # device time repeats its kernels')
-        ts.config_file.fusedTrainKernel = 1
-        step = ts.make_train_step()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t_prof = time.perf_counter()
-            for epoch in range(steps + 2, steps + 5):
-                step(batch, targets, epoch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t_prof) * 1e3 / 3
-        kernels = sorted(((e.self_device_time_total / 1e3 / 3, e.key) for e in prof.key_averages()
-                          if e.self_device_time_total > 0 and e.device_type.name == "CUDA"),
-                         reverse=True)
-        device_ms = sum(ms for ms, _ in kernels)
-        k3_ms = sum(ms for ms, name in kernels if "k3_" in name)
-        # K3's kernels launched per step: the forward's one, the backward's
-        k3_step_counts = {re.search(r"k3_\w+", e.key).group(0): e.count / 3
-                          for e in prof.key_averages()
-                          if e.device_type.name == "CUDA" and "k3_" in e.key}
-        print(f"  K3 kernels launched per step: {k3_step_counts}", flush=True)
-        expected = {k: 1.0 for k in ("k3_fwd",) + nerf_train.BACKWARD_KERNEL_NAMES}
-        if k3_step_counts != expected:
-            raise SystemExit(f"K3 launched {k3_step_counts} a step, expected {expected}")
-        if device_ms > 0:
-            print(f"  profiled step (3 steps): device busy {device_ms:.3f} ms of {wall_ms:.3f} ms "
-                  f"wall ({100 * device_ms / wall_ms:.1f}%, profiler on); K3 kernels "
-                  f"{k3_ms:.3f} ms, the rest {device_ms - k3_ms:.3f} ms", flush=True)
-            for ms, name in kernels[:12]:
-                print(f"    {ms:9.3f} ms  {name[:90]}", flush=True)
-        else:
-            print("  profiled step: the profiler recorded no device time (not measured)", flush=True)
-        del ts, stats, batch, targets, grads_k, grads_p, step, prof
+    phase(f"9 main path: train, dense_training.ini on demo/mscene, bf16, {steps} steps, "
+          "validating at the last")
+    # phase 9b's fine leg bootstraps from this leg's _opt checkpoints
+    train_logs = tempfile.TemporaryDirectory(prefix="chip_smoke_logs_")
+    log_dir = train_logs.name
+    # the flags overridden here leave the experiment's name as the
+    # shipped ini gives it, so the fine leg finds it through its regex
+    argv = ["-c", DENSE_INI, "-data", MSCENE_DATA, "-log", log_dir, "--bf16",
+            "--epochs", str(1 + steps), "--randomSeed", "0",
+            # one value per network (an append option): neither is locked
+            "--epochsLockWeightsBefore", "-1", "--epochsLockWeightsBefore", "-1",
+            "--epochsRender", "1000000", "--epochsValidate", str(steps),
+            "--epochsCheckpoint", "1000000", "--no-performEvaluation",
+            "--verboseEvery", "10"]
+    NerfTrainKernel.forward_launches = NerfTrainKernel.backward_launches = 0
+    NerfTrainKernel.forward_rows = None
+    stats = train.main(argv)
+    k3_launches = (NerfTrainKernel.forward_launches, NerfTrainKernel.backward_launches)
+    dense_rows = NerfTrainKernel.forward_rows
+    ts = stats["state"]
+    dense_dir = ts.logDir
+    n_val = len(ts.valid_dataset)
+    dense_val_ms = stats["legs_ms"]["validate"]
+    opt_files = sorted(f for f in os.listdir(dense_dir) if "__opt." in f)
+    opt_txt = os.path.join(dense_dir, "opt.txt")
+    print(f"  validation at epoch {steps} (not in the step times): {dense_val_ms} ms for {n_val} "
+          f"images; opt.txt: {open(opt_txt).read() if os.path.exists(opt_txt) else None!r}; "
+          f"{opt_files}", flush=True)
+    if len(dense_val_ms) != 1 or len(opt_files) != 2 * len(ts.models):
+        raise SystemExit("the dense leg did not validate once or wrote no _opt checkpoints")
+    mse = stats["losses"][:, 1]
+    step_ms = stats["step_ms"][TRAIN_WARMUP:]
+    train_ms = float(np.mean(step_ms))
+    print(f"  K3 launches on the main path: forward {k3_launches[0]}, backward "
+          f"{k3_launches[1]} ({steps} steps) at {dense_rows} rows", flush=True)
+    print(f"  train step {train_ms:.3f} ms (mean of {len(step_ms)}; median "
+          f"{float(np.median(step_ms)):.3f}, min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
+          f"{dense_rows / train_ms / 1e3:.3f} M shading rows/s", flush=True)
+    print(f"  MSE mean of the first 10 steps {float(mse[:10].mean()):.6f}, of the last 10 "
+          f"{float(mse[-10:].mean()):.6f}; all losses finite: "
+          f"{bool(np.isfinite(stats['losses']).all())}", flush=True)
+    print(f"  checkpoint: {[os.path.basename(p) for p in stats['checkpoint']]}", flush=True)
+    if k3_launches != (steps, steps):
+        raise SystemExit(f"the train path launched K3 {k3_launches} times, expected {steps}")
+    if dense_rows != K3_ROWS:  # the shape phase 8 holds K3 at
+        raise SystemExit(f"the dense leg ran K3 at {dense_rows} rows, expected {K3_ROWS}")
+    if not (np.isfinite(stats["losses"]).all() and mse[-10:].mean() < mse[:10].mean()):
+        raise SystemExit("training loss did not fall or is not finite")
+    if not all(os.path.exists(p) for p in stats["checkpoint"]):
+        raise SystemExit("the final checkpoint is missing")
+    worst_step, batch, targets, _ = step_grads_vs_plain(ts, NerfTrainKernel, steps + 1)
+    print(f"  train step grads, K3 vs plain: worst leaf {worst_step[1]} rel "
+          f"{worst_step[0]:.3e} (allowed 2e-2)", flush=True)
+    if not worst_step[0] <= 2e-2:
+        raise SystemExit("the train step's grads through K3 disagree with the plain path")
+    # where a step's device time goes: 3 more steps through K3
+    prof = profile_steps(ts, batch, targets, steps + 2)
+    k3_step_counts = prof["k3_counts"]
+    print(f"  K3 kernels launched per step: {k3_step_counts}", flush=True)
+    expected = {k: 1.0 for k in ("k3_fwd",) + nerf_train.BACKWARD_KERNEL_NAMES}
+    if k3_step_counts != expected:
+        raise SystemExit(f"K3 launched {k3_step_counts} a step, expected {expected}")
+    print_profile("profiled step (3 steps)", prof, 12)
+    del ts, stats, batch, targets, prof
+    torch.cuda.empty_cache()
     done("9", t)
+
+    t = time.perf_counter()
+    phase(f"9b main path: train, fine_training.ini as shipped on demo/mscene, bf16, {FINE_STEPS} "
+          "steps from phase 9's _opt, render, video, validation and evaluation once each")
+    fine = fine_leg(train, port_test, NerfTrainKernel, nerf_train_check, log_dir,
+                    dense_dir)
+    train_logs.cleanup()
+    torch.cuda.empty_cache()
+    print(f"  card: {card_state()}", flush=True)
+    done("9b", t)
 
     t = time.perf_counter()
     phase("10 K2 fp32 checks, trained_mscene_export, 400x400 frame, thresholds 0.2 / 0.01 / 1e-4")
@@ -730,8 +1089,17 @@ def main():
     print(f"  card: {card_state()}", flush=True)
     done("13", t)
 
+    t = time.perf_counter()
+    phase("13b evaluate the committed JAX run (fine, S=8, threshold 0.2, fp32) on the card")
+    evaluation = evaluate_jax_run(port_evaluate)
+    print(f"  card: {card_state()}", flush=True)
+    done("13b", t)
+
     k2_main = k2_16[scene_thr]
     phase("14 kernels")
+    print(json.dumps({"training_legs": {"dense_validate_ms": dense_val_ms,
+                                        "fine": {k: v for k, v in fine.items()}},
+                      "evaluation": evaluation}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "megakernel_compact", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_compact.cu + adanerf_tpu_torch/csrc/megakernel.cuh",
@@ -749,17 +1117,26 @@ def main():
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
         "launches": k3_launches[0], "max_abs_err": fwd_abs, "rel_err": fwd_rel,
-        "ms": ms_k3f, "plain_ms": ms_pf, "bound_ms": k3_bounds["fwd"][0],
-        "bound_by": k3_bounds["fwd"][1], "library_ms": None, "rows": K3_ROWS}, {
+        "ms": ms_k3f, "plain_ms": ms_pf, "bound_ms": k3_bounds_dense["fwd"][0],
+        "bound_by": k3_bounds_dense["fwd"][1], "library_ms": None, "rows": K3_ROWS,
+        "fine_launches": fine["launches"][0], "fine_rows": fine["rows"],
+        "fine_ms": fine["k3_fwd_ms"], "fine_plain_ms": fine["plain_fwd_ms"],
+        "fine_bound_ms": fine["bound_fwd_ms"], "fine_max_abs_err": fine["max_abs_err_fwd"],
+        "fine_train_step_ms": fine["step_ms"]}, {
         "name": "nerf_train_backward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
         "launches": k3_launches[1], "max_abs_err": bwd_abs, "worst_leaf_rel_err": worst[0],
         "dx_rel_err": errs["x"][0], "forced_outputs_worst_leaf_rel_err": worst_f[0],
         "dx_max_abs_err": dx_abs, "jax_check_dx_max_abs_err": jax_dx_abs, "ms": ms_k3b, "plain_ms": ms_pb,
-        "bound_ms": k3_bounds["bwd"][0], "bound_by": k3_bounds["bwd"][1], "library_ms": None,
+        "bound_ms": k3_bounds_dense["bwd"][0], "bound_by": k3_bounds_dense["bwd"][1],
+        "library_ms": None,
         "rows": K3_ROWS, "train_step_ms": train_ms, "kernels_ms": k3_bwd_kernels,
-        "kernels_per_step": k3_step_counts, "deterministic": same}, {
+        "kernels_per_step": k3_step_counts, "deterministic": same,
+        "fine_launches": fine["launches"][1], "fine_rows": fine["rows"],
+        "fine_ms": fine["k3_bwd_ms"], "fine_plain_ms": fine["plain_bwd_ms"],
+        "fine_bound_ms": fine["bound_bwd_ms"], "fine_max_abs_err": fine["max_abs_err_bwd"],
+        "fine_train_step_ms": fine["step_ms"]}, {
         "name": "megakernel_dense", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_dense.cu + adanerf_tpu_torch/csrc/megakernel.cuh",
         "replaces": "adanerf_tpu/ops/pallas/megakernel.py:281",

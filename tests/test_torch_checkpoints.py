@@ -190,6 +190,7 @@ def test_dense_to_fine_bootstrap_from_either_package(scene, tmp_path):
     fine_extra = [("threshold", 0.15), ("n_raymarch", 16), ("--preTrainedSuffix", "opt"),
                   ("--preTrained", dataset_dir), ("--preTrained", dataset_dir)]
     fine = _port(scene, log, fine_extra)
+    assert fine.teacher_experiment_name() == dense.experiment_name
     fine.load_latest_weights()
     assert fine.epoch0 == 1
     for a, b in zip(dense.models, fine.models):

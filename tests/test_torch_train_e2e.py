@@ -1,8 +1,9 @@
 """The port's trainer end to end on the CPU: ``python -m
 adanerf_tpu_torch.train --device cpu`` on the synthetic scene for 30
 epochs lowers the loss and writes checkpoints with the JAX package's names,
-which the JAX package loads; what the trainer does not port yet is refused
-before step 0 with its ROADMAP item."""
+which the JAX package loads; what the trainer does not port yet (GT
+pretraining, several devices) is refused before step 0 with its ROADMAP
+item."""
 
 import os
 import re
@@ -65,11 +66,7 @@ def test_main_returns_falling_losses(scene, tmp_path):
 
 
 @pytest.mark.parametrize("extra,words", [
-    (["--performEvaluation"], "evaluation is not ported yet (ROADMAP Queue 1, item 11)"),
     (["--epochsPretrain", "5", "--epochsPretrain", "-1"], "ROADMAP Queue 1, item 5"),
-    (["--epochsRender", "10"], "--epochsRender 10: epoch 10 of this run reaches it"),
-    (["--epochsValidate", "25"], "--epochsValidate 25: epoch 25"),
-    (["--epochsVideo", "7"], "--epochsVideo 7: epoch 7"),
     (["--meshDevices", "2"], "ROADMAP Queue 1, item 9"),
 ])
 def test_unported_options_are_refused_before_step_0(scene, tmp_path, extra, words):
@@ -105,10 +102,13 @@ def test_nerf_widths_k3_does_not_take_are_refused_on_cuda(scene, tmp_path, width
 
 
 def test_render_points_beyond_the_run_are_fine():
-    cfg = type("C", (), dict(epochsPretrain=[-1, -1], epochsRender=31, epochsValidate=50000,
-                             epochsVideo=-1, performEvaluation=False, meshDevices=-1))()
-    assert train.unsupported(cfg, 1, 31) == []
-    assert len(train.unsupported(cfg, 1, 32)) == 1
+    """Render, video and validation points and the evaluation are ported:
+    none is refused, inside the run or beyond it."""
+    cfg = type("C", (), dict(epochsPretrain=[-1, -1], epochsRender=31, epochsValidate=5,
+                             epochsVideo=7, performEvaluation=True, meshDevices=-1))()
+    assert train.unsupported(cfg) == []
+    cfg.meshDevices = 2
+    assert len(train.unsupported(cfg)) == 1
 
 
 def test_cuda_device_without_a_card_raises(scene, tmp_path):

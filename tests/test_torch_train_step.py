@@ -4,7 +4,9 @@ of the synthetic scene:
 
 * per-net losses within rtol 1e-5 and every gradient leaf within 1e-4 of
   its max |ref| of jax.grad of the JAX step's loss (make_train_step's
-  loss_fn); fp32, with XLA and torch summing in different orders;
+  loss_fn); fp32, with XLA and torch summing in different orders; on the
+  synthetic view-cell scene and, with --useNDC and the NDC configs'
+  sampler, on a forward-facing LLFF capture;
 * Adam: fed the same gradients, the port's update gives optax's
   scale_by_adam parameters and state within rtol 1e-6, atol 1e-9 (Adam's
   first steps are ~sign(g), so grads that differ by an ulp near zero
@@ -13,6 +15,9 @@ of the synthetic scene:
   bounds, and a locked net keeping its parameters and optimizer state."""
 
 import itertools
+import os
+import subprocess
+import sys
 
 import numpy as np
 import optax
@@ -29,11 +34,18 @@ from adanerf_tpu_torch.config import Config as TConfig
 from adanerf_tpu_torch.train_state import AdamState, TrainState as TTrainState, adam_update
 from adanerf_tpu_torch.utils.weights import flatten_params, from_jax_params
 
-from scene_utils import dense_config_args, make_scene
+from scene_utils import dense_config_args, make_llff_scene, make_scene
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _pair(scene, log, extra=()):
+def _pair(scene, log, extra=(), ndc=False):
     argv = dense_config_args(scene, log, samples=48) + ["--randomSeed", "0"] + list(extra)
+    if ndc:
+        argv[argv.index("FromClassifiedDepthAdaptive")] = "FromClassifiedDepthAdaptiveNoDepthRange"
+        k = argv.index("InverseSqrtDistCentered")
+        argv[argv.index("InverseSqrtDistCentered", k + 1)] = "None"
+        argv[argv.index("log")] = "linear"
     jts, tts = JTrainState(), TTrainState()
     jts.initialize(JConfig.init(argv=argv))
     tts.initialize(TConfig.init(argv=argv + ["--device", "cpu"]), log_path=log + "/t/")
@@ -68,9 +80,7 @@ def _jax_loss_and_grads(jts, batch, targets, epoch):
         for g in grads]
 
 
-@pytest.mark.parametrize("thr,epoch", [(0.0, 1), (0.0, 12), (0.2, 12), (0.0, 40)])
-def test_losses_and_grads_match_jax(scene, tmp_path, thr, epoch):
-    jts, tts = _pair(scene, str(tmp_path), ["--adaptiveSamplingThreshold", str(thr)])
+def _check_step_parity(jts, tts, epoch):
     idx = np.array([0, 2])
     jb, jt = jts.assemble_train_batch(jts.train_dataset, idx)
     tb, tt = tts.assemble_train_batch(tts.train_dataset, idx)
@@ -83,6 +93,36 @@ def test_losses_and_grads_match_jax(scene, tmp_path, thr, epoch):
             scale = float(np.abs(ref).max()) + 1e-20
             rel = float(np.abs(tg[k].numpy() - ref).max()) / scale
             assert rel <= 1e-4, (i, k, rel)
+
+
+@pytest.mark.parametrize("thr,epoch", [(0.0, 1), (0.0, 12), (0.2, 12), (0.0, 40)])
+def test_losses_and_grads_match_jax(scene, tmp_path, thr, epoch):
+    jts, tts = _pair(scene, str(tmp_path), ["--adaptiveSamplingThreshold", str(thr)])
+    _check_step_parity(jts, tts, epoch)
+
+
+@pytest.fixture(scope="module")
+def ndc_scene(tmp_path_factory):
+    """A forward-facing LLFF capture converted to a view-cell scene, as
+    configs/*_ndc.ini train on."""
+    d = make_llff_scene(str(tmp_path_factory.mktemp("scene_ndc")), w=40, h=32, n_images=12)
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "convert_llff.py"), "-dir", d,
+                           "-factor", "1"], cwd=ROOT, capture_output=True, text=True,
+                          env=dict(os.environ, ADANERF_PLATFORM="cpu", JAX_PLATFORMS="cpu"))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    return d
+
+
+@pytest.mark.parametrize("thr", [0.0, 0.2])
+def test_ndc_losses_and_grads_match_jax(ndc_scene, tmp_path, thr):
+    """configs/{dense,fine}_training_ndc.ini's path: --useNDC, linear depth,
+    FromClassifiedDepthAdaptiveNoDepthRange and no normalization of the
+    NeRF's samples."""
+    args = ["--adaptiveSamplingThreshold", str(thr), "--useNDC"]
+    jts, tts = _pair(ndc_scene, str(tmp_path), args, ndc=True)
+    assert tts.experiment_name.startswith("ndc_") and tts.experiment_name == jts.experiment_name
+    for epoch in (1, 12):
+        _check_step_parity(jts, tts, epoch)
 
 
 def test_adam_matches_optax_on_equal_grads():
