@@ -94,6 +94,16 @@ def _scanlines(path: str):
     return raw.reshape(h, 1 + w * bpp), bpp
 
 
+def refuse_jpegs(directory: str, names):
+    """Raise ValueError naming the JPEG files among ``names`` (in
+    ``directory``): the port decodes PNG only (ROADMAP Queue 1, item 19)."""
+    jpegs = [n for n in names if n.lower().endswith((".jpg", ".jpeg"))]
+    if jpegs:
+        raise ValueError(f"{directory}: JPEG images ({', '.join(jpegs[:3])}"
+                         f"{', ...' if len(jpegs) > 3 else ''}) need a JPEG decoder, which the "
+                         "port does not have yet (ROADMAP Queue 1, item 19); convert them to PNG")
+
+
 def read_png(path: str) -> np.ndarray:
     """Decode an 8-bit RGB or RGBA PNG to (h, w, 3 or 4) uint8."""
     raw, bpp = _scanlines(path)

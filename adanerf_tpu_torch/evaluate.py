@@ -11,7 +11,10 @@ from its echoed ``config.ini`` and its ``--checkPointName`` checkpoint
 there, or under ``--outDir/<dataset>/<experiment>``. A run whose optimal
 epoch is evaluated already is skipped unless ``--force``. The default
 evaluations are complexity, images, flip, psnr, ssim and output_images;
-``videos`` and ``export`` are refused, naming their ROADMAP items.
+``videos`` holds the ``cam_path.json`` camera path against
+``<scene>/reference_video/*.png`` and ``export`` writes the viewer artifacts
+to ``exported_model/``. A JPEG reference frame is refused before any run is
+loaded (ROADMAP Queue 1, item 19).
 
 ``--device`` (``-d``) is ``cuda`` by default (an index N means
 ``cuda:N``), ``cpu`` on request; a missing card raises and nothing falls
@@ -24,7 +27,8 @@ import argparse
 import os
 import sys
 
-from .evaluation.evaluate import DEFAULT_EVALUATIONS, evaluate, load_config, unsupported
+from .evaluation.evaluate import (DEFAULT_EVALUATIONS, evaluate, load_config,
+                                  reference_frame_files)
 from .train_state import resolve_device
 
 
@@ -53,10 +57,11 @@ def main(argv=None):
                    help='re-evaluate even if opt epoch already evaluated')
     cl = p.parse_args(argv)
 
-    refused = unsupported(cl.evaluations)
-    if refused:
-        raise SystemExit("adanerf_tpu_torch.evaluate: not supported yet:\n  "
-                         + "\n  ".join(refused))
+    if "videos" in cl.evaluations:
+        try:
+            reference_frame_files(cl.data)
+        except ValueError as e:
+            raise SystemExit(f"adanerf_tpu_torch.evaluate: {e}") from None
     device = str(resolve_device(cl.device))
 
     candidates = find_experiments(cl.logDir)

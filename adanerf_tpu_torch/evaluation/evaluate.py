@@ -1,19 +1,24 @@
-"""Quantitative evaluation: MSE, PSNR, IW-SSIM and FLIP of the test split,
-the analytic complexity scaled by the measured adaptive sample counts,
-the diff and FLIP images, the CSV and TXT reports, and re-hydrating a run
-from its experiment directory.
+"""Quantitative evaluation: MSE, PSNR, IW-SSIM and FLIP of the test split
+and of a camera path against a reference video, the analytic complexity
+scaled by the measured adaptive sample counts, the diff and FLIP images,
+the CSV and TXT reports, the export, and re-hydrating a run from its
+experiment directory.
 
 Counterpart of ``adanerf_tpu/evaluation/evaluate.py``, writing the same
 files under the same names: ``complexity.txt``, ``network_description.txt``,
-``image_quality_images.{txt,csv}`` (``\\r`` line ends) and
-``eval/{i}_out.png``, ``eval/{i}_diff_*.png``, ``eval/{i}_square_diff_*.png``,
-``eval/{i}_flip_*.png`` and ``eval/opt.txt``. Rendering runs the plain
-cascade on the run's device, FLIP runs there too, IW-SSIM on the host.
+``image_quality_images.{txt,csv}`` and ``image_quality_video.{txt,csv}``
+(``\\r`` line ends), ``eval/{i}_out.png``, ``eval/{i}_diff_*.png``,
+``eval/{i}_square_diff_*.png``, ``eval/{i}_flip_*.png``, ``eval/opt.txt``
+and ``exported_model/``. Rendering runs the plain cascade on the run's
+device, FLIP runs there too, IW-SSIM on the host.
 
-Not ported yet, and refused by name: the ``videos`` evaluation (a camera
-path against a reference video, which the JAX package reads with imageio
-and resizes with OpenCV; ROADMAP Queue 1, item 18) and ``export`` (the
-viewer artifacts; ROADMAP Queue 1, item 12).
+The ``videos`` evaluation reads ``<scene>/reference_video/*.png`` with the
+port's PNG decoder and resizes a frame of another size with
+``utils/resize.py::resize_area`` (OpenCV's ``INTER_AREA``). Its diff,
+square-diff and FLIP frame sequences are written as
+``{_diff,_square_diff,_flip}_frames/%05d.png``, what the JAX package writes
+when it has no video encoder. A JPEG frame is refused by name: the port
+has no JPEG decoder yet (ROADMAP Queue 1, item 19).
 """
 
 from __future__ import annotations
@@ -24,26 +29,18 @@ from shutil import copyfile
 
 import numpy as np
 
+from ..data.camera import PredefinedCamera
+from ..data.png import read_png, refuse_jpegs, write_png
 from ..pipeline.keys import FSK
 from ..render import render_rays_chunked, render_video
 from ..utils import colormaps
+from ..utils.resize import resize_area
 from ..utils.saveimage import Dim, save_img
 from .flip import flip_error_map
 from .iw_ssim import iw_ssim, rgb_to_gray255
 from .metrics import mse as mse_fn, psnr as psnr_fn
 
 DEFAULT_EVALUATIONS = ["complexity", "images", "flip", "psnr", "ssim", "output_images"]
-NOT_PORTED = {
-    "videos": "the videos evaluation (a camera path against <scene>/reference_video) is not "
-              "ported yet (ROADMAP Queue 1, item 18)",
-    "export": "the export evaluation (viewer artifacts) is not ported yet (ROADMAP Queue 1, "
-              "item 12)",
-}
-
-
-def unsupported(evaluations) -> list:
-    """One message for each requested evaluation that the port refuses."""
-    return [NOT_PORTED[e] for e in evaluations if e in NOT_PORTED]
 
 
 class QualityContainer:
@@ -184,6 +181,95 @@ def generate_data(ts, flags, out_dir=None):
     return q
 
 
+def reference_frame_files(data_path):
+    """The frames of ``<data_path>/reference_video`` (``.png`` and ``.jpg``,
+    in name order), or None when there is no such directory. A ``.jpg``
+    frame raises ValueError: the port has no JPEG decoder yet."""
+    ref_path = os.path.join(data_path, "reference_video")
+    if not os.path.exists(ref_path):
+        return None
+    names = [f for f in sorted(os.listdir(ref_path)) if f.lower().endswith((".png", ".jpg"))]
+    refuse_jpegs(ref_path, names)
+    return [os.path.join(ref_path, f) for f in names]
+
+
+def load_reference_video(data_path):
+    """The frames of ``<data_path>/reference_video/*.png`` as uint8 arrays,
+    or None when there are none."""
+    files = reference_frame_files(data_path)
+    if not files:
+        return None
+    return [read_png(f) for f in files]
+
+
+def _write_frames(out_dir, name, frames):
+    """``<out_dir>/<name>_frames/%05d.png``: the frame sequence the JAX
+    package writes when it cannot encode a video."""
+    frame_dir = os.path.join(out_dir, name + "_frames")
+    os.makedirs(frame_dir, exist_ok=True)
+    for i, frame in enumerate(frames):
+        write_png(os.path.join(frame_dir, f"{i:05d}.png"), frame)
+
+
+def generate_video_data(ts, flags, reference_video, out_dir=None):
+    """The ``cam_path`` camera path rendered against a reference video:
+    per-frame metrics, the diff, square-diff and FLIP frame sequences and
+    ``image_quality_video.{txt,csv}``. A frame of another size than the
+    run's is area-resized to it."""
+    out_dir = out_dir or getattr(ts, 'outDir', ts.logDir)
+    h, w = ts.h, ts.w
+    chunk = ts.config_file.inferenceChunkSize
+    transforms = PredefinedCamera.import_camera_path(
+        ts.config_file.data, "cam_path", len(reference_video))
+
+    q = QualityContainer()
+    for i in range(min(len(transforms), len(reference_video))):
+        t = transforms[i]
+        imgs, _ = render_rays_chunked(ts, t[:3, 3], t[:3, :3], chunk, collect=[])
+        test = np.clip(imgs[-1][:, :3], 0.0, 1.0).reshape(h, w, 3)
+        ref = np.asarray(reference_video[i]).astype(np.float32)
+        if ref.max() > 1.5:
+            ref = ref / 255.0
+        ref = ref[..., :3]
+        if ref.shape[:2] != (h, w):
+            ref = resize_area(ref, w, h)
+
+        diff = np.abs(test - ref)
+        q.mse.append(mse_fn(test, ref))
+        if "psnr" in flags:
+            q.psnr.append(psnr_fn(test, ref))
+        if "ssim" in flags:
+            q.ssim.append(iw_ssim(rgb_to_gray255(ref), rgb_to_gray255(test)))
+        if "flip" in flags:
+            fmap = flip_error_map(ref, test, device=ts.device).cpu().numpy()
+            q.flip.append(float(fmap.mean()))
+            q.flip_data.append((colormaps.apply("magma", fmap)[..., :3] * 255).astype(np.uint8))
+        q.diff_data.append((diff * 255).astype(np.uint8))
+        q.square_diff_data.append((diff ** 2 * 255).astype(np.uint8))
+
+    _write_frames(out_dir, "_diff", q.diff_data)
+    _write_frames(out_dir, "_square_diff", q.square_diff_data)
+    if "flip" in flags and q.flip_data:
+        _write_frames(out_dir, "_flip", q.flip_data)
+
+    default_samples = float(ts.config_file.numRaymarchSamples[-1])
+    with open(os.path.join(out_dir, "image_quality_video.txt"), "w") as f:
+        for idx, m in enumerate(q.mse):
+            f.write(f"image={idx} mse={m:.4f} psnr="
+                    f"{q.psnr[idx] if 'psnr' in flags else -1.0:.4f} "
+                    f"ssim={q.ssim[idx] if 'ssim' in flags else -1.0:.4f} "
+                    f"flip_loss={q.flip[idx] if 'flip' in flags else -1.0:.4f} "
+                    f"samples={default_samples} sparsity=-1.0\r")
+    with open(os.path.join(out_dir, "image_quality_video.csv"), "w") as c:
+        c.write("mse,psnr,ssim,flip,samples,sparsity\r")
+        for idx, m in enumerate(q.mse):
+            c.write(f"{m},{q.psnr[idx] if 'psnr' in flags else -1.0},"
+                    f"{q.ssim[idx] if 'ssim' in flags else -1.0},"
+                    f"{q.flip[idx] if 'flip' in flags else -1.0},"
+                    f"{default_samples},-1.0\r")
+    return q
+
+
 def _render_cam_path(ts, cam_path, vid_name):
     """A PredefinedCamera video of ``<scene>/<cam_path>.json`` into
     ``ts.outDir``; a missing path file is reported and skipped, as JAX does."""
@@ -199,14 +285,15 @@ def _render_cam_path(ts, cam_path, vid_name):
 
 
 def evaluate(ts, reference_video, evaluations):
-    """Run the requested evaluations. ``reference_video`` is accepted for the JAX
-    package's signature; the ``videos`` evaluation that reads it is
-    refused, as is ``export``."""
-    refused = unsupported(evaluations)
-    if refused:
-        raise NotImplementedError("; ".join(refused))
+    """Run the requested evaluations; ``videos`` reads the scene's
+    ``reference_video/`` unless ``reference_video`` (frames) is given.
+    Returns the images leg's metrics, or None."""
     if not hasattr(ts, 'outDir'):
         ts.outDir = ts.logDir
+    videos = "videos" in evaluations and not ts.config_file.trainWithGTDepth
+    if videos and reference_video is None:
+        # read before any leg runs, so a refused (JPEG) frame stops the run early
+        reference_video = load_reference_video(ts.config_file.data)
 
     if "opt" in evaluations and not ts.config_file.trainWithGTDepth:
         _render_cam_path(ts, "cam_path", "_opt")
@@ -218,11 +305,21 @@ def evaluate(ts, reference_video, evaluations):
     if "images" in evaluations:
         q = generate_data(ts, evaluations)
 
+    if videos and reference_video is not None:
+        try:
+            generate_video_data(ts, evaluations, reference_video)
+        except FileNotFoundError:
+            print("no cam_path.json — skipping video evaluation")
+
     if "output_videos" in evaluations and not ts.config_file.trainWithGTDepth:
         cam_paths = getattr(ts, "evaluation_cam_path", None) or \
             ([ts.config_file.camPath] if ts.config_file.camPath else [])
         for cam_path in cam_paths:
             _render_cam_path(ts, cam_path, cam_path)
+
+    if "export" in evaluations:
+        from ..export import export_artifacts
+        export_artifacts(ts, os.path.join(ts.outDir, "exported_model"))
 
     if os.path.exists(os.path.join(ts.logDir, "opt.txt")):
         os.makedirs(os.path.join(ts.outDir, "eval"), exist_ok=True)

@@ -6,16 +6,18 @@
 Builds the CUDA kernels from the checkout (printing each kernel's
 registers, spills, shared memory and HGMMA count), holds each against its
 plain PyTorch version on the card (K3's backward also against itself: two
-calls must agree bit for bit), drives the port's three paths (the viewer
+calls must agree bit for bit), drives the port's paths (the viewer
 rendering a trained export through K1, the dense trainer taking a few
 steps through K3 and validating at its last, the fine trainer
 bootstrapped from that run's ``_opt`` checkpoints taking a few steps
-through K3 with its render, video, validation and evaluation legs, and the
-viewer's ``--megakernel v3`` rendering through K2), checks and times K1 in
-bf16 on the S=16 NDC export at 800x800, evaluates the committed JAX run
-against the JAX package's own CPU evaluation of it
-(``tests/torch_fixtures/eval_mscene_fine02.json``), and prints, as its
-last two lines, a JSON line of per-kernel numbers and a JSON line
+through K3 with its render, video, validation and evaluation legs, the
+export of that fine run viewed through K1 and K2, and the viewer's
+``--megakernel v3`` rendering through K2), checks and times K1 in bf16 on
+the S=16 NDC export at 800x800, evaluates the committed JAX run against
+the JAX package's own CPU evaluation of it
+(``tests/torch_fixtures/eval_mscene_fine02.json``) and its videos leg
+against that evaluation's images leg, and prints, as its last two lines, a
+JSON line of per-kernel numbers and a JSON line
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, without those lines, when there is no CUDA device or any phase
 fails. Imports torch, numpy and the standard library besides the port
@@ -118,77 +120,134 @@ def float64_frame(rt, o_sh, d_sh, z, p, mask, chunk=20000):
             p[s:s + chunk].double(), mask[s:s + chunk]) for s in range(0, z.shape[0], chunk)])
 
 
+def slot_bins(rt, z):
+    """(B, S) long: the oracle bin whose depth each slot holds."""
+    D = rt.oracle.n_out
+    table = rt._to_world((torch.arange(D, device=z.device, dtype=torch.float32) + 0.5) / D)
+    return (z[..., None] - table).abs().argmin(dim=-1)
+
+
 def kept_bins(rt, z, mask):
     """(B, D) bool: the oracle bins whose depths fill a ray's live slots."""
     D = rt.oracle.n_out
-    table = rt._to_world((torch.arange(D, device=z.device, dtype=torch.float32) + 0.5) / D)
-    b = (z[..., None] - table).abs().argmin(dim=-1)
     keep = torch.zeros((z.shape[0], D + 1), dtype=torch.bool, device=z.device)
-    return keep.scatter_(1, torch.where(mask, b, D), True)[:, :D]
+    return keep.scatter_(1, torch.where(mask, slot_bins(rt, z), D), True)[:, :D]
 
 
-def check_dense(k2, k1, dirs, pose, rot, label, hold_plain):
-    """K2 in fp32 against K1 on the same rays (counts exact, rgb within
-    1.5e-7, the bar tests/test_megakernel3.py holds the JAX kernels to each
-    other: K2's live slots run K1's instructions, and a dead slot adds exact
-    zeros and multiplies the transmittance by 1 - 0 + 1e-10 == 1 in fp32),
-    against a float64 shading of its own slots (within 2e-4 on every ray)
-    and against its plain version: counts exact and rgb within 2e-4 on every
-    ray where hold_plain; else on every ray but at most 1 in 10,000 (phase
-    3's allowance), each of which must keep other bins than the plain
-    version, all at a near tie: a logit within NEAR of the threshold or of
-    the ray's S-th largest, where the two sides' summation orders of the
-    oracle's products may keep another bin. Returns (max err vs plain, max
-    err vs K1, samples/px, share of rays at cap)."""
-    rgb2, cnt2 = k2(dirs, pose, rot)
-    rgb1, cnt1 = k1(dirs, pose, rot)
-    o2, d2, z2, p2, c2 = k2.front(dirs, pose, rot)
+def float64_logits(rt, pose, rot, dirs, chunk=40000):
+    """(B, D) float64: the oracle's logits summed in float64 on the
+    renderer's own (fp32) encoded inputs."""
+    oracle64 = copy.deepcopy(rt.oracle).double()
+    out = []
+    with torch.no_grad():
+        for c in range(0, dirs.shape[0], chunk):
+            _, nds, proj, _ = rt.oracle_logits(pose, rot, dirs[c:c + chunk])
+            x = torch.cat([rt.enc0_dir(nds), rt.enc0_pos(proj)], dim=-1)
+            out.append(oracle64(x.double()))
+    return torch.cat(out)
+
+
+def check_slots(k, dirs, pose, rot, label, allowed, referee=False):
+    """A render kernel in fp32 (K1 or K2) against a float64 shading of its
+    own slots (within 2e-4 on every ray) and against its plain version:
+    counts exact, and rgb within 2e-4 on every ray but at most ``allowed``,
+    each of which must keep other bins than the plain
+    version, all at a near tie, where the two sides' summation orders of
+    the oracle's products may keep another bin: a logit within NEAR of the
+    threshold or of the ray's S-th largest; with ``referee``, the float64
+    logits of the same inputs decide instead: a kept or dropped bin's
+    float64 logit lies within 2e of the threshold or of the float64 S-th
+    largest, e the larger of the ray's two fp32 roundings as measured
+    against float64 (the plain version's over all bins, the kernel's over
+    its own slots, whose logits its front returns): for two bins to swap
+    places on one side, that side's roundings of them must together cover
+    their float64 gap. Returns {err_p: max err vs
+    plain, err_same: max err on the rays that keep the plain version's
+    bins, spp, at_cap, n_flipped: rays keeping other bins, beyond: rays
+    beyond 2e-4, rgb, counts}."""
+    rgb_k, cnt_k = k(dirs, pose, rot)
+    o_k, d_k, z_k, p_k, c_k = k.front(dirs, pose, rot)
     torch.cuda.synchronize()
-    rt, dev, S = k2.renderer, dirs.device, k2.params.S
+    rt, dev, S = k.renderer, dirs.device, k.params.S
     pose_t = torch.as_tensor(pose, dtype=torch.float32, device=dev)
     rot_t = torch.as_tensor(rot, dtype=torch.float32, device=dev)
-    rgb_p, cnt_p = k2.plain(dirs, pose_t, rot_t)
+    rgb_p, cnt_p = k.plain(dirs, pose_t, rot_t)
     with torch.no_grad():
         logits = rt.oracle_logits(pose_t, rot_t, dirs)[3]
         o_p, d_p, z_p, p_p, mask_p = rt._oracle_stage(pose_t, rot_t, dirs)
-    live2 = torch.arange(S, device=dev)[None, :] < c2[:, None]
+    live_k = torch.arange(S, device=dev)[None, :] < c_k[:, None]
     # the float64 witness: each side's own slots shaded in float64
-    err64_2 = float((rgb2.double() - float64_frame(rt, o2, d2, z2, p2, live2)).abs().max())
+    err64_k = float((rgb_k.double() - float64_frame(rt, o_k, d_k, z_k, p_k, live_k)).abs().max())
     err64_p = float((rgb_p.double() - float64_frame(rt, o_p, d_p, z_p, p_p, mask_p)).abs().max())
-    bad_p, bad_1 = int((cnt2 != cnt_p).sum()), int((cnt2 != cnt1).sum())
-    bad_front = int((c2 != cnt2).sum())
-    per_ray = (rgb2 - rgb_p).abs().max(dim=1).values
-    err_p, err_1 = float(per_ray.max()), float((rgb2 - rgb1).abs().max())
-    kept2, keptp = kept_bins(rt, z2, live2), kept_bins(rt, z_p, mask_p)
-    flipped = kept2 ^ keptp
+    bad_p, bad_front = int((cnt_k != cnt_p).sum()), int((c_k != cnt_k).sum())
+    per_ray = (rgb_k - rgb_p).abs().max(dim=1).values
+    kept_k, kept_p = kept_bins(rt, z_k, live_k), kept_bins(rt, z_p, mask_p)
+    flipped = kept_k ^ kept_p
+    rays_flipped = flipped.any(1)
+    err_same = float(per_ray[~rays_flipped].max()) if bool((~rays_flipped).any()) else 0.0
     top = torch.topk(logits, S + 1, dim=1).values
     at_tie = ((logits - rt.threshold).abs() <= NEAR) | ((logits - top[:, S - 1:S]).abs() <= NEAR)
+    if referee:
+        l64 = float64_logits(rt, pose_t, rot_t, dirs)
+        e_p = (logits.double() - l64).abs().max(dim=1).values
+        e_k = torch.where(live_k, (p_k.double() - l64.gather(1, slot_bins(rt, z_k))).abs(),
+                          torch.zeros_like(p_k, dtype=torch.float64)).max(dim=1).values
+        tol = 2.0 * torch.maximum(e_p, e_k)[:, None]
+        top64 = torch.topk(l64, S, dim=1).values[:, S - 1:S]
+        at_tie = ((l64 - rt.threshold).abs() <= tol) | ((l64 - top64).abs() <= tol)
+        print(f"  {label}: oracle logits against float64 sums of the same inputs: plain fp32 "
+              f"within {float(e_p.max()):.3e}, the kernel's at its slots within "
+              f"{float(e_k.max()):.3e}", flush=True)
     beyond = torch.nonzero(per_ray > 2e-4).flatten().tolist()
     n_unexplained = 0
-    for r in beyond:
+    for j, r in enumerate(beyond):
         bins = torch.nonzero(flipped[r]).flatten()
         explained = len(bins) > 0 and bool(at_tie[r, bins].all())
         n_unexplained += not explained
-        only2, onlyp = bins[kept2[r, bins]].tolist(), bins[keptp[r, bins]].tolist()
-        print(f"    ray {r}: vs plain {float(per_ray[r]):.3e}; bins kept by K2 only {only2}, by "
-              f"plain only {onlyp}, their logits {[f'{v:.9g}' for v in logits[r, bins].tolist()]}; "
-              f"S-th and (S+1)-th largest {float(top[r, S - 1]):.9g}, {float(top[r, S]):.9g}; "
-              f"near tie: {explained}", flush=True)
+        if j < 8 or not explained:
+            only_k, only_p = bins[kept_k[r, bins]].tolist(), bins[kept_p[r, bins]].tolist()
+            ref = (f"; float64 logits {[f'{v:.9g}' for v in l64[r, bins].tolist()]}, float64 "
+                   f"S-th largest {float(top64[r, 0]):.9g}, allowed gap {float(tol[r, 0]):.3e}"
+                   if referee else "")
+            print(f"    ray {r}: vs plain {float(per_ray[r]):.3e}; bins kept by the kernel only "
+                  f"{only_k}, by plain only {only_p}, their logits "
+                  f"{[f'{v:.9g}' for v in logits[r, bins].tolist()]}; S-th and (S+1)-th "
+                  f"largest {float(top[r, S - 1]):.9g}, {float(top[r, S]):.9g}{ref}; near tie: "
+                  f"{explained}", flush=True)
     n = dirs.shape[0]
-    allowed = 0 if hold_plain else n // 10000
-    spp = float(cnt2.float().mean())
-    at_cap = float((cnt2 == S).float().mean())
+    spp = float(cnt_k.float().mean())
+    at_cap = float((cnt_k == S).float().mean())
     print(f"  {label}: {n} rays, samples/px {spp:.4f}, at cap {100 * at_cap:.2f}%; vs plain: "
-          f"count mismatches {bad_p} (allowed 0), rgb max abs err {err_p:.3e}, rays beyond "
-          f"2e-4 {len(beyond)} (allowed {allowed}, each keeping other bins at a near tie; "
-          f"{n_unexplained} not); rays keeping other bins than plain "
-          f"{int(flipped.any(1).sum())}; vs float64 of each side's own slots: K2 {err64_2:.3e} "
-          f"(allowed 2e-4), plain fp32 {err64_p:.3e}; vs K1: count mismatches {bad_1} "
-          f"(allowed 0), rgb max abs err {err_1:.3e} (allowed 1.5e-7)", flush=True)
-    if bad_p or bad_1 or bad_front or not err_1 <= 1.5e-7 or not err64_2 <= 2e-4 \
-            or n_unexplained or len(beyond) > allowed:
-        raise SystemExit(f"{label}: K2 disagrees with its plain version, float64 or K1")
-    return err_p, err_1, spp, at_cap
+          f"count mismatches {bad_p} (allowed 0), rgb max abs err {float(per_ray.max()):.3e}, "
+          f"on the {n - int(rays_flipped.sum())} rays keeping the plain version's bins "
+          f"{err_same:.3e}; rays beyond 2e-4 {len(beyond)} (allowed {allowed}, each keeping "
+          f"other bins at a near tie; {n_unexplained} not); rays keeping other bins than plain "
+          f"{int(rays_flipped.sum())}; vs float64 of each side's own slots: kernel "
+          f"{err64_k:.3e} (allowed 2e-4), plain fp32 {err64_p:.3e}", flush=True)
+    if bad_p or bad_front or not err64_k <= 2e-4 or n_unexplained or len(beyond) > allowed:
+        raise SystemExit(f"{label}: the kernel disagrees with its plain version or float64")
+    return dict(err_p=float(per_ray.max()), err_same=err_same, spp=spp, at_cap=at_cap,
+                n_flipped=int(rays_flipped.sum()), beyond=len(beyond), rgb=rgb_k, counts=cnt_k)
+
+
+def check_dense(k2, k1, dirs, pose, rot, label, allowed, referee=False):
+    """K2 in fp32 through ``check_slots`` (``allowed`` rays beyond 2e-4 of
+    its plain version) and against K1 on the same rays: counts exact, rgb
+    within 1.5e-7, the bar tests/test_megakernel3.py holds the JAX kernels
+    to each other (K2's live slots run K1's instructions, and a dead slot
+    adds exact zeros and multiplies the transmittance by 1 - 0 + 1e-10 == 1
+    in fp32). Returns (max err vs plain, max err vs K1, samples/px, share
+    of rays at cap)."""
+    res = check_slots(k2, dirs, pose, rot, label, allowed, referee)
+    rgb1, cnt1 = k1(dirs, pose, rot)
+    torch.cuda.synchronize()
+    bad_1 = int((res["counts"] != cnt1).sum())
+    err_1 = float((res["rgb"] - rgb1).abs().max())
+    print(f"  {label} vs K1: count mismatches {bad_1} (allowed 0), rgb max abs err {err_1:.3e} "
+          f"(allowed 1.5e-7)", flush=True)
+    if bad_1 or not err_1 <= 1.5e-7:
+        raise SystemExit(f"{label}: K2 disagrees with K1")
+    return res["err_p"], err_1, res["spp"], res["at_cap"]
 
 
 def encoded_samples(n_rays, seed, dev):
@@ -360,9 +419,12 @@ def fine_leg(train, port_test, kernel, check, log_dir, dense_dir):
     version (``nerf_train_check``) on that step's NeRF inputs, its times
     and a profile of 3 steps; and ``python -m adanerf_tpu_torch.test`` on
     the run. Fails unless every loss is finite, K3 ran every step, every
-    check holds and the legs' and the offline render's files exist."""
+    check holds and the legs' and the offline render's files exist.
+    Returns (numbers, the run's state, its trained weights as flat dicts,
+    the arguments of the run)."""
     from adanerf_tpu_torch.frame_times import time_ms
     from adanerf_tpu_torch.ops.kernels.nerf_train import BACKWARD_KERNEL_NAMES
+    from adanerf_tpu_torch.utils.weights import to_flat
     steps = FINE_STEPS
     teachers = os.path.join(log_dir, "mscene")
     argv = ["-c", FINE_INI, "-data", MSCENE_DATA, "-log", log_dir, "--bf16",
@@ -380,6 +442,9 @@ def fine_leg(train, port_test, kernel, check, log_dir, dense_dir):
     launches = (kernel.forward_launches, kernel.backward_launches)
     rows = kernel.forward_rows
     ts = stats["state"]
+    # the run's weights as training left them (phase 9c exports them; the
+    # profiled steps below move the live modules on)
+    trained = [to_flat(m) for m in ts.models]
     teacher = ts.teacher_experiment_name()
     dense_name = os.path.basename(dense_dir.rstrip("/"))
     print(f"  teacher from the fine run's name: {teacher}; the dense leg's: {dense_name}; "
@@ -525,7 +590,181 @@ def fine_leg(train, port_test, kernel, check, log_dir, dense_dir):
                 bound_fwd_ms=bounds["fwd"][0], bound_bwd_ms=bounds["bwd"][0],
                 max_abs_err_fwd=fwd_abs, max_abs_err_bwd=bwd_abs,
                 step_device_ms=prof["device_ms"], step_k3_ms=prof["k3_ms"],
-                step_wall_ms_profiled=prof["wall_ms"], test_ms=test_ms, test_images=n_img)
+                step_wall_ms_profiled=prof["wall_ms"], test_ms=test_ms,
+                test_images=n_img), ts, trained, argv
+
+
+def export_leg(port_export, viewer, ts, trained, argv, dev):
+    """Phase 9c: ``python -m adanerf_tpu_torch.export`` on phase 9b's fine
+    run (its ``_opt`` checkpoints, the default ``--checkPointName``), then
+    the export in both viewers' roles: every file present; the
+    ``model{i}.weights`` equal to the trained weights and the ONNX files
+    read back to the same arrays, bit for bit; the export's plain fp32
+    render of a 400x400 test pose within 1e-5 of the trainer-side plain
+    renderer built from the trained modules (the JAX package's bar,
+    ``tests/test_export_viewer.py``); K1 against its plain version in fp32
+    (``check_fp32``) and in bf16 at 800x800 (>= 40 dB against plain fp32,
+    timed); K2 in fp32 as phase 10 holds it and in bf16 at 800x800 (bit for
+    bit K1's bf16 frame, timed); and the viewer CLI on the export through
+    K1 and, ``--megakernel v3``, K2, each path's launches counted from 0.
+    Returns the phase's numbers."""
+    from adanerf_tpu_torch.frame_times import frame_ms, time_ms
+    from adanerf_tpu_torch.ops.kernels.megakernel_compact import MegakernelCompact
+    from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
+    from adanerf_tpu_torch.realtime import RealtimeRenderer
+    from adanerf_tpu_torch.train_state import load_tree
+    from adanerf_tpu_torch.utils.onnx_weights import load_onnx_weights
+    from adanerf_tpu_torch.utils.torch_ckpt import flat_from_state_dict
+    from adanerf_tpu_torch.utils.weights import load_flat
+
+    t = time.perf_counter()
+    out = port_export.main(argv)
+    export_s = time.perf_counter() - t
+    names = ["dataset_info.txt", "pos_enc.txt", "config.ini", "model0.weights",
+             "model1.weights", "model0.onnx", "model1.onnx"]
+    missing = [n for n in names if not os.path.exists(os.path.join(out, n))]
+    equal_w, equal_onnx = [], []
+    for i, want in enumerate(trained):
+        for got, flags in ((load_tree(os.path.join(out, f"model{i}.weights")), equal_w),
+                           (flat_from_state_dict(load_onnx_weights(
+                               os.path.join(out, f"model{i}.onnx")), out), equal_onnx)):
+            flags.append(set(got) == set(want) and all(np.array_equal(got[k], want[k])
+                                                        for k in want))
+    print(f"  export of the fine run in {export_s:.1f} s to {out}: {sorted(os.listdir(out))}; "
+          f"missing {missing}; model{{0,1}}.weights equal to the trained weights bit for bit: "
+          f"{equal_w}; model{{0,1}}.onnx read back (transposed to (in, out)) equal: "
+          f"{equal_onnx}", flush=True)
+    if missing or not all(equal_w + equal_onnx):
+        raise SystemExit("the export of the fine run is incomplete or differs from the trained "
+                         "weights")
+
+    rt32, scene = viewer.build_renderer_from_export(out, dtype_str="fp32", device=dev)
+    live = [load_flat(copy.deepcopy(m), w) for m, w in zip(ts.models, trained)]
+    rt_live = RealtimeRenderer(live[0], live[1], ts.scene, ts.config_file, dtype=None,
+                               device=dev)
+    pose, rot = ts.test_dataset.poses[0], ts.test_dataset.rotations[0]
+    dirs400 = viewer.frame_directions(scene, 400, 400, dev)
+    same_dirs = bool(torch.equal(dirs400.cpu(), torch.from_numpy(ts.test_dataset.directions)))
+    img_exp, cnt_exp = rt32.render_frame(pose, rot, dirs400)
+    img_live, cnt_live = rt_live.render_frame(pose, rot, dirs400)
+    load_err = float((img_exp - img_live).abs().max())
+    print(f"  the export's plain fp32 render vs the trainer-side plain renderer of the trained "
+          f"modules, test pose 0, 400x400: rgb max abs err {load_err:.3e} (allowed 1e-5), count "
+          f"mismatches {int((cnt_exp != cnt_live).sum())}; S={rt32.max_samples}, threshold "
+          f"{rt32.threshold}, samples/px {float(cnt_exp.float().mean()):.4f}; the viewer's rays "
+          f"are the test split's: {same_dirs}", flush=True)
+    if not load_err <= 1e-5:
+        raise SystemExit("the export renders otherwise than the trained modules")
+    del live, rt_live, img_live, cnt_live
+
+    # A barely trained oracle keeps all S bins of most rays, and which S of
+    # its 128 bins pass is decided by logits that may lie within rounding
+    # of each other: at equal counts a ray may keep other bins in the
+    # kernel than in the plain version. So K1 is held as K2 is (check_slots):
+    # within 2e-4 where both keep the same bins, every other ray at a near
+    # tie, and every ray within 2e-4 of a float64 shading of its own slots.
+    # Its logits near 1.1 carry fp32 roundings beyond NEAR (the kernel's up
+    # to 4.3e-5), so float64 logits referee the ties; at most 1 ray in 1,000
+    # may keep other bins (28 of 160,000 did on the card).
+    mk32 = MegakernelCompact(rt32)
+    tie_rays = dirs400.shape[0] // 1000
+    k1_32 = check_slots(mk32, dirs400, pose, rot, "K1 fp32 on the fine export",
+                        allowed=tie_rays, referee=True)
+    del k1_32["rgb"], k1_32["counts"]
+    rt16, _ = viewer.build_renderer_from_export(out, dtype_str="bf16", device=dev)
+    mk16 = MegakernelCompact(rt16)
+    dirs800 = viewer.frame_directions(scene, 800, 800, dev)
+    n_pix = dirs800.shape[0]
+    S = mk16.params.S
+    rgb_k1, cnt_k1 = mk16(dirs800, pose, rot)
+    o_k, d_k, z_k, p_k, c_k = mk16.front(dirs800, pose, rot)
+    live_k = torch.arange(S, device=dev)[None, :] < c_k[:, None]
+    rgb_f, _ = rt32.render_frame(pose, rot, dirs800)
+    pose_t = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+    rot_t = torch.as_tensor(rot, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        stages = [rt32._oracle_stage(pose_t, rot_t, dirs800[c:c + 80_000])
+                  for c in range(0, n_pix, 80_000)]
+    z_f, mask_f = torch.cat([st[2] for st in stages]), torch.cat([st[4] for st in stages])
+    del stages
+    same_bins = ~(kept_bins(rt32, z_k, live_k) ^ kept_bins(rt32, z_f, mask_f)).any(1)
+    p16 = psnr(rgb_k1, rgb_f)
+    p16_same = psnr(rgb_k1[same_bins], rgb_f[same_bins]) if bool(same_bins.any()) \
+        else float("nan")
+    p16_64 = psnr(rgb_k1, float64_frame(rt32, o_k, d_k, z_k, p_k, live_k).float())
+    del rgb_f, o_k, d_k, z_k, p_k, c_k, z_f, mask_f
+    spp = float(cnt_k1.float().mean())
+    at_cap = float((cnt_k1 == S).float().mean())
+    fr = frame_ms(mk16, dirs800, pose, rot)
+    k1_plain_ms = time_ms(lambda: rt16.render_frame(pose_t, rot_t, dirs800), 1)
+    n_same = int(same_bins.sum())
+    print(f"  K1 bf16 on the fine export, 800x800: vs plain fp32 {p16:.2f} dB (allowed >= 40); "
+          f"{p16_same:.2f} dB on the {n_same} of {n_pix} rays keeping plain fp32's bins (where "
+          f"logits lie within a bf16 rounding of each other, bf16 keeps other bins); vs a "
+          f"float64 shading of its own slots {p16_64:.2f} dB (allowed >= 40); "
+          f"{fr['ms']:.3f} ms/frame (front {fr['front_ms']:.3f}, front+shade "
+          f"{fr['front_shade_ms']:.3f}), plain bf16 {k1_plain_ms:.3f} ms; samples/px {spp:.4f} "
+          f"of S={S}, at cap {100 * at_cap:.2f}%", flush=True)
+    if not (p16 >= 40.0 and p16_64 >= 40.0 and bool(torch.isfinite(rgb_k1).all())):
+        raise SystemExit("K1 bf16 on the fine export below 40 dB against plain fp32 or a "
+                         "float64 shading of its own slots")
+
+    k2_err, k2_err_k1, _, _ = check_dense(MegakernelDense(rt32), mk32, dirs400, pose, rot,
+                                          "K2 fp32 on the fine export", allowed=tie_rays,
+                                          referee=True)
+    k2 = MegakernelDense(rt16)
+    rgb_k2, cnt_k2 = k2(dirs800, pose, rot)
+    same = bool(torch.equal(rgb_k2, rgb_k1) and torch.equal(cnt_k2, cnt_k1))
+    fr2 = frame_ms(k2, dirs800, pose, rot)
+    # the dense plain path shades all S=16 slots of every ray: in the viewer's
+    # chunks of 80,000 rays, as a whole frame would not fit the card
+    k2_plain_ms = time_ms(lambda: [k2.plain(dirs800[c:c + 80_000], pose_t, rot_t)
+                                   for c in range(0, n_pix, 80_000)], 1)
+    print(f"  K2 bf16 on the fine export, 800x800: {fr2['ms']:.3f} ms/frame (front "
+          f"{fr2['front_ms']:.3f}, front+shade {fr2['front_shade_ms']:.3f}), plain dense bf16 "
+          f"{k2_plain_ms:.3f} ms (chunks of 80,000 rays); equal to K1 bf16 bit for bit: "
+          f"{same}", flush=True)
+    if not same:
+        raise SystemExit("K2 bf16 differs from K1 bf16 on the fine export")
+    del rgb_k1, cnt_k1, rgb_k2, cnt_k2
+
+    # the viewer CLI on the export, each kernel's launches counted from 0
+    oracle_macs, nerf_macs = rt16.oracle.macs_per_input(), rt16.nerf.macs_per_input()
+    views = {}
+    for cls, extra in ((MegakernelCompact, []), (MegakernelDense, ["--megakernel", "v3"])):
+        cls.launches = 0
+        st = viewer.main([out, "-s", "800", "800", "-n", "5"] + extra)
+        views[cls.__name__] = (cls.launches, st)
+        print(f"  viewer {' '.join(extra) or '(K1)'} on the export: {cls.__name__} launches "
+              f"{cls.launches}, device {st['device_ms_per_frame']:.3f} ms a frame (median "
+              f"{st['device_ms_median']:.3f}), samples/px {st['samples_per_pixel']:.4f}",
+              flush=True)
+        if cls.launches < 1 or not torch.isfinite(st["last_frame"]).all():
+            raise SystemExit(f"the viewer on the export never launched {cls.__name__} or "
+                             "rendered non-finite values")
+    # the least time of the frame's function, K1's and K2's alike: the NeRF
+    # at the live samples only (a dead slot adds exact zeros), as phases 7 and 11
+    ops = 2.0 * (n_pix * oracle_macs + spp * n_pix * nerf_macs)
+    nbytes = n_pix * 12 + 12 + 36 + mk16.weights.numel() * mk16.weights.element_size() \
+        + mk16.biases.numel() * 4 + n_pix * (12 + 4)
+    bo, bb = ops / PEAK_OPS["bf16"] * 1e3, nbytes / HBM_BPS * 1e3
+    bound = max(bo, bb)
+    print(f"  bound (live samples): {ops / 1e12:.4f} TFLOP over the bf16 peak = {bo:.3f} ms; "
+          f"{nbytes / 1e6:.2f} MB over 3.35 TB/s = {bb:.4f} ms; K1 at {100 * bound / fr['ms']:.2f}%, "
+          f"K2 at {100 * bound / fr2['ms']:.2f}%", flush=True)
+    del rt32, rt16, mk32, mk16, k2, dirs800
+    torch.cuda.empty_cache()
+    return dict(export_s=export_s, load_err=load_err, k1_fp32=k1_32,
+                k1_psnr_fp32=p16, k1_psnr_fp32_same_bins=p16_same, k1_rays_same_bins=n_same,
+                k1_psnr_float64_own_slots=p16_64, k1_ms=fr["ms"], k1_front_ms=fr["front_ms"],
+                k1_front_shade_ms=fr["front_shade_ms"], k1_plain_ms=k1_plain_ms,
+                k2_fp32_err=k2_err, k2_fp32_err_vs_k1=k2_err_k1, k2_ms=fr2["ms"],
+                k2_plain_ms=k2_plain_ms, spp=spp, at_cap=at_cap, bound_ms=bound,
+                bound_by="operations" if bo >= bb else "bytes",
+                k1_launches=views["MegakernelCompact"][0],
+                k2_launches=views["MegakernelDense"][0],
+                k1_viewer_ms=views["MegakernelCompact"][1]["device_ms_per_frame"],
+                k2_viewer_ms=views["MegakernelDense"][1]["device_ms_per_frame"])
 
 
 def read_quality_csv(path):
@@ -623,12 +862,70 @@ def evaluate_jax_run(port_evaluate):
                 samples=[g["samples"] for g in got])
 
 
+def videos_leg(port_evaluate, images_leg):
+    """Phase 13c: ``python -m adanerf_tpu_torch.evaluate --evaluations
+    videos`` on the committed JAX run, in a scratch scene of symlinks into
+    demo/mscene with a ``cam_path.json`` of the 6 test poses and a
+    ``reference_video/`` of the 6 test PNGs upscaled 2x by pixel repetition
+    to 800x800, so the area resize runs. A 2x area downscale of a
+    pixel-repeated frame gives back the frame (OpenCV's float32 sum, which
+    the port reproduces, is exact for every 8-bit value), and both legs read
+    a PNG alike (``/ 255`` in float32, the first three channels), so each
+    frame's PSNR must equal the images leg's (phase 13b) within 1e-4 dB
+    and its FLIP within 1e-6. Fails unless the frame folders and both
+    reports are written."""
+    from adanerf_tpu_torch.data.png import read_png, write_png
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_videos_") as tmp:
+        scene = os.path.join(tmp, "mscene")
+        os.makedirs(os.path.join(scene, "reference_video"))
+        for name in os.listdir(MSCENE_DATA):
+            os.symlink(os.path.join(MSCENE_DATA, name), os.path.join(scene, name))
+        with open(os.path.join(MSCENE_DATA, "transforms_test.json")) as f:
+            frames = json.load(f)["frames"]
+        with open(os.path.join(scene, "cam_path.json"), "w") as f:
+            json.dump({"frames": frames}, f)
+        for i, fr in enumerate(frames):
+            img = read_png(os.path.join(MSCENE_DATA, fr["file_path"][2:] + ".png"))
+            write_png(os.path.join(scene, "reference_video", f"{i:04d}.png"),
+                      np.ascontiguousarray(img.repeat(2, axis=0).repeat(2, axis=1)))
+        out = os.path.join(tmp, "eval")
+        t = time.perf_counter()
+        port_evaluate.main(["-data", scene, "-log", JAX_RUN, "--outDir", out, "--force"]
+                           + [a for e in ("videos", "psnr", "ssim", "flip")
+                              for a in ("--evaluations", e)])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        run_out = os.path.join(out, "mscene", os.path.basename(JAX_RUN))
+        rows = read_quality_csv(os.path.join(run_out, "image_quality_video.csv"))
+        seqs = {seq: sorted(os.listdir(os.path.join(run_out, seq + "_frames")))
+                if os.path.isdir(os.path.join(run_out, seq + "_frames")) else []
+                for seq in ("_diff", "_square_diff", "_flip")}
+        txt = os.path.exists(os.path.join(run_out, "image_quality_video.txt"))
+    d_psnr = [abs(r["psnr"] - p) for r, p in zip(rows, images_leg["psnr"])]
+    d_flip = [abs(r["flip"] - f) for r, f in zip(rows, images_leg["flip"])]
+    for i, r in enumerate(rows):
+        print(f"  frame {i}: PSNR {r['psnr']:.6f} dB (images leg {images_leg['psnr'][i]:.6f}), "
+              f"FLIP {r['flip']:.8f} (images leg {images_leg['flip'][i]:.8f}), IW-SSIM "
+              f"{r['ssim']:.6f}", flush=True)
+    print(f"  videos leg: {len(rows)} frames in {ms:.1f} ms; worst |PSNR - images leg| "
+          f"{max(d_psnr, default=float('nan')):.3e} dB (allowed 1e-4), |FLIP - images leg| "
+          f"{max(d_flip, default=float('nan')):.3e} (allowed 1e-6); frame folders "
+          f"{ {k: len(v) for k, v in seqs.items()} }; image_quality_video.txt: {txt}", flush=True)
+    if len(rows) != len(images_leg["psnr"]) or not txt \
+            or any(v != [f"{i:05d}.png" for i in range(len(rows))] for v in seqs.values()) \
+            or not (max(d_psnr) <= 1e-4 and max(d_flip) <= 1e-6):
+        raise SystemExit("the videos leg disagrees with the images leg or wrote too little")
+    return dict(ms=ms, worst_psnr=max(d_psnr), worst_flip=max(d_flip),
+                psnr=[r["psnr"] for r in rows])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     from adanerf_tpu_torch import evaluate as port_evaluate
+    from adanerf_tpu_torch import export as port_export
     from adanerf_tpu_torch import test as port_test
     from adanerf_tpu_torch import train, viewer
     from adanerf_tpu_torch.frame_times import card_state, frame_ms, time_ms
@@ -947,12 +1244,21 @@ def main():
     t = time.perf_counter()
     phase(f"9b main path: train, fine_training.ini as shipped on demo/mscene, bf16, {FINE_STEPS} "
           "steps from phase 9's _opt, render, video, validation and evaluation once each")
-    fine = fine_leg(train, port_test, NerfTrainKernel, nerf_train_check, log_dir,
-                    dense_dir)
-    train_logs.cleanup()
+    fine, fine_ts, fine_trained, fine_argv = fine_leg(train, port_test, NerfTrainKernel,
+                                                      nerf_train_check, log_dir, dense_dir)
     torch.cuda.empty_cache()
     print(f"  card: {card_state()}", flush=True)
     done("9b", t)
+
+    t = time.perf_counter()
+    phase("9c main path: export phase 9b's fine run and view it through K1 and K2 (S=16, "
+          "log depth, not NDC)")
+    exported = export_leg(port_export, viewer, fine_ts, fine_trained, fine_argv, dev)
+    del fine_ts, fine_trained
+    train_logs.cleanup()
+    torch.cuda.empty_cache()
+    print(f"  card: {card_state()}", flush=True)
+    done("9c", t)
 
     t = time.perf_counter()
     phase("10 K2 fp32 checks, trained_mscene_export, 400x400 frame, thresholds 0.2 / 0.01 / 1e-4")
@@ -967,7 +1273,8 @@ def main():
         k2_fp32[rt32.threshold] = check_dense(MegakernelDense(rt32), MegakernelCompact(rt32),
                                               dirs400, pose, rot,
                                               f"K2 fp32, threshold {rt32.threshold}",
-                                              hold_plain=thr != 1e-4)
+                                              allowed=0 if thr != 1e-4
+                                              else dirs400.shape[0] // 10_000)
     rt32.threshold = scene_thr
     spp_by_thr = [v[2] for v in k2_fp32.values()]
     if not spp_by_thr[1] > spp_by_thr[0]:
@@ -1095,11 +1402,17 @@ def main():
     print(f"  card: {card_state()}", flush=True)
     done("13b", t)
 
+    t = time.perf_counter()
+    phase("13c videos leg of the committed JAX run against its own test images at 800x800")
+    videos = videos_leg(port_evaluate, evaluation)
+    done("13c", t)
+
     k2_main = k2_16[scene_thr]
     phase("14 kernels")
     print(json.dumps({"training_legs": {"dense_validate_ms": dense_val_ms,
                                         "fine": {k: v for k, v in fine.items()}},
-                      "evaluation": evaluation}), flush=True)
+                      "export": exported, "evaluation": evaluation, "videos": videos}),
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "megakernel_compact", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_compact.cu + adanerf_tpu_torch/csrc/megakernel.cuh",
@@ -1112,7 +1425,12 @@ def main():
         "viewer_device_ms_median": stats_view["device_ms_median"],
         "samples_per_pixel": n_samp / n_pix, "stages": k1_stages,
         "ndc_800_ms": ndc_ms, "ndc_800_plain_ms": ndc_plain, "ndc_psnr_vs_plain_bf16": p_b,
-        "ndc_psnr_vs_plain_fp32": p_f, "ndc_stages": ndc_stages}, {
+        "ndc_psnr_vs_plain_fp32": p_f, "ndc_stages": ndc_stages,
+        "fine_export_launches": exported["k1_launches"], "fine_export_800_ms": exported["k1_ms"],
+        "fine_export_800_plain_ms": exported["k1_plain_ms"],
+        "fine_export_800_bound_ms": exported["bound_ms"],
+        "fine_export_viewer_device_ms": exported["k1_viewer_ms"],
+        "fine_export_samples_per_pixel": exported["spp"]}, {
         "name": "nerf_train_forward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
@@ -1152,7 +1470,11 @@ def main():
         "k1_ms_by_threshold": {str(k): v["k1"] for k, v in k2_16.items()},
         "samples_per_pixel_by_threshold": {str(k): v["spp"] for k, v in k2_16.items()},
         "stages_by_threshold": {str(k): v["stages"] for k, v in k2_16.items()},
-        "viewer_device_ms": stats_v3["device_ms_per_frame"]}]}), flush=True)
+        "viewer_device_ms": stats_v3["device_ms_per_frame"],
+        "fine_export_launches": exported["k2_launches"], "fine_export_800_ms": exported["k2_ms"],
+        "fine_export_800_plain_ms": exported["k2_plain_ms"],
+        "fine_export_800_bound_ms": exported["bound_ms"],
+        "fine_export_viewer_device_ms": exported["k2_viewer_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

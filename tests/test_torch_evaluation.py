@@ -7,7 +7,8 @@
   and the two OpenCV stand-ins (``filter2d``, ``_resize_linear``) against
   cv2 itself;
 * the metrics, the parameter census (``network_description.txt``) and the
-  refusals of the ``videos`` and ``export`` evaluations;
+  refusal of a JPEG reference video frame (ROADMAP item 19), before any run
+  is loaded;
 * re-hydrating the committed JAX run (``load_config``), which loads its
   ``_opt`` checkpoints through ``load_specific_weights("opt")``;
 * the comparison tool's CSV and XML against the JAX package's on the same
@@ -123,15 +124,23 @@ def test_metrics_are_the_jax_packages():
     assert t_metrics.psnr(a, a) == float("inf")
 
 
-@pytest.mark.parametrize("evals,item", [(["images", "videos"], "item 18"),
-                                        (["export"], "item 12")])
+@pytest.mark.parametrize("evals,item", [(["videos"], "item 19"),
+                                        (["images", "videos"], "item 19")])
 def test_unported_evaluations_are_refused(evals, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        t_eval.evaluate(None, None, evals)
+    """What the port cannot evaluate yet, a JPEG reference video, is refused
+    by name, by the CLI before anything is loaded or written."""
+    scene = tmp_path / "scene"
+    shutil.copytree(DATA, scene, ignore=shutil.ignore_patterns("train", "*_depth.npz"))
+    (scene / "reference_video").mkdir()
+    (scene / "reference_video" / "0000.jpg").write_bytes(b"\xff\xd8\xff")
+    with pytest.raises(ValueError, match=item):
+        t_eval.load_reference_video(str(scene))
+    out = tmp_path / "out"
+    out.mkdir()
     with pytest.raises(SystemExit, match=item):
-        t_evaluate_cli.main(["-data", DATA, "-log", RUN, "--outDir", str(tmp_path),
+        t_evaluate_cli.main(["-data", str(scene), "-log", RUN, "--outDir", str(out),
                              "--device", "cpu"] + [a for e in evals for a in ("--evaluations", e)])
-    assert not os.listdir(tmp_path)  # refused before anything ran
+    assert not os.listdir(out)  # refused before anything ran
 
 
 def _load_both(out_dir):
