@@ -296,7 +296,9 @@ class Config:
 def write_config_echo(config, log_dir: str):
     """Serialize the effective config to ``<logDir>/config.ini``
     (reference: src/train_data.py:180-195). The echoed file is re-read by
-    evaluation and by the real-time benchmark harness.
+    evaluation and by the real-time benchmark harness, of either package:
+    ``device`` is written as the JAX package's ``-d`` takes it, a card's
+    index (``cuda:N`` -> N), and left out for the CPU, which has none.
     """
     path = os.path.join(log_dir, "config.ini")
     if os.path.exists(path):
@@ -304,6 +306,12 @@ def write_config_echo(config, log_dir: str):
     translation = {39: None}  # strip single quotes like the reference
     with open(path, 'w') as f:
         for key, val in vars(config).items():
+            if key == "device":
+                name = str(val)
+                if name.startswith("cuda"):
+                    val = int(name.split(":")[1]) if ":" in name else 0
+                elif not name.isdigit():
+                    continue
             if val is None:
                 continue
             if isinstance(val, list) and len(val) == 0:

@@ -3,13 +3,16 @@
 Counterpart of ``adanerf_tpu/data/dataset.py``. A scene directory holds
 ``dataset_info.json`` (view cell, resolution, fov, depth ranges),
 ``transforms_{train,val,test}.json`` (poses) and per-frame ``*.png`` (+
-optional ``*_depth.npz``). A split is loaded whole into host memory as numpy
-arrays; the train step gathers its rays from them (pixel index convention
-``y + h * x``). PNGs are decoded by ``data/png.py``.
+optional ``*_depth.npz``, or with ``--useNerfDepthMap`` an exported NeRF's
+``*_QuantizedWeights_lo_nSD.raw``). A split is loaded whole into host
+memory as numpy arrays; the train step gathers its rays from them (pixel
+index convention ``y + h * x``). PNGs are decoded by ``data/png.py``. With
+``--samplePlacementDir`` a split carries a ``SamplePlacementTracker`` (the
+iterative sample placement's per-pixel active cells), read from
+``<dir>/<split>/<samples>.ckpt.npy`` where that file exists.
 
-Not ported yet: the streaming (bounded-memory) split, sample-placement
-tracking, depth from an exported NeRF (``--useNerfDepthMap``) and the
-camera-path datasets of the video tools.
+Not ported yet: the streaming (bounded-memory) split (ROADMAP Queue 1,
+item 6).
 """
 
 from __future__ import annotations
@@ -125,9 +128,6 @@ class ViewCellDataset:
 
     def __init__(self, config, dataset_info: DatasetInfo, set_name="train",
                  num_samples=2048, load_images=True):
-        if getattr(config, "samplePlacementDir", None) or config.useNerfDepthMap:
-            raise NotImplementedError("--samplePlacementDir and --useNerfDepthMap are not "
-                                      "ported yet (ROADMAP Queue 1, item 6)")
         self.config = config
         self.info = dataset_info
         self.set_name = set_name
@@ -140,7 +140,7 @@ class ViewCellDataset:
         self.depth_transform = dataset_info.depth_transform
         self.flip_depth = dataset_info.flip_depth
         self.depth_distance_adjustment = dataset_info.depth_distance_adjustment
-        self.load_depth = config.trainWithGTDepth
+        self.load_depth = config.trainWithGTDepth or config.useNerfDepthMap
         self.image_filenames: List[str] = []
 
         self.base_ray_z = np.abs(generate_ray_directions(
@@ -165,8 +165,14 @@ class ViewCellDataset:
                 color_images[i] = self._color_image(img, self.image_filenames[i])
             if self.load_depth:
                 for i, file_path in enumerate(file_paths):
-                    if os.path.exists(file_path + "_depth.npz"):
+                    d = None
+                    if config.useNerfDepthMap and os.path.exists(
+                            file_path + "_QuantizedWeights_lo_nSD.raw"):
+                        d = self.load_exported_nerf_depth(
+                            file_path + "_QuantizedWeights_lo_nSD.raw")
+                    if d is None and os.path.exists(file_path + "_depth.npz"):
                         d = self.load_depth_image(file_path + "_depth.npz")
+                    if d is not None:
                         if depth_images is None:
                             depth_images = np.zeros(
                                 (self.num_items, d.shape[1], d.shape[2], 1), np.float32)
@@ -179,6 +185,19 @@ class ViewCellDataset:
         self.directions = generate_ray_directions(
             self.w, self.h, dataset_info.view.fov,
             dataset_info.view.focal).reshape(-1, 3).astype(np.float32)
+
+        self.sample_placement_tracker = None
+        sp_dir = getattr(config, "samplePlacementDir", None)
+        if sp_dir and set_name != "vid":
+            if not all(x == config.multiDepthFeatures[0] for x in config.multiDepthFeatures):
+                raise ValueError("multiDepthFeatures have to be identical for sample "
+                                 "placement to work")
+            from ..utils.sample_placement_tracker import SamplePlacementTracker
+            self.sample_placement_tracker = SamplePlacementTracker(
+                self.num_items, self.w, self.h, max_sample_count=config.multiDepthFeatures[0])
+            ckpt = os.path.join(sp_dir, set_name, f"{config.numRaymarchSamples[-1]}.ckpt.npy")
+            if os.path.exists(ckpt):
+                self.sample_placement_tracker.load(ckpt)
 
     def __len__(self):
         return self.num_items
@@ -239,6 +258,15 @@ class ViewCellDataset:
         with np.load(file_name) as np_file:
             depth = np_file["depth"] if "depth" in np_file.files else np_file[np_file.files[0]]
         return self.transform_depth_image(depth)
+
+    def load_exported_nerf_depth(self, file_name: str) -> np.ndarray:
+        """Depth from an exported NeRF run's quantized-weights dump: the
+        reference's torch container (``OutputDepthMap``, ``InputDepthRange``),
+        or an npz with the same keys, re-warped from the exported range."""
+        from ..utils.torch_ckpt import load_tensor_dict
+        d = load_tensor_dict(file_name, ("OutputDepthMap", "InputDepthRange"))
+        raw = self.transform_depth_image(d["OutputDepthMap"], do_not_transform=True)
+        return np.asarray(self.depth_transform.from_world(raw, d["InputDepthRange"]))
 
 
 def load_dataset_split(config, dataset_info, set_name, num_samples=2048,

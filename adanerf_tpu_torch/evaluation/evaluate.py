@@ -84,6 +84,24 @@ def get_network_size(ts, out_dir):
         f.write("\n".join(lines) + "\n")
 
 
+def complexity_samples(ts):
+    """Per net, the samples a pixel at which ``complexity.txt`` counts its
+    MACs on a non-adaptive run, as the JAX package does (the first net
+    once, every other at ``numRaymarchSamples[-1]``), and the samples it
+    shades: one for an oracle, its own ``numRaymarchSamples`` for a
+    ``RayMarchFromPoses`` net, the coarse net's and its own for a
+    ``RayMarchFromCoarse`` one. The two differ for the NeRF baseline
+    (ROADMAP Queue 3, F8)."""
+    n = ts.config_file.numRaymarchSamples
+    counted = [1] + [n[-1]] * (len(ts.models) - 1)
+    shaded = []
+    for i, f in enumerate(ts.f_in):
+        kind = type(f).__name__
+        shaded.append(n[i - 1] + n[i] if kind == "RayMarchFromCoarse"
+                      else n[i] if kind == "RayMarchFromPoses" else 1)
+    return counted, shaded
+
+
 def generate_data(ts, flags, out_dir=None):
     """Test-split render, metrics and complexity."""
     out_dir = out_dir or getattr(ts, 'outDir', ts.logDir)
@@ -160,6 +178,11 @@ def generate_data(ts, flags, out_dir=None):
                 cma = cma + (macs - cma) / (idx + 1)
                 cma_pp = cma_pp + (macs_pp - cma_pp) / (idx + 1)
             f.write(f"{cma} : {cma_pp}\n")
+        counted, shaded = complexity_samples(ts)
+        if counted != shaded:
+            print(f"note: complexity.txt counts the nets' MACs at {counted} samples a pixel, "
+                  f"as the JAX package does, where they shade {shaded} (ROADMAP Queue 3, F8)",
+                  flush=True)
 
     default_samples = float(ts.config_file.numRaymarchSamples[-1])
     with open(os.path.join(out_dir, "image_quality_images.txt"), "w") as f:

@@ -6,26 +6,28 @@ scene's constants; ``batch`` and ``postprocess`` are PyTorch functions over
 tensors on the batch's device, differentiable where the JAX versions are.
 The adaptive path keeps the static (rays, S) shape with a validity mask.
 
-Ported: ``RGBARayMarch``, ``Raw``, ``RawSigmoid``, ``SpherePosDir`` and
-``RayMarchFromPoses`` with the ``FromClassifiedDepthAdaptive`` samplers (the
-dense threshold-0 linspace and the adaptive select). The other feature sets
-and samplers raise ``NotImplementedError`` (ROADMAP Queue 1, item 8).
+Every feature set of the JAX registry is ported: the targets
+``RGBARayMarch``, ``ClassifiedDepth``, ``Raw`` and ``RawSigmoid``; the
+inputs ``SpherePosDir``, ``CamPosDir``, ``RayMarchFromPoses`` (every
+sampler of ``ops/samplers.py``) and ``RayMarchFromCoarse`` (nerf-pytorch's
+hierarchical fine stage).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import samplers as S
 from ..ops.encoding import get_encoder
 from ..ops.normalization import get_normalization, get_normalization_abbr
-from ..ops.raymarch import adaptive_raw2outputs_masked, ndc_rays, ray_sphere_offset
+from ..ops.raymarch import (adaptive_raw2outputs_masked, ndc_rays, nerf_raw2outputs,
+                            ray_sphere_offset, sample_pdf)
 from .keys import FSK, DatasetKeys
-
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1, item 8)"
 
 
 @dataclass(frozen=True)
@@ -132,6 +134,70 @@ class RawSigmoid(Raw):
             torch.sigmoid(inference_dict[FSK.network_output])
 
 
+class ClassifiedDepth(FeatureSet):
+    """The GT-depth oracle's target: per sampled pixel, the window_size^2
+    neighbourhood of the GT depth map, discretized into n_feat bins, the
+    largest distance weight kept per bin. The numbers of the JAX trainer's
+    target (``adanerf_tpu/native/disc_depth.py``, its C library or numpy
+    fallback), built on the batch's device. A depth window
+    (``multiDepthWindowSize`` ``w:d``) names the run, as in JAX, and, as
+    in the JAX trainer's target, is not applied."""
+    n_feat = 128
+
+    def __init__(self, config=None, net_idx=-1, scene: SceneStatic = None):
+        self.window_size = 5
+        self.d_window_size = 0
+        self.ignore_depth_value = 1.0
+        if config is not None:
+            if config.multiDepthFeatures:
+                self.n_feat = config.multiDepthFeatures[net_idx]
+            if config.multiDepthWindowSize:
+                sizes = config.multiDepthWindowSize[net_idx].split(':')
+                self.window_size = int(sizes[0])
+                if len(sizes) > 1:
+                    self.d_window_size = int(sizes[1])
+            if config.multiDepthIgnoreValue:
+                self.ignore_depth_value = config.multiDepthIgnoreValue[net_idx]
+        self.center_id = self.window_size // 2
+        self.net_idx = net_idx
+        self.w = scene.w if scene else 0
+        self.h = scene.h if scene else 0
+        if self.d_window_size > 1:
+            if self.d_window_size % 2 == 0:
+                self.d_window_size += 1
+            self.abbr = f"CD-{self.n_feat}-{self.window_size}-{self.d_window_size}"
+        else:
+            self.abbr = f"CD-{self.n_feat}-{self.window_size}"
+
+    def features_from_depth(self, depths: torch.Tensor, sample_indices: torch.Tensor):
+        """depths: the GT depth maps of n_img images (any shape of n_img * h
+        * w elements); sample_indices: (n_img, n) or, for one image, (n,)
+        flat pixel indices ``y * w + x``. Returns (n_img * n, n_feat)
+        float32, image-major: per bin the largest ``1 - dist / ((window //
+        2 + 1) sqrt 2)`` over the window's pixels (clamped at the border)
+        whose depth lies below the ignore value, a one-hot of the pixel's
+        bin for window 1. The whole window in one gather and one max-scatter:
+        a loop over its pixels would launch hundreds of small kernels."""
+        maps = depths.reshape(-1, self.h * self.w)
+        idx = sample_indices.reshape(maps.shape[0], -1).long()
+        dev = depths.device
+        offsets = torch.arange(self.window_size, device=dev) - self.center_id
+        x = ((idx % self.w)[..., None, None] + offsets[:, None]).clamp(0, self.w - 1)
+        y = ((idx // self.w)[..., None, None] + offsets[None, :]).clamp(0, self.h - 1)
+        val = torch.gather(maps, 1, (y * self.w + x).reshape(maps.shape[0], -1))
+        val = val.reshape(-1, self.window_size ** 2)   # window pixel (i, j) at x + i, y + j
+        grid = np.arange(self.window_size) - self.center_id
+        max_dist = (self.window_size // 2 + 1) * math.sqrt(2.0)
+        weight = torch.as_tensor(
+            (1.0 - np.sqrt(grid[:, None] ** 2 + grid[None, :] ** 2) / max_dist).reshape(-1),
+            dtype=torch.float32, device=dev)
+        disc = (val / (1.0 / self.n_feat)).to(torch.int32)
+        valid = (val < self.ignore_depth_value) & (disc >= 0)
+        feats = torch.zeros((val.shape[0], self.n_feat), dtype=torch.float32, device=dev)
+        return feats.scatter_reduce_(1, disc.clamp(0, self.n_feat - 1).long(), weight * valid,
+                                     reduce="amax")
+
+
 # ---------------------------------------------------------------------------
 # input feature sets
 # ---------------------------------------------------------------------------
@@ -139,11 +205,13 @@ class RawSigmoid(Raw):
 class SpherePosDir(FeatureSet):
     """Oracle input: ray direction encoding + view-cell-sphere exit point
     encoding."""
+    base_abbr = "SpPoDi"
+    project = True  # the position is where the ray leaves the view-cell sphere
 
     def __init__(self, config=None, net_idx=-1, scene: SceneStatic = None):
         self.net_idx = net_idx
         self.scene = scene
-        self.abbr = "SpPoDi"
+        self.abbr = self.base_abbr
         self.n_freq_pos, self.n_freq_dir = _freqs(config, net_idx)
         self.enc_type = config.posEnc[net_idx]
         self.pos_enc = get_encoder(self.enc_type, self.n_freq_pos)
@@ -158,7 +226,8 @@ class SpherePosDir(FeatureSet):
         else:
             self.n_feat = 6 + self.additional_samples * 3
         if self.additional_samples != 0:
-            self.abbr = f"SpPoDir[{self.additional_samples}]"
+            self.abbr = ("SpPoDir" if self.project else self.base_abbr) + \
+                f"[{self.additional_samples}]"
 
     def batch(self, data, prev_outs=None, is_inference=False, generator=None):
         poses = data[DatasetKeys.image_pose]          # (n_img, 3)
@@ -169,10 +238,12 @@ class SpherePosDir(FeatureSet):
 
         n_img, n_rays = directions.shape[0], directions.shape[1]
         nds_flat = torch.einsum('bij,bnj->bni', rotations, directions).reshape(-1, 3)
-        center = self.constant("center", dev, lambda: torch.tensor(sc.view_cell_center))
         origins = poses[:, None, :].expand(n_img, n_rays, 3).reshape(-1, 3)  # image-major
-        distance = ray_sphere_offset(nds_flat, origins, center, sc.view_cell_radius)
-        proj_points = origins + nds_flat * distance[:, None]
+        proj_points = origins
+        if self.project:
+            center = self.constant("center", dev, lambda: torch.tensor(sc.view_cell_center))
+            distance = ray_sphere_offset(nds_flat, origins, center, sc.view_cell_radius)
+            proj_points = origins + nds_flat * distance[:, None]
 
         enc_dirs = self.dir_enc(nds_flat / torch.linalg.vector_norm(nds_flat, dim=-1,
                                                                      keepdim=True))
@@ -201,9 +272,25 @@ class SpherePosDir(FeatureSet):
         return ret
 
 
+class CamPosDir(SpherePosDir):
+    """Oracle input for NDC scenes: the camera position and the ray
+    direction, as ``SpherePosDir`` without the sphere projection."""
+    base_abbr = "CaPoDi"
+    project = False
+
+
+SAMPLERS = ("LinearlySpacedZNearZFar", "LinearlySpacedZNearZFarNoDepthRange",
+            "UnitSphereLinearOutsideLog", "LinearlySpacedFromDepth",
+            "LinearlySpacedFromDepthNoDepthRange", "FromDepthCells",
+            "LinearlySpacedFromMultiDepth", "FromIterativeSamplePlacement", "FromClassifiedDepth",
+            "FromClassifiedDepthAdaptive", "FromClassifiedDepthAdaptiveNoDepthRange")
+
+
 class RayMarchFromPoses(FeatureSet):
-    """Shading-net input: place z samples (dense or adaptive), encode the ray
-    sample positions + dirs; postprocess composites."""
+    """Shading-net input: place z samples (a linspace, around a depth, from
+    the oracle's bins, or the adaptive select), encode the ray sample
+    positions + dirs; postprocess composites (masked where the sampler is
+    adaptive, nerf-pytorch's ``raw2outputs`` otherwise)."""
     abbr = "RayMarchFromPoses"
 
     def __init__(self, config=None, net_idx=-1, scene: SceneStatic = None):
@@ -213,13 +300,17 @@ class RayMarchFromPoses(FeatureSet):
         self.z_near = 0.001 if not config.zNear else config.zNear[net_idx]
         self.z_far = 1.0 if not config.zFar else config.zFar[net_idx]
         self.train_with_gt_depth = config.trainWithGTDepth
+        self.deterministic_sampling = config.deterministicSampling
         self.noise_amplitude = 0.0 if not config.rayMarchSamplingNoise \
             else config.rayMarchSamplingNoise[net_idx]
+        self.z_step = ((self.z_far - self.z_near) / self.n_ray_samples
+                       if not config.rayMarchSamplingStep
+                       else config.rayMarchSamplingStep[net_idx])
         self.sampler_name = config.rayMarchSampler[net_idx]
-        if self.sampler_name not in ("FromClassifiedDepthAdaptive",
-                                     "FromClassifiedDepthAdaptiveNoDepthRange"):
-            raise NotImplementedError(f"sampler {self.sampler_name} {_NOT_PORTED}")
+        if self.sampler_name not in SAMPLERS:
+            raise ValueError(f"unknown sampler {self.sampler_name} (known: {list(SAMPLERS)})")
         self.use_ndc = config.useNDC is True
+        self.adaptive = "Adaptive" in self.sampler_name
         self.threshold = config.adaptiveSamplingThreshold
         self.remapping = self.threshold > 0.0
         self.accumulation_mult = config.accumulationMult or None
@@ -249,8 +340,24 @@ class RayMarchFromPoses(FeatureSet):
 
     def sampler_print_name(self) -> str:
         """Sampler part of the experiment directory's name."""
-        return (f"{self.n_ray_samples}_LSfCDA_({self.threshold})_{self.disc}_"
-                f"{self.noise_amplitude}")
+        n = self.sampler_name
+        near_far = f"{self.z_near}_{self.z_far}_{self.n_ray_samples}"
+        noisy = f"{self.z_step}_{self.noise_amplitude}"
+        if n in ("FromClassifiedDepthAdaptive", "FromClassifiedDepthAdaptiveNoDepthRange"):
+            return f"{self.n_ray_samples}_LSfCDA_({self.threshold})_{self.disc}_" \
+                f"{self.noise_amplitude}"
+        if n == "FromClassifiedDepth":
+            return f"{self.n_ray_samples}_LSfCD_{self.disc}_{self.noise_amplitude}"
+        if n == "LinearlySpacedFromMultiDepth":
+            return f"{near_far}_LSfMD_{noisy}"
+        if n == "FromDepthCells":
+            return f"fDC_{self.n_ray_samples}_FromDepthCells_{noisy}"
+        if n == "FromIterativeSamplePlacement":
+            return f"Iter_{near_far}_{n}_{noisy}"
+        if n in ("LinearlySpacedZNearZFar", "LinearlySpacedZNearZFarNoDepthRange",
+                 "UnitSphereLinearOutsideLog") and self.noise_amplitude <= 0.0:
+            return f"{near_far}_{n}"
+        return f"{near_far}_{n}_{noisy}"
 
     def get_string(self):
         ret = self.abbr + f"[{self.sampler_print_name()}]"
@@ -258,22 +365,59 @@ class RayMarchFromPoses(FeatureSet):
             ret += f"_acc_{self.accumulation_mult}"
         return ret
 
-    def _generate_z(self, n_rays, depth, device):
-        """z per (ray, slot) from the oracle's output ``depth``: the dense
-        linspace at threshold 0, else the adaptive select (z, probs, mask)."""
-        no_range = self.sampler_name.endswith("NoDepthRange")
-        dtf = self.scene.depth_transform
-        if self.threshold == 0.0:
+    def _generate_z(self, n_rays, depth, det, generator, ray_origins, ray_directions,
+                    sample_placement, device):
+        """z per (ray, slot) of the configured sampler: a tensor, or (z,
+        probs, mask) from the adaptive select."""
+        dr, dtf, name = self.depth_range, self.scene.depth_transform, self.sampler_name
+        noise = dict(z_step=self.z_step, noise_amplitude=self.noise_amplitude)
+
+        def linspace(world):  # the same z on every ray and step: made once
             def make():
                 z = S.linearly_spaced_z(1, self.z_near, self.z_far, self.n_ray_samples)[0]
-                return z if no_range else dtf.to_world(z, self.depth_range)
+                return dtf.to_world(z, dr) if world else z
             return self.constant("z", device, make).expand(n_rays, self.n_ray_samples)
-        d = depth
-        if self.oracle_transform is not None:
-            d = self.oracle_transform(d.detach())
-        z_unit, z_probs, mask = S.adaptive_select(d, self.n_ray_samples, self.threshold)
-        z_world = z_unit if no_range else dtf.to_world(z_unit, self.depth_range)
-        return z_world, z_probs, mask
+
+        if name in ("LinearlySpacedZNearZFarNoDepthRange", "LinearlySpacedZNearZFar"):
+            world = name == "LinearlySpacedZNearZFar"
+            if det or self.noise_amplitude <= 0.0 or generator is None:
+                return linspace(world)
+            z = S.linearly_spaced_z(n_rays, self.z_near, self.z_far, self.n_ray_samples,
+                                    det=det, generator=generator, device=device, **noise)
+            return dtf.to_world(z, dr) if world else z
+        if name == "UnitSphereLinearOutsideLog":
+            return S.unit_sphere_linear_outside_log(ray_origins, ray_directions, n_rays,
+                                                    self.z_near, self.z_far,
+                                                    self.n_ray_samples, dr)
+        if name in ("LinearlySpacedFromDepthNoDepthRange", "LinearlySpacedFromDepth"):
+            return S.linearly_spaced_from_depth(depth, self.n_ray_samples, depth_range=dr,
+                                                depth_transform=dtf,
+                                                to_world=not name.endswith("NoDepthRange"),
+                                                generator=generator, **noise)
+        if name == "FromDepthCells":
+            return S.from_depth_cells(depth, self.n_ray_samples, disc=self.disc, depth_range=dr,
+                                      depth_transform=dtf, generator=generator, **noise)
+        if name == "LinearlySpacedFromMultiDepth":
+            return S.linearly_spaced_from_multi_depth(depth, self.n_ray_samples, depth_range=dr,
+                                                      depth_transform=dtf, generator=generator,
+                                                      **noise)
+        if name == "FromIterativeSamplePlacement":
+            return S.from_iterative_sample_placement(sample_placement, self.n_ray_samples,
+                                                     dr, dtf)
+        if name == "FromClassifiedDepth":
+            return S.from_classified_depth(depth, self.n_ray_samples, dr, dtf, det=det,
+                                           generator=generator, transform=self.oracle_transform)
+        if name in ("FromClassifiedDepthAdaptive", "FromClassifiedDepthAdaptiveNoDepthRange"):
+            no_range = name.endswith("NoDepthRange")
+            if self.threshold == 0.0:
+                return linspace(not no_range)
+            d = depth
+            if self.oracle_transform is not None:
+                d = self.oracle_transform(d.detach())
+            z_unit, z_probs, mask = S.adaptive_select(d, self.n_ray_samples, self.threshold)
+            z_world = z_unit if no_range else dtf.to_world(z_unit, dr)
+            return z_world, z_probs, mask
+        raise AssertionError(name)  # __init__ takes the SAMPLERS only
 
     def batch(self, data, prev_outs=None, is_inference=False, generator=None):
         poses = data[DatasetKeys.image_pose]
@@ -285,6 +429,7 @@ class RayMarchFromPoses(FeatureSet):
         n_rays_per_img = directions.shape[1]
         n_rays = directions.shape[0] * n_rays_per_img
         depth_image = data.get(DatasetKeys.depth_image_samples)
+        sample_placement = data.get(DatasetKeys.sample_placement)
 
         depth = z_probs = None
         if prev_outs and (not self.train_with_gt_depth or is_inference):
@@ -306,7 +451,9 @@ class RayMarchFromPoses(FeatureSet):
             ray_origins, rays_d = ndc_rays(sc.h, sc.w, sc.focal, 1.0, ray_origins, ray_directions)
             ray_directions = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
 
-        z_out = self._generate_z(n_rays, depth, dev)
+        det = self.deterministic_sampling or is_inference
+        z_out = self._generate_z(n_rays, depth, det, generator, ray_origins, ray_directions,
+                                 sample_placement, dev)
         mask = None
         if isinstance(z_out, tuple):
             z_vals, z_probs, mask = z_out
@@ -350,15 +497,21 @@ class RayMarchFromPoses(FeatureSet):
         raw = inference_dict[FSK.network_output]
         z_vals = inference_dict[FSK.nerf_input_feature_z_vals]
         depth = inference_dict.get(FSK.oracle_weights)
-        mask = inference_dict.get(FSK.adaptive_sample_mask)
-        if mask is None:
-            mask = torch.ones(z_vals.shape, dtype=torch.bool, device=z_vals.device)
-        rgb_map, _disp, _acc, weights, depth_map, alpha = adaptive_raw2outputs_masked(
-            raw, z_vals, mask, depth=depth, accumulation_mult=self.accumulation_mult)
-        if self.remapping:
-            # fraction of active samples per ray
-            inference_dict[FSK.adaptive_sample_positions] = \
-                torch.sum(mask, dim=1) / self.n_ray_samples
+        if self.adaptive:
+            mask = inference_dict.get(FSK.adaptive_sample_mask)
+            if mask is None:
+                mask = torch.ones(z_vals.shape, dtype=torch.bool, device=z_vals.device)
+            rgb_map, _disp, _acc, weights, depth_map, alpha = adaptive_raw2outputs_masked(
+                raw, z_vals, mask, depth=depth, accumulation_mult=self.accumulation_mult)
+            if self.remapping:
+                # fraction of active samples per ray
+                inference_dict[FSK.adaptive_sample_positions] = \
+                    torch.sum(mask, dim=1) / self.n_ray_samples
+        else:
+            rays_d = inference_dict[FSK.nerf_input_feature_ray_directions]
+            rgb_map, _disp, _acc, weights, depth_map, alpha = nerf_raw2outputs(
+                raw.reshape(rays_d.shape[0], z_vals.shape[1], -1), z_vals, rays_d,
+                depth=depth, accumulation_mult=self.accumulation_mult)
         sc = self.scene
         inference_dict[FSK.postprocessed_network_output] = rgb_map
         inference_dict[FSK.nerf_weights_output] = weights
@@ -370,8 +523,84 @@ class RayMarchFromPoses(FeatureSet):
                 sc.depth_transform.from_world(depth_map, self.depth_range).reshape(-1, 1)
 
 
-_IN_FEATURES = {"SpherePosDir": SpherePosDir, "RayMarchFromPoses": RayMarchFromPoses}
-_OUT_FEATURES = {"RGBARayMarch": RGBARayMarch, "Raw": Raw, "RawSigmoid": RawSigmoid}
+class RayMarchFromCoarse(FeatureSet):
+    """nerf-pytorch's hierarchical fine stage: inverse-CDF samples of the
+    coarse stage's weights between its sample midpoints, without gradient,
+    merged with the coarse z and sorted; the coarse stage's rays."""
+    abbr = "RayMarchFromCoarse"
+
+    def __init__(self, config=None, net_idx=-1, scene: SceneStatic = None):
+        self.net_idx = net_idx
+        self.scene = scene
+        self.n_ray_samples = config.numRaymarchSamples[net_idx]
+        self.z_near = config.zNear[net_idx]
+        self.z_far = config.zFar[net_idx]
+        self.perturb = config.perturb
+        norm_name = config.rayMarchNormalization[net_idx] \
+            if config.rayMarchNormalization else None
+        self.normalization = get_normalization(norm_name)
+        self.abbr = self.abbr + get_normalization_abbr(norm_name)
+        self.n_freq_pos, self.n_freq_dir = _freqs(config, net_idx)
+        self.enc_type = config.posEnc[net_idx]
+        self.pos_enc = get_encoder(self.enc_type, self.n_freq_pos)
+        self.dir_enc = get_encoder(self.enc_type, self.n_freq_dir)
+        self.n_feat = (self.n_freq_pos * 6 + 3 + 3 + self.n_freq_dir * 6
+                       if self.enc_type == "nerf" else 6)
+        self.depth_range = scene.depth_range if scene else (0.0, 1.0)
+
+    def get_string(self):
+        return self.abbr + f"[{self.z_near}_{self.z_far}_{self.n_ray_samples}]"
+
+    def batch(self, data, prev_outs=None, is_inference=False, generator=None):
+        if not prev_outs:
+            raise ValueError(f"feature {self.abbr} requires prev_outs")
+        p = prev_outs[-1]
+        prev_z = p[FSK.nerf_input_feature_z_vals]
+        ray_origins = p[FSK.nerf_input_feature_ray_origins]
+        ray_directions = p[FSK.nerf_input_feature_ray_directions]
+        sc = self.scene
+        dev = prev_z.device
+
+        with torch.no_grad():  # the samples carry no gradient, as JAX stops it
+            z_mid = 0.5 * (prev_z[..., 1:] + prev_z[..., :-1])
+            z_samples = sample_pdf(z_mid, p[FSK.nerf_weights_output][..., 1:-1],
+                                   self.n_ray_samples,
+                                   det=(not self.perturb) or is_inference, generator=generator)
+        z_vals = torch.sort(torch.cat([prev_z, z_samples], dim=-1), dim=-1).values
+
+        positions = ray_origins[..., None, :] + ray_directions[..., None, :] * z_vals[..., :, None]
+        center = self.constant("center", dev, lambda: torch.tensor(sc.view_cell_center))
+        positions = self.normalization(positions, center, sc.depth_max)
+        s_dim = positions.shape[1]
+        embedded = self.pos_enc(positions.reshape(-1, 3))
+        dirs_exp = ray_directions[:, None, :].expand(positions.shape)
+        embedded = torch.cat([embedded, self.dir_enc(dirs_exp.reshape(-1, 3))], dim=-1)
+        embedded = embedded.reshape(ray_directions.shape[0], s_dim, -1)
+        return {FSK.input_feature_batch: embedded,
+                FSK.nerf_input_feature_z_vals: z_vals,
+                FSK.nerf_input_feature_ray_directions: ray_directions,
+                FSK.nerf_input_feature_ray_origins: ray_origins,
+                FSK.input_depth_range: self.constant(
+                    "depth_range", dev, lambda: torch.tensor(self.depth_range))}
+
+    def postprocess(self, inference_dict, data):
+        raw = inference_dict[FSK.network_output]
+        rays_d = inference_dict[FSK.nerf_input_feature_ray_directions]
+        z_vals = inference_dict[FSK.nerf_input_feature_z_vals]
+        rgb_map, _disp, _acc, weights, depth_map, alpha = nerf_raw2outputs(
+            raw.reshape(rays_d.shape[0], z_vals.shape[1], -1), z_vals, rays_d)
+        inference_dict[FSK.postprocessed_network_output] = rgb_map
+        inference_dict[FSK.nerf_weights_output] = weights
+        inference_dict[FSK.nerf_alpha_output] = alpha
+        inference_dict[FSK.nerf_estimated_depth] = \
+            self.scene.depth_transform.from_world(depth_map, self.depth_range).reshape(-1, 1)
+
+
+_IN_FEATURES = {"SpherePosDir": SpherePosDir, "CamPosDir": CamPosDir,
+                "RayMarchFromPoses": RayMarchFromPoses,
+                "RayMarchFromCoarse": RayMarchFromCoarse}
+_OUT_FEATURES = {"ClassifiedDepth": ClassifiedDepth, "RGBARayMarch": RGBARayMarch,
+                 "Raw": Raw, "RawSigmoid": RawSigmoid}
 
 
 def get_feature_sets(config, scene: SceneStatic):
@@ -381,7 +610,7 @@ def get_feature_sets(config, scene: SceneStatic):
         for name, table in ((config.inFeatures[i], _IN_FEATURES),
                             (config.outFeatures[i], _OUT_FEATURES)):
             if name not in table:
-                raise NotImplementedError(f"feature set {name} {_NOT_PORTED}")
+                raise ValueError(f"unknown feature set {name} (known: {sorted(table)})")
         f_in.append(_IN_FEATURES[config.inFeatures[i]](config=config, net_idx=i, scene=scene))
         f_out.append(_OUT_FEATURES[config.outFeatures[i]](config=config, net_idx=i, scene=scene))
     return f_in, f_out

@@ -70,6 +70,9 @@ def warped_min_max(depth_unit, max_depth_locations, depth_range, transform,
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("-data", "--dataset", required=True, type=str)
+    p.add_argument("-d", "--device", type=int, default=0,
+                   help="accepted for the JAX command line, which takes it and never "
+                        "reads it; the preparation runs on the host")
     args = p.parse_args(argv)
     path = args.dataset
     splits = ["train", "val", "test"]

@@ -4,7 +4,8 @@
       -data <scene> -log <dir> --bf16 [--device cpu] [flags]
 
 Counterpart of the JAX package's root ``train.py``: initialize, resume (or
-bootstrap from a dense teacher), the training loop with periodic
+bootstrap from a dense teacher), GT pretraining of each net with
+``epochsPretrain`` > 0 (``pre_train``), the training loop with periodic
 checkpoints (``epochsCheckpoint``), debug renders (``epochsRender``),
 camera-path videos (``epochsVideo``, PNG frames) and validation passes
 (``epochsValidate``), whose best loss goes to ``opt.txt`` with the
@@ -13,11 +14,10 @@ with ``performEvaluation``, the evaluation of the ``checkPointName``
 checkpoint (``evaluation/evaluate.py``). On a CUDA device with ``--bf16``
 the shading MLP's forward and backward run through the K3 kernel.
 
-Refused before step 0, each naming its ROADMAP item: GT pretraining
-(``epochsPretrain`` > 0), ``--meshDevices`` > 1 (the port trains on one
-device), and a NeRF that the JAX package would train through its TPU
-kernel but K3 does not take yet (a width other than 256) on a run that
-asks for K3.
+Refused before step 0, each naming its ROADMAP item: ``--meshDevices`` > 1
+(the port trains on one device), and a NeRF that the JAX package would
+train through its TPU kernel but K3 does not take yet (a width other than
+256) on a run that asks for K3.
 """
 
 from __future__ import annotations
@@ -41,9 +41,6 @@ from .utils.saveimage import Dim, save_img, transform_img
 def unsupported(config) -> list:
     """What this run asks for that the port cannot do yet, one message each."""
     out = []
-    if config.epochsPretrain and max(config.epochsPretrain) > 0:
-        out.append(f"epochsPretrain {config.epochsPretrain}: GT pretraining "
-                   "(make_pretrain_step) is not ported yet (ROADMAP Queue 1, item 5)")
     if config.meshDevices > 1:
         out.append(f"--meshDevices {config.meshDevices}: multi-device training is not "
                    "ported yet (ROADMAP Queue 1, item 9)")
@@ -180,6 +177,71 @@ def _save_opt(ts: TrainState, epoch: int, val_loss: float, img_data):
     print(f"Average PSNR: {np.array(psnrs).mean()}")
 
 
+def pre_train(ts: TrainState) -> dict:
+    """GT pretraining: each net with ``epochsPretrain`` beyond the start
+    epoch trains alone (``TrainState.make_pretrain_step``) from ts.epoch0 to
+    its epoch count on ``samplesPretrain`` rays of ``batchImagesPretrain``
+    images a step, with checkpoints, validation of its loss, ``opt.txt``
+    and the net's ``_opt`` checkpoint; then the net's ``checkPointName``
+    checkpoint is loaded and ts.epoch0 moves to its epoch count. The images
+    come from a permutation seeded by ``randomSeed`` (JAX draws from
+    numpy's unseeded global generator). Returns {net index: {"losses",
+    "step_ms", "validate_ms", "opt_epochs"}}, the last the epochs at which
+    a new best validation loss saved the net's ``_opt`` checkpoint."""
+    c = ts.config_file
+    out = {}
+    if not c.epochsPretrain:
+        return out
+    samples = c.samplesPretrain if c.samplesPretrain != -1 else c.samples
+    batch_images = c.batchImagesPretrain if c.batchImagesPretrain != -1 else c.batchImages
+    ts.train_dataset.num_samples = samples
+    rng = np.random.default_rng(c.randomSeed if c.randomSeed != -1 else 0)
+    for model_idx in range(len(ts.models)):
+        epoch_pretrain = c.epochsPretrain[model_idx]
+        if ts.epoch0 >= epoch_pretrain:
+            continue
+        best_val_loss = sys.float_info.max
+        if model_idx < len(ts.best_valid_loss_pretrain):
+            best_val_loss = ts.best_valid_loss_pretrain[model_idx]
+        step = ts.make_pretrain_step(model_idx)
+        n_images = len(ts.train_dataset)
+        perm, cursor = rng.permutation(n_images), 0
+        clock = _StepClock(ts.device)
+        losses, validate_ms, opt_epochs = [], [], []
+        clock.restart()
+        for epoch in range(ts.epoch0, epoch_pretrain + 1):
+            if cursor + batch_images > n_images:
+                perm, cursor = rng.permutation(n_images), 0
+            img_idx = perm[cursor:cursor + batch_images]
+            cursor += batch_images
+            batch, targets = ts.assemble_train_batch(ts.train_dataset, img_idx)
+            losses.append(step(batch, targets, epoch, ts.epoch0))
+            clock.mark()
+            if epoch > 0 and epoch % c.epochsCheckpoint == 0:
+                ts.save_weights(name_suffix=f"{epoch:07d}",
+                                params_only=bool(c.checkpointParamsOnly))
+            if epoch % c.epochsValidate == 0 and epoch > 0:
+                _sync(ts.device)
+                t = time.perf_counter()
+                val_loss, _ = validate_batch(ts, epoch, 0.0, model_idx)
+                validate_ms.append((time.perf_counter() - t) * 1e3)
+                if val_loss < best_val_loss:
+                    best_val_loss = val_loss
+                    with open(os.path.join(ts.logDir, "opt.txt"), "w") as f:
+                        f.write(f"Optimal validation loss {best_val_loss} at epoch {epoch}")
+                    ts.save_weights(name_suffix="_opt", model_idx=model_idx)
+                    opt_epochs.append(epoch)
+                clock.restart()
+        ts.load_specific_weights(c.checkPointName, model_idx)
+        ts.epoch0 = epoch_pretrain
+        out[model_idx] = {"losses": torch.stack(losses).float().cpu().numpy(),
+                          "step_ms": clock.step_ms(), "validate_ms": validate_ms,
+                          "opt_epochs": opt_epochs}
+    ts.train_dataset.num_samples = c.samples
+    print("pre-training finished", flush=True)
+    return out
+
+
 def train(ts: TrainState) -> dict:
     """The training loop from ts.epoch0 to ts.epochs - 1, with its
     checkpoint, render, video and validation legs. Returns per-step losses
@@ -255,8 +317,8 @@ def train(ts: TrainState) -> dict:
 def main(argv=None) -> dict:
     """Parse ``argv`` (default: the command line), train, save and, with
     ``performEvaluation``, evaluate. Returns the train-loop statistics, the
-    paths of the final checkpoint, the evaluation's time in ms and the
-    TrainState."""
+    pretraining's (``pretrain``), the paths of the final checkpoint, the
+    evaluation's time in ms and the TrainState."""
     config = Config.init(argv=argv)
     early = unsupported(config) + unsupported_by_k3(config)
     if early:  # refuse before loading any data
@@ -272,7 +334,9 @@ def main(argv=None) -> dict:
           f"{ts.device}; epochs {ts.epoch0}..{ts.epochs - 1}; " + ", ".join(
               f"{m.name}: {'K3 kernel' if r is not None else 'plain'}"
               for m, r in zip(ts.models, routes)), flush=True)
+    pretrain = pre_train(ts)
     stats = train(ts)
+    stats["pretrain"] = pretrain
     stats["checkpoint"] = ts.save_weights(name_suffix=f"{ts.epochs - 1:07d}")
     if config.performEvaluation:
         from .evaluation.evaluate import evaluate

@@ -16,10 +16,12 @@ either package resumes from the other's files.
 and the test split at the full ``w*h`` rays per image, all on the host;
 ``inference`` runs the plain cascade for rendering, validation and
 evaluation, and ``load_specific_weights`` picks a named checkpoint (the
-best-validation ``_opt`` one by default).
+best-validation ``_opt`` one by default). ``make_pretrain_step`` trains one
+net alone on ground truth (GT pretraining, ``epochsPretrain``): the
+earlier stages' outputs are replaced by their targets, and the loss acts
+on the net's raw output through its plain forward, as in JAX.
 
-Not ported yet: GT pretraining (``make_pretrain_step``), multi-device
-training.
+Not ported yet: multi-device training (ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ from .data.dataset import DatasetInfo, ViewCellDataset, load_dataset_split
 from .data.sampling import get_sequence_generator
 from .models.mlp import NeRFDef, get_model, init_params
 from .pipeline.cascade import run_cascade
-from .pipeline.features import get_feature_sets
-from .pipeline.keys import DatasetKeys
+from .pipeline.features import ClassifiedDepth, get_feature_sets
+from .pipeline.keys import FSK, DatasetKeys
 from .pipeline.losses import get_loss_by_name
 from .utils.helper import experiment_name
 from .utils.weights import adam_from_flat, adam_to_flat, load_flat, to_flat
@@ -60,6 +62,16 @@ def save_tree(path: str, flat: Dict[str, np.ndarray]):
 def load_tree(path: str) -> Dict[str, np.ndarray]:
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
+
+
+def read_best_loss(path: str):
+    """The loss an ``opt.txt``-style file records (the first decimal number
+    on its first line), or None where there is no file or no number."""
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        m = re.search(r"\d+\.\d+", f.readline())
+    return float(m.group(0)) if m else None
 
 
 def parse_device(name: str) -> torch.device:
@@ -127,6 +139,7 @@ class TrainState:
         self.valid_dataset = None
         self.test_dataset = None
         self.best_valid_loss = None
+        self.best_valid_loss_pretrain = []
         self.pixel_idx_sequence_gen = None
         self.h = self.w = -1
         self.device = torch.device("cpu")
@@ -177,13 +190,12 @@ class TrainState:
         os.makedirs(self.logDir, exist_ok=True)
         self.epochs = config.epochs
 
-        # the best validation loss of an earlier run in this directory
-        opt_txt = os.path.join(self.logDir, "opt.txt")
-        if os.path.exists(opt_txt):
-            with open(opt_txt) as f:
-                m = re.search(r"\d+\.\d+", f.readline())
-            if m:
-                self.best_valid_loss = float(m.group(0))
+        # the best validation losses of an earlier run in this directory:
+        # the joint run's, and each pretraining pass's
+        self.best_valid_loss = read_best_loss(os.path.join(self.logDir, "opt.txt"))
+        pretrain = [read_best_loss(os.path.join(self.logDir, f"opt_{i}.txt"))
+                    for i in range(len(self.models))]
+        self.best_valid_loss_pretrain = [v for v in pretrain if v is not None]
         write_config_echo(config, self.logDir)
 
         if load_data:
@@ -298,6 +310,37 @@ class TrainState:
         for i, model in enumerate(self.models):
             if not self.weights_locked(epoch, i):
                 adam_update(model, self.opt_states[i], grads[i], lr)
+
+    def make_pretrain_step(self, model_idx: int):
+        """``step(batch, targets, epoch, epoch0) -> loss``: one GT
+        pretraining step of net ``model_idx`` alone. The earlier stages'
+        outputs are their GT targets; the loss acts on the net's raw output
+        from its plain forward (no K3, as JAX calls the net's own apply);
+        Adam at lrate * decay^((epoch0 + epoch) / steps)."""
+        c = self.config_file
+        crit, model = self.losses[model_idx], self.models[model_idx]
+        dtype = torch.bfloat16 if c.bf16 else None
+        decay = torch.tensor(c.lrate_decay, dtype=torch.float32)
+
+        def step(batch, targets, epoch, epoch0):
+            self.generator.manual_seed(self.seed * 1_000_003 + int(epoch))
+            prev = [{FSK.postprocessed_network_output: targets.get(j)} for j in range(model_idx)]
+            d = self.f_in[model_idx].batch(batch, prev_outs=prev, is_inference=False,
+                                           generator=self.generator)
+            out = model(d[FSK.input_feature_batch], dtype)
+            d[FSK.network_output] = out
+            loss = crit(out, targets.get(model_idx), inference_dicts=[d], epoch=epoch,
+                        inference_dict=d)
+            params = list(model.named_parameters())
+            found = torch.autograd.grad(loss, [p for _, p in params], allow_unused=True)
+            grads = {k: torch.zeros_like(p) if g is None else g
+                     for (k, p), g in zip(params, found)}
+            x = torch.tensor(epoch0 + epoch, dtype=torch.int32) / c.lrate_decay_steps
+            adam_update(model, self.opt_states[model_idx], grads,
+                        float(c.lrate * decay ** x))
+            return loss.detach()
+
+        return step
 
     def make_train_step(self):
         """``step(batch, targets, epoch) -> per-net losses``: one training
@@ -440,14 +483,25 @@ class TrainState:
     # -- batch assembly -----------------------------------------------------
 
     def assemble_host_batch(self, dataset: ViewCellDataset, image_indices: np.ndarray):
-        """Host-side gather of a multi-image ray batch and its targets as
-        numpy arrays: per-image low-discrepancy pixel picks, image-major."""
+        """Host-side gather of a multi-image ray batch and its colour
+        targets as numpy arrays: per-image low-discrepancy pixel picks,
+        image-major. Also returns the picks, (n_img, samples) flat pixel
+        indices, from which ``assemble_train_batch`` builds the
+        ``ClassifiedDepth`` target."""
         n_img, samples = len(image_indices), dataset.num_samples
         dirs = np.zeros((n_img, samples, 3), np.float32)
-        colors = depth_samples = None
+        colors = depth_samples = placement = None
+        tracker = getattr(dataset, "sample_placement_tracker", None)
+        pixels = []
         for k, idx in enumerate(image_indices):
             pix = self.pixel_idx_sequence_gen.pixel_indices(samples, dataset.h, dataset.w)
+            pixels.append(pix)
             dirs[k] = dataset.directions[pix]
+            if tracker is not None:
+                if placement is None:
+                    placement = np.zeros((n_img, samples, tracker.max_sample_count), np.float32)
+                placement[k] = tracker.get_unpacked_image(idx).reshape(
+                    dataset.h * dataset.w, -1)[pix]
             if dataset.color_images is not None:
                 if colors is None:
                     colors = np.zeros((n_img, samples, 3), np.float32)
@@ -461,14 +515,26 @@ class TrainState:
                  DatasetKeys.ray_directions_samples: dirs}
         if depth_samples is not None:
             batch[DatasetKeys.depth_image_samples] = depth_samples.reshape(-1, 1)
+        if placement is not None:
+            batch[DatasetKeys.sample_placement] = placement.reshape(-1, placement.shape[-1])
         targets = {}
         for i, f_out in enumerate(self.f_out):
-            if type(f_out).__name__ == "RGBARayMarch" and colors is not None:
+            kind = type(f_out).__name__
+            if kind == "RGBARayMarch" and colors is not None:
                 targets[i] = colors.reshape(-1, 3)
-        return batch, targets
+        return batch, targets, np.stack(pixels)
 
     def assemble_train_batch(self, dataset: ViewCellDataset, image_indices: np.ndarray):
-        """``assemble_host_batch`` moved to the training device."""
-        batch, targets = self.assemble_host_batch(dataset, image_indices)
+        """``assemble_host_batch`` moved to the training device, where a
+        ``ClassifiedDepth`` net's target is built from the depth maps of the
+        batch's images."""
+        batch, host_targets, pixels = self.assemble_host_batch(dataset, image_indices)
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-        return ({k: to(v) for k, v in batch.items()}, {k: to(v) for k, v in targets.items()})
+        targets = {}
+        for i, f_out in enumerate(self.f_out):
+            if i in host_targets:
+                targets[i] = to(host_targets[i])
+            elif isinstance(f_out, ClassifiedDepth) and dataset.depth_images is not None:
+                targets[i] = f_out.features_from_depth(to(dataset.depth_images[image_indices]),
+                                                       to(pixels))
+        return {k: to(v) for k, v in batch.items()}, targets

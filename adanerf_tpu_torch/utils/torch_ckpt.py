@@ -36,6 +36,19 @@ def _to_numpy_state_dict(path: str) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy().astype(np.float32) for k, v in obj.items()}
 
 
+def load_tensor_dict(path: str, keys) -> Dict[str, np.ndarray]:
+    """``keys`` of a ``torch.save``d dict of tensors (the reference's
+    ``*_QuantizedWeights_*.raw`` dumps), or of an npz with the same keys,
+    as numpy arrays."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    except Exception:  # not a torch container: the npz form
+        with np.load(path, allow_pickle=True) as npz:
+            return {k: np.asarray(npz[k]) for k in keys}
+    return {k: obj[k].detach().cpu().numpy() if isinstance(obj[k], torch.Tensor)
+            else np.asarray(obj[k]) for k in keys}
+
+
 def basenet_flat_from_torch(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """BaseNet state dict -> flat keys ``{i}.w`` / ``{i}.b``."""
     flat = {}

@@ -5,12 +5,20 @@ path): loads an exported model directory (config.ini, dataset_info.txt,
 model{0,1}.weights), renders frames along an in-cell orbit or a
 ``--camPath`` camera path through a hand-written CUDA kernel, prints frame
 ms / FPS / samples per pixel every logging interval, and optionally dumps
-frames as PNG. ``--megakernel`` picks the kernel: ``v5d`` (the default) and
-``v5`` run K1, the compacted renderer (``ops/kernels/megakernel_compact.py``);
-``v3`` runs K2, the dense-slot renderer (``ops/kernels/megakernel_dense.py``),
-which suits frames whose rays sit at the sample cap.
+frames as PNG. ``--megakernel`` picks the kernel: ``v5d`` and ``v5`` run
+K1, the compacted renderer (``ops/kernels/megakernel_compact.py``); ``v3``
+runs K2, the dense-slot renderer (``ops/kernels/megakernel_dense.py``),
+which suits frames whose rays sit at the sample cap. Without
+``--megakernel``, an export the kernels take (adaptive, at most 16
+samples) renders through K1, and any other (a dense run's export, threshold
+0 or more samples) through the plain renderer,
+``RealtimeRenderer.render_frame``, as the JAX viewer renders it without
+``--megakernel``; a ``--megakernel`` that the export cannot take is refused,
+as in JAX. The viewer prints which path renders. ``--dynamic`` is accepted
+for the JAX viewer's command lines and changes nothing: the plain path has
+no capacity to bucket.
 
-On the card the kernel renders the whole frame and there is no fallback to
+On the card a kernel renders the whole frame and there is no fallback to
 the plain path; with ``--device cpu`` each kernel's plain PyTorch version
 renders it, ``--batch_size`` rays at a time. The JAX viewer's square-block
 ray order (``block_permutation``) is not ported: it exists because its
@@ -148,12 +156,18 @@ def frame_directions(scene, w, h, device):
     return torch.from_numpy(dirs.astype(np.float32)).to(device)
 
 
+def kernel_takes(rt) -> bool:
+    """Do the frame kernels take this export: adaptive (threshold > 0) with
+    at most 16 samples?"""
+    return rt.threshold > 0.0 and 8 * rt.max_samples <= 128
+
+
 def build_kernel(rt, variant):
     """The frame kernel of a ``--megakernel`` variant, with the JAX viewer's
     refusals: a non-adaptive model or more than 16 samples for any variant
     (SystemExit), an NDC export for ``v3`` (ValueError)."""
     S = rt.max_samples
-    if not (rt.threshold > 0.0 and 8 * S <= 128):
+    if not kernel_takes(rt):
         raise SystemExit("--megakernel needs an adaptive model (threshold>0, <=16 samples; "
                          f"got thr={rt.threshold}, S={S})")
     if variant == "v3":
@@ -188,12 +202,17 @@ def main(argv=None):
                    help="camera path json (PredefinedCamera format) instead of the orbit")
     p.add_argument("--logging_interval", type=int, default=10)
     p.add_argument("--fp32", action="store_true", help="fp32 instead of bf16 MLPs")
-    p.add_argument("--megakernel", nargs="?", const="v5d", default="v5d",
+    p.add_argument("--megakernel", nargs="?", const="v5d", default=None,
                    choices=["v5d", "v5", "v3"],
-                   help="v5d (default) and v5: K1, the compacted kernel (the JAX viewer's "
-                        "fixed- and dynamic-trip variants differ only on the TPU; K1 takes "
-                        "any live count on the device); v3: K2, the dense-slot kernel, "
-                        "which shades every slot and suits rays at the sample cap")
+                   help="v5d and v5: K1, the compacted kernel (the JAX viewer's fixed- and "
+                        "dynamic-trip variants differ only on the TPU; K1 takes any live "
+                        "count on the device); v3: K2, the dense-slot kernel, which shades "
+                        "every slot and suits rays at the sample cap. Not given: K1 where "
+                        "the export is adaptive with at most 16 samples, else the plain "
+                        "renderer")
+    p.add_argument("--dynamic", action="store_true",
+                   help="the JAX viewer's in-graph bucketing of its plain path; accepted, "
+                        "no effect here")
     p.add_argument("--mesh", type=int, default=0,
                    help="shard each frame's rays over this many GPUs; only 0 or 1 for now")
     p.add_argument("--device", default="cuda",
@@ -212,7 +231,17 @@ def main(argv=None):
     rt, scene = build_renderer_from_export(args.model_dir, batch_size=bs,
                                            dtype_str="fp32" if args.fp32 else "bf16",
                                            device=device)
-    kernel = build_kernel(rt, args.megakernel)
+    if args.megakernel is not None or kernel_takes(rt):
+        variant = args.megakernel or "v5d"
+        kernel = build_kernel(rt, variant)
+        route = (f"{'K2' if variant == 'v3' else 'K1'} ({type(kernel).__name__}, "
+                 + ("CUDA kernel)" if device.type == "cuda" else "its plain version on the CPU)"))
+    else:
+        kernel = None
+        route = (f"the plain renderer (RealtimeRenderer.render_frame): the kernels take "
+                 f"adaptive exports of at most 16 samples, this one has threshold "
+                 f"{rt.threshold} and {rt.max_samples} samples")
+    print(f"rendering through {route}", flush=True)
     dirs = frame_directions(scene, w, h, device)
     n_pix = dirs.shape[0]
     if args.camPath:
@@ -222,6 +251,8 @@ def main(argv=None):
             scene.view_cell_center, 0.4 * scene.view_cell_radius, args.frames)]
 
     def render(pos, rot):
+        if kernel is None:
+            return rt.render_frame(pos, rot, dirs)
         if device.type == "cuda":
             return kernel(dirs, pos, rot)
         outs = [kernel(dirs[s:s + bs], pos, rot) for s in range(0, n_pix, bs)]
@@ -256,7 +287,7 @@ def main(argv=None):
     dt = time.perf_counter() - t_start
     print(f"total: {len(cams)} frames in {dt:.2f}s = {len(cams) / dt:.2f} FPS "
           f"({len(cams) * n_pix / dt / 1e6:.2f} Mrays/s)")
-    stats = {"frames": len(cams), "n_pix": n_pix, "wall_s": dt,
+    stats = {"frames": len(cams), "n_pix": n_pix, "wall_s": dt, "route": route,
              "samples_per_pixel": float(counts.sum()) / n_pix,
              "last_frame": frame.reshape(h, w, 3)}
     if device.type == "cuda":

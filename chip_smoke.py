@@ -16,7 +16,11 @@ export of that fine run viewed through K1 and K2, and the viewer's
 the S=16 NDC export at 800x800, evaluates the committed JAX run against
 the JAX package's own CPU evaluation of it
 (``tests/torch_fixtures/eval_mscene_fine02.json``) and its videos leg
-against that evaluation's images leg, and prints, as its last two lines, a
+against that evaluation's images leg, trains the repo's other two
+configurations (``adanerf_tpu_torch/configs/nerf_baseline.ini``: a coarse
+and a fine NeRF, both through K3, at 262,144 and 786,432 rows a step;
+``gt_depth_training.ini``: GT pretraining of the oracle, then joint steps
+with the NeRF through K3), and prints, as its last two lines, a
 JSON line of per-kernel numbers and a JSON line
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, without those lines, when there is no CUDA device or any phase
@@ -45,10 +49,16 @@ NDC = os.path.join(ROOT, "demo", "trained_ndc_export")
 MSCENE_DATA = os.path.join(ROOT, "demo", "mscene")
 DENSE_INI = os.path.join(ROOT, "configs", "dense_training.ini")
 FINE_INI = os.path.join(ROOT, "configs", "fine_training.ini")
+BASELINE_INI = os.path.join(ROOT, "adanerf_tpu_torch", "configs", "nerf_baseline.ini")
+GT_INI = os.path.join(ROOT, "adanerf_tpu_torch", "configs", "gt_depth_training.ini")
 K3_ROWS = 2 * 2048 * 128  # batchImages x samples x numRaymarchSamples of the dense config
 K3_FINE_ROWS = 2 * 2048 * 16  # the same of the fine config (numRaymarchSamples = [16, 16])
 TRAIN_WARMUP, TRAIN_TIMED = 3, 30
 FINE_STEPS = 20
+# nerf_baseline.ini: 2 x 2048 rays x 64 coarse samples, then x (64 + 128) fine
+K3_BASELINE_ROWS = (2 * 2048 * 64, 2 * 2048 * (64 + 128))
+K3_GT_ROWS = 2 * 2048 * 16  # gt_depth_training.ini's NeRF: 16 samples a ray
+BASELINE_STEPS, GT_PRETRAIN, GT_STEPS = 20, 10, 20
 # the JAX package's fine run committed in the repo (S=8, threshold 0.2, fp32),
 # its evaluation on this host's CPU by the JAX package, and the bars the
 # port's evaluation on the card is held to against that fixture
@@ -250,6 +260,259 @@ def check_dense(k2, k1, dirs, pose, rot, label, allowed, referee=False):
     return res["err_p"], err_1, res["spp"], res["at_cap"]
 
 
+def one_image_scene(tmp):
+    """demo/mscene as a scene of symlinks whose val and test splits are cut
+    to their first image: one validation image a validation pass, a
+    one-image evaluation."""
+    scene = os.path.join(tmp, "mscene")
+    os.makedirs(scene)
+    for name in os.listdir(MSCENE_DATA):
+        if name not in ("transforms_val.json", "transforms_test.json"):
+            os.symlink(os.path.join(MSCENE_DATA, name), os.path.join(scene, name))
+    for split in ("val", "test"):
+        with open(os.path.join(MSCENE_DATA, f"transforms_{split}.json")) as f:
+            frames = json.load(f)["frames"]
+        with open(os.path.join(scene, f"transforms_{split}.json"), "w") as f:
+            json.dump({"frames": frames[:1]}, f)
+    return scene
+
+
+def record_rows(kernel):
+    """Keeps the row count of every K3 forward launch (the wrapper still
+    counts its launches itself). Returns (the list, a function that undoes
+    the wrapping)."""
+    rows, launch = [], kernel.forward_kernel
+
+    def keep(self, x, packed):
+        rows.append(x.shape[0])
+        return launch(self, x, packed)
+
+    kernel.forward_kernel = keep
+    return rows, lambda: setattr(kernel, "forward_kernel", launch)
+
+
+def k3_at(kernel, check, nerf, x, seed, label):
+    """K3 against its plain version (``nerf_train_check``, its bars) on one
+    net's own NeRF input rows x, a mean loss's seeded cotangent; then its
+    forward and backward times, the plain version's and the bounds.
+    Returns the numbers; fails when the check does not hold."""
+    from adanerf_tpu_torch.frame_times import time_ms
+    k3 = kernel(nerf)
+    N = x.shape[0]
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal((N, 4)).astype(
+        np.float32)).to(x.device) / (N * 4)
+    res = check.compare(k3, x, lambda out: g)
+    torch.cuda.synchronize()
+    out_k, out_p = res["out"]["k"], res["out"]["p"]
+    fwd_abs = float((out_k - out_p).abs().max())
+    bwd_abs = max(float((a - res["grads"]["k"][n]).abs().max())
+                  for n, a in res["grads"]["p"].items())
+    ok, lines = check.verdict(res, scale=float(out_p.abs().max()))
+    print(f"  K3 vs plain, {label}, on the step's own {N} NeRF input rows:\n    "
+          + "\n    ".join(lines + res["report"]), flush=True)
+    if not ok:
+        raise SystemExit(f"K3 disagrees with its plain version at {label}'s {N} rows")
+    del res, out_k, out_p
+    packed = k3.pack(dict(k3.nerf.named_parameters()), x.device)
+    ms_f = time_ms(lambda: k3.forward_kernel(x, packed), 10)
+    ms_b = time_ms(lambda: k3.backward_kernel(x, g, packed), 5)
+    with torch.no_grad():
+        ms_pf = time_ms(lambda: k3.plain(x), 5)
+    xr = x.clone().requires_grad_(True)
+    out_graph = k3.plain(xr)
+    leaves = [p for _, p in k3.nerf.named_parameters()]
+    ms_pb = time_ms(lambda: torch.autograd.grad(out_graph, [xr] + leaves, g, retain_graph=True),
+                    3)
+    del out_graph, xr, packed
+    bounds = k3_bounds(N, k3.nerf)
+    print(f"  K3 at {N} rows ({label}): forward {ms_f:.3f} ms, backward {ms_b:.3f} ms; plain "
+          f"forward {ms_pf:.3f} ms, plain backward {ms_pb:.3f} ms; bounds {bounds['fwd'][0]:.3f} "
+          f"/ {bounds['bwd'][0]:.3f} ms ({bounds['fwd'][1]}); scratch "
+          f"{2 * k3.scratch_layout(N)[''][0] / 1e9:.2f} GB", flush=True)
+    torch.cuda.empty_cache()
+    return dict(rows=N, ms_fwd=ms_f, ms_bwd=ms_b, plain_fwd_ms=ms_pf, plain_bwd_ms=ms_pb,
+                bound_fwd_ms=bounds["fwd"][0], bound_bwd_ms=bounds["bwd"][0],
+                bound_by=bounds["fwd"][1], max_abs_err_fwd=fwd_abs, max_abs_err_bwd=bwd_abs)
+
+
+def baseline_leg(train, kernel, check):
+    """Phase 15: ``adanerf_tpu_torch/configs/nerf_baseline.ini`` (a coarse
+    NeRF on 64 samples a ray, a fine NeRF on 64 + 128, both 8 x 256) on
+    demo/mscene in bf16 for BASELINE_STEPS steps, its last epoch validating
+    one image, then the ini's evaluation of one test image. Fails unless
+    K3 ran both nets in every step (a forward launch at each stage's rows,
+    in order), every loss is finite and both nets' losses fall, the run's
+    files exist, one step's grads through K3 agree with the plain path's,
+    K3 holds against its plain version on each stage's own rows, and a
+    profiled step launches each K3 kernel twice."""
+    from adanerf_tpu_torch.ops.kernels.nerf_train import BACKWARD_KERNEL_NAMES
+    steps = BASELINE_STEPS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_baseline_") as tmp:
+        argv = ["-c", BASELINE_INI, "-data", one_image_scene(tmp), "-log",
+                os.path.join(tmp, "logs"), "--bf16", "--epochs", str(1 + steps),
+                "--randomSeed", "0", "--epochsRender", "1000000", "--epochsValidate", str(steps),
+                "--epochsCheckpoint", "1000000", "--verboseEvery", "5"]
+        torch.cuda.reset_peak_memory_stats()
+        kernel.forward_launches = kernel.backward_launches = 0
+        rows, undo = record_rows(kernel)
+        try:
+            stats = train.main(argv)
+        finally:
+            undo()
+        launches = (kernel.forward_launches, kernel.backward_launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ts = stats["state"]
+        d = ts.logDir
+        want = ["opt.txt", "image_quality_images.csv", "complexity.txt", "eval/0_out.png"]
+        want += [f"{m.name}__opt.weights" for m in ts.models]
+        missing = [f for f in want + [os.path.basename(p) for p in stats["checkpoint"]]
+                   if not os.path.exists(os.path.join(d, f))]
+        quality = read_quality_csv(os.path.join(d, "image_quality_images.csv"))
+    losses = stats["losses"]
+    step_ms = stats["step_ms"][TRAIN_WARMUP:]
+    mean_ms = float(np.mean(step_ms))
+    print(f"  K3 launches: forward {launches[0]}, backward {launches[1]} ({steps} steps, 2 nets); "
+          f"rows per launch {sorted(set(rows))}; peak device memory {peak_gb:.2f} GB", flush=True)
+    print(f"  train step {mean_ms:.3f} ms (mean of {len(step_ms)} after {TRAIN_WARMUP}; median "
+          f"{float(np.median(step_ms)):.3f}, min {min(step_ms):.3f}, max {max(step_ms):.3f}) for "
+          f"{sum(K3_BASELINE_ROWS)} K3 rows; each step (ms): "
+          + ", ".join(f"{v:.3f}" for v in stats["step_ms"]), flush=True)
+    print(f"  legs: validation {stats['legs_ms']['validate']} ms (1 image), evaluation "
+          f"{stats.get('evaluate_ms', float('nan')):.1f} ms (1 image, PSNR "
+          f"{quality[0]['psnr'] if quality else float('nan'):.3f} dB); files missing {missing}",
+          flush=True)
+    first, last = losses[:5].mean(0), losses[-5:].mean(0)
+    print(f"  MSE of the first 5 steps (coarse, fine) {first.tolist()}, of the last 5 "
+          f"{last.tolist()}; all finite: {bool(np.isfinite(losses).all())}", flush=True)
+    if launches != (2 * steps, 2 * steps) or rows != list(K3_BASELINE_ROWS) * steps:
+        raise SystemExit(f"the baseline launched K3 {launches} times at rows {sorted(set(rows))}; "
+                         f"expected both nets in each of {steps} steps at {K3_BASELINE_ROWS}")
+    if not (np.isfinite(losses).all() and (last < first).all()):
+        raise SystemExit("the baseline's losses are not finite or did not fall")
+    if missing or not quality:
+        raise SystemExit(f"the baseline did not write {missing or 'its evaluation'}")
+    worst_step, batch, targets, seen = step_grads_vs_plain(ts, kernel, steps + 1)
+    print(f"  train step grads, K3 vs plain: worst leaf {worst_step[1]} rel {worst_step[0]:.3e} "
+          f"(allowed 2e-2)", flush=True)
+    if not worst_step[0] <= 2e-2 or [x.shape[0] for x in seen] != list(K3_BASELINE_ROWS):
+        raise SystemExit("the baseline step's grads through K3 disagree with the plain path")
+    stages = [k3_at(kernel, check, m, x, 20 + i, label)
+              for i, (m, x, label) in enumerate(zip(ts.models, seen, ("coarse", "fine")))]
+    del seen
+    prof = profile_steps(ts, batch, targets, steps + 2)
+    expected = {k: 2.0 for k in ("k3_fwd",) + BACKWARD_KERNEL_NAMES}
+    print(f"  K3 kernels launched per step: {prof['k3_counts']}", flush=True)
+    if prof["k3_counts"] != expected:
+        raise SystemExit(f"K3 launched {prof['k3_counts']} a baseline step, expected {expected}")
+    print_profile("profiled baseline step (3 steps)", prof, 10)
+    per_step = len(prof["k3_launch_ms"]) // 3
+    print("  each K3 launch of the last profiled step (ms, in launch order): " + ", ".join(
+        f"{name} {ms:.3f}" for name, ms in prof["k3_launch_ms"][-per_step:]), flush=True)
+    evaluate_ms = stats.get("evaluate_ms")
+    del ts, stats, batch, targets
+    torch.cuda.empty_cache()
+    return dict(evaluate_ms=evaluate_ms, psnr=quality[0]["psnr"], launches=launches,
+                rows=rows[:2], step_ms=mean_ms, peak_gb=peak_gb,
+                step_grads_worst_rel=worst_step[0], stages=stages,
+                step_device_ms=prof["device_ms"], step_k3_ms=prof["k3_ms"],
+                step_wall_ms_profiled=prof["wall_ms"],
+                k3_launch_ms=prof["k3_launch_ms"][-per_step:],
+                first5=first.tolist(), last5=last.tolist())
+
+
+def gt_leg(train, kernel):
+    """Phase 16: ``adanerf_tpu_torch/configs/gt_depth_training.ini`` on
+    demo/mscene (its ``*_depth.npz``) in bf16: GT_PRETRAIN epochs of the
+    oracle alone on its ClassifiedDepth target (the plain path), validating
+    at the last, then GT_STEPS + 1 joint steps with the NeRF through K3,
+    one validation image at each validation epoch, and the ini's
+    evaluation of one test image; then the batch assembly is timed and 3
+    joint steps are profiled. Fails unless the pretraining loss falls, it
+    saved the oracle's ``_opt`` checkpoint, K3 ran every joint step (and
+    none in the pretraining) at the NeRF's rows, the NeRF's training
+    samples differ from ray to ray (they follow the oracle), and every loss
+    is finite."""
+    pre, steps = GT_PRETRAIN, GT_STEPS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gt_") as tmp:
+        argv = ["-c", GT_INI, "-data", one_image_scene(tmp), "-log", os.path.join(tmp, "logs"),
+                "--bf16", "--epochsPretrain", str(pre), "--epochsPretrain", "-1",
+                "--epochs", str(pre + steps + 1), "--randomSeed", "0",
+                "--epochsValidate", str(pre), "--epochsRender", "1000000",
+                "--epochsCheckpoint", "1000000", "--verboseEvery", "5"]
+        kernel.forward_launches = kernel.backward_launches = 0
+        rows, undo = record_rows(kernel)
+        try:
+            stats = train.main(argv)
+        finally:
+            undo()
+        launches = (kernel.forward_launches, kernel.backward_launches)
+        ts = stats["state"]
+        opt_files = sorted(f for f in os.listdir(ts.logDir) if f.endswith("__opt.weights"))
+        quality = read_quality_csv(os.path.join(ts.logDir, "image_quality_images.csv"))
+    pretrain = stats["pretrain"][0]
+    pre_losses = pretrain["losses"]
+    losses = stats["losses"]
+    step_ms = stats["step_ms"][TRAIN_WARMUP:]
+    mean_ms = float(np.mean(step_ms))
+    pre_ms = float(np.mean(pretrain["step_ms"][TRAIN_WARMUP:]))
+    print(f"  pretraining: {len(pre_losses)} steps of the oracle, BCE "
+          + ", ".join(f"{v:.5f}" for v in pre_losses) + f"; {pre_ms:.3f} ms a step; _opt saved "
+          f"at epochs {pretrain['opt_epochs']}; validation {pretrain['validate_ms']} ms", flush=True)
+    print(f"  joint: K3 launches forward {launches[0]}, backward {launches[1]} ({len(losses)} "
+          f"steps) at rows {sorted(set(rows))}; step {mean_ms:.3f} ms (mean of {len(step_ms)} "
+          f"after {TRAIN_WARMUP}; median {float(np.median(step_ms)):.3f}, min {min(step_ms):.3f}, "
+          f"max {max(step_ms):.3f}); losses (oracle, NeRF) first {losses[0].tolist()}, last "
+          f"{losses[-1].tolist()}; _opt files {opt_files}; evaluation "
+          f"{stats.get('evaluate_ms', float('nan')):.1f} ms (PSNR "
+          f"{quality[0]['psnr'] if quality else float('nan'):.3f} dB)", flush=True)
+    if not (pre_losses[-3:].mean() < pre_losses[:3].mean() and np.isfinite(pre_losses).all()):
+        raise SystemExit("the GT pretraining loss did not fall")
+    if pretrain["opt_epochs"] != [pre] or len(opt_files) != 2:
+        raise SystemExit("the GT pretraining did not save the oracle's _opt checkpoint")
+    n = len(losses)
+    if n != steps + 1 or launches != (n, n) or rows != [K3_GT_ROWS] * n:
+        raise SystemExit(f"the GT leg launched K3 {launches} times at rows {sorted(set(rows))}; "
+                         f"expected once in each of {steps + 1} joint steps at {K3_GT_ROWS}")
+    if not np.isfinite(losses).all() or not quality:
+        raise SystemExit("the GT leg's losses are not finite or it did not evaluate")
+    # where a joint step's time goes: the batch assembly (the host's gather,
+    # then the ClassifiedDepth target on the card) and 3 profiled steps
+    idx = np.array([0, 1])
+    assemble_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ts.assemble_train_batch(ts.train_dataset, idx)
+        torch.cuda.synchronize()
+        assemble_ms.append((time.perf_counter() - t) * 1e3)
+    batch, targets = ts.assemble_train_batch(ts.train_dataset, idx)
+    prof = profile_steps(ts, batch, targets, pre + steps + 1)
+    print(f"  batch assembly (2 images, the ClassifiedDepth target built on the card): "
+          + ", ".join(f"{v:.3f}" for v in assemble_ms) + " ms", flush=True)
+    print_profile("profiled GT joint step (3 steps, batch fixed)", prof, 6)
+    # the NeRF's training samples come from the oracle's bins: they differ
+    # from ray to ray (a one-bin pdf would give every ray the same ones)
+    from adanerf_tpu_torch.pipeline.cascade import run_cascade
+    from adanerf_tpu_torch.pipeline.keys import FSK
+    with torch.no_grad():
+        _, dicts = run_cascade(ts.models, ts.f_in, batch, is_inference=False)
+    spread = float(dicts[1][FSK.nerf_input_feature_z_vals].std(0).min())
+    del dicts
+    print(f"  the NeRF's training samples: the least spread of a sample slot across the "
+          f"batch's rays {spread:.5f}", flush=True)
+    if not spread > 1e-3:
+        raise SystemExit("the GT leg's NeRF samples do not follow the oracle's depth")
+    out = dict(assemble_ms=assemble_ms, step_device_ms=prof["device_ms"],
+               step_k3_ms=prof["k3_ms"], step_wall_ms_profiled=prof["wall_ms"], launches=launches,
+               rows=rows[0], step_ms=mean_ms, pretrain_step_ms=pre_ms,
+               pretrain_losses=pre_losses.tolist(), opt_epochs=pretrain["opt_epochs"],
+               evaluate_ms=stats.get("evaluate_ms"), psnr=quality[0]["psnr"],
+               z_spread=spread)
+    del ts, stats, batch, targets
+    torch.cuda.empty_cache()
+    return out
+
+
 def encoded_samples(n_rays, seed, dev):
     """NeRF inputs as the dense train step makes them: 128 log-spaced depths
     along rays from inside the mscene view cell, InverseSqrtDistCentered,
@@ -333,7 +596,7 @@ def step_grads_vs_plain(ts, kernel, epoch):
     """One train step's grads through K3 and through the plain path, same
     params and batch (train images 0 and 1; no update is applied). Returns
     ((worst leaf's max |diff| / max |plain|, its name), batch, targets, the
-    rows K3's forward was given (N, n_in))."""
+    rows K3's forward was given at each launch, [(N, n_in)], in order)."""
     batch, targets = ts.assemble_train_batch(ts.train_dataset, np.array([0, 1]))
     seen, launch = [], kernel.forward_kernel
 
@@ -353,14 +616,15 @@ def step_grads_vs_plain(ts, kernel, epoch):
         ts.config_file.fusedTrainKernel = 1
     errs = {f"{m.name}.{k}": rel for i, m in enumerate(ts.models)
             for k, (rel, _) in grad_errors(grads_p[i], grads_k[i]).items()}
-    return max((v, k) for k, v in errs.items()), batch, targets, seen[-1]
+    return max((v, k) for k, v in errs.items()), batch, targets, seen
 
 
 def profile_steps(ts, batch, targets, epoch0, n=3):
     """n train steps through K3 under the profiler, device-side events only
     (an aten op's "self" device time repeats its kernels'). Returns
     {kernels: [(ms a step, name)] longest first, device_ms and k3_ms a
-    step, wall_ms a step, k3_counts: {K3 kernel: launches a step}}."""
+    step, wall_ms a step, k3_counts: {K3 kernel: launches a step},
+    k3_launch_ms: [(K3 kernel, ms)] of every launch in order}."""
     step = ts.make_train_step()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -376,9 +640,12 @@ def profile_steps(ts, batch, targets, epoch0, n=3):
                      reverse=True)
     counts = {re.search(r"k3_\w+", e.key).group(0): e.count / n for e in averages
               if e.device_type.name == "CUDA" and "k3_" in e.key}
+    launch_ms = [(re.search(r"k3_\w+", e.name).group(0), e.self_device_time_total / 1e3)
+                 for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+                 if e.device_type.name == "CUDA" and "k3_" in e.name]
     return dict(kernels=kernels, device_ms=sum(ms for ms, _ in kernels),
                 k3_ms=sum(ms for ms, name in kernels if "k3_" in name), wall_ms=wall_ms,
-                k3_counts=counts)
+                k3_counts=counts, k3_launch_ms=launch_ms)
 
 
 def print_profile(label, prof, top):
@@ -520,7 +787,7 @@ def fine_leg(train, port_test, kernel, check, log_dir, dense_dir):
     # K3 at the fine leg's shape: one step's grads through K3 and through
     # the plain path, then the kernel against its plain version on the NeRF
     # inputs of that step, with a mean loss's cotangent
-    worst_step, batch, targets, x = step_grads_vs_plain(ts, kernel, steps + 1)
+    worst_step, batch, targets, (x,) = step_grads_vs_plain(ts, kernel, steps + 1)
     print(f"  fine train step grads, K3 vs plain: worst leaf {worst_step[1]} rel "
           f"{worst_step[0]:.3e} (allowed 2e-2)", flush=True)
     if not worst_step[0] <= 2e-2:
@@ -1407,10 +1674,26 @@ def main():
     videos = videos_leg(port_evaluate, evaluation)
     done("13c", t)
 
+    t = time.perf_counter()
+    phase(f"15 train nerf_baseline.ini (coarse + fine NeRF, both through K3, "
+          f"{K3_BASELINE_ROWS[0]} + {K3_BASELINE_ROWS[1]} rows a step) on demo/mscene, bf16, "
+          f"{BASELINE_STEPS} steps, validating and evaluating one image")
+    baseline = baseline_leg(train, NerfTrainKernel, nerf_train_check)
+    print(f"  card: {card_state()}", flush=True)
+    done("15", t)
+
+    t = time.perf_counter()
+    phase(f"16 train gt_depth_training.ini on demo/mscene, bf16: {GT_PRETRAIN} pretraining "
+          f"epochs of the oracle, then {GT_STEPS + 1} joint steps with the NeRF through K3")
+    gt = gt_leg(train, NerfTrainKernel)
+    print(f"  card: {card_state()}", flush=True)
+    done("16", t)
+
     k2_main = k2_16[scene_thr]
     phase("14 kernels")
     print(json.dumps({"training_legs": {"dense_validate_ms": dense_val_ms,
-                                        "fine": {k: v for k, v in fine.items()}},
+                                        "fine": {k: v for k, v in fine.items()},
+                                        "nerf_baseline": baseline, "gt_depth": gt},
                       "export": exported, "evaluation": evaluation, "videos": videos}),
           flush=True)
     print(json.dumps({"kernels": [{
@@ -1440,7 +1723,15 @@ def main():
         "fine_launches": fine["launches"][0], "fine_rows": fine["rows"],
         "fine_ms": fine["k3_fwd_ms"], "fine_plain_ms": fine["plain_fwd_ms"],
         "fine_bound_ms": fine["bound_fwd_ms"], "fine_max_abs_err": fine["max_abs_err_fwd"],
-        "fine_train_step_ms": fine["step_ms"]}, {
+        "fine_train_step_ms": fine["step_ms"],
+        "baseline_launches": baseline["launches"][0], "baseline_rows": baseline["rows"],
+        "baseline_ms": [st["ms_fwd"] for st in baseline["stages"]],
+        "baseline_plain_ms": [st["plain_fwd_ms"] for st in baseline["stages"]],
+        "baseline_bound_ms": [st["bound_fwd_ms"] for st in baseline["stages"]],
+        "baseline_max_abs_err": [st["max_abs_err_fwd"] for st in baseline["stages"]],
+        "baseline_train_step_ms": baseline["step_ms"],
+        "gt_launches": gt["launches"][0], "gt_rows": gt["rows"],
+        "gt_train_step_ms": gt["step_ms"]}, {
         "name": "nerf_train_backward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
@@ -1454,7 +1745,15 @@ def main():
         "fine_launches": fine["launches"][1], "fine_rows": fine["rows"],
         "fine_ms": fine["k3_bwd_ms"], "fine_plain_ms": fine["plain_bwd_ms"],
         "fine_bound_ms": fine["bound_bwd_ms"], "fine_max_abs_err": fine["max_abs_err_bwd"],
-        "fine_train_step_ms": fine["step_ms"]}, {
+        "fine_train_step_ms": fine["step_ms"],
+        "baseline_launches": baseline["launches"][1], "baseline_rows": baseline["rows"],
+        "baseline_ms": [st["ms_bwd"] for st in baseline["stages"]],
+        "baseline_plain_ms": [st["plain_bwd_ms"] for st in baseline["stages"]],
+        "baseline_bound_ms": [st["bound_bwd_ms"] for st in baseline["stages"]],
+        "baseline_max_abs_err": [st["max_abs_err_bwd"] for st in baseline["stages"]],
+        "baseline_train_step_ms": baseline["step_ms"],
+        "gt_launches": gt["launches"][1], "gt_rows": gt["rows"],
+        "gt_train_step_ms": gt["step_ms"]}, {
         "name": "megakernel_dense", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_dense.cu + adanerf_tpu_torch/csrc/megakernel.cuh",
         "replaces": "adanerf_tpu/ops/pallas/megakernel.py:281",

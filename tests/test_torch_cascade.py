@@ -92,10 +92,19 @@ def test_experiment_name_matches_jax(pairs, thr):
     ("--outFeatures", "ClassifiedDepth", "feature set"),
 ])
 def test_unported_feature_sets_and_samplers_raise(pairs, flag, value, what):
+    """These three were refused until the port took every feature set and
+    sampler of the JAX registry: now they build, and a name that neither
+    package knows raises, naming it."""
     jts, tts = pairs[0.0]
     c = TConfig.init(argv=dense_config_args("unused", "unused") + ["--device", "cpu"])
-    getattr(c, flag[2:])[-1 if flag == "--rayMarchSampler" else 0] = value
-    with pytest.raises(NotImplementedError, match=f"{what} {value} is not ported yet"):
+    at = -1 if flag == "--rayMarchSampler" else 0
+    getattr(c, flag[2:])[at] = value
+    f_in, f_out = get_feature_sets(c, tts.scene)
+    built = f_in[1].sampler_name if what == "sampler" else type((f_in + f_out)[
+        0 if flag == "--inFeatures" else 2]).__name__
+    assert built == value
+    getattr(c, flag[2:])[at] = value + "X"
+    with pytest.raises(ValueError, match=f"{what} {value}X"):
         get_feature_sets(c, tts.scene)
 
 

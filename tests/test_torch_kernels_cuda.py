@@ -186,3 +186,50 @@ def test_nerf_train_kernel_matches_plain(rows):
     print(f"{rows} rows:\n  " + "\n  ".join(lines + res["report"]))
     assert res["launched"] == (1, 1)
     assert ok, lines
+
+
+@pytest.mark.cuda
+def test_two_nerf_step_through_k3_matches_plain(tmp_path):
+    """adanerf_tpu_torch/configs/nerf_baseline.ini (a coarse and a fine
+    NeRF, both 8 x 256) on demo/mscene, 2 x 256 rays a step at 16 + 32
+    samples: one step launches K3 once forward and once backward for each
+    net, at each stage's rows, and its loss and every gradient leaf agree
+    with the plain path's (the grads within 2e-2 of the leaf's max, the bar
+    chip_smoke.py holds a train step to); a second step moves both nets."""
+    _need_card()
+    from adanerf_tpu_torch.config import Config
+    from adanerf_tpu_torch.train_state import TrainState
+    torch.backends.cuda.matmul.allow_tf32 = False
+    argv = ["-c", os.path.join(ROOT, "adanerf_tpu_torch", "configs", "nerf_baseline.ini"),
+            "-data", os.path.join(ROOT, "demo", "mscene"), "-log", str(tmp_path), "--bf16",
+            "--samples", "256", "--numRaymarchSamples", "16", "--numRaymarchSamples", "32",
+            "--randomSeed", "0", "--device", "cuda"]
+    ts = TrainState()
+    ts.initialize(Config.init(argv=argv))
+    batch, targets = ts.assemble_train_batch(ts.train_dataset, np.array([0, 1]))
+    rows, launch = [], NerfTrainKernel.forward_kernel
+
+    def keep(self, x, packed):
+        rows.append(x.shape[0])
+        return launch(self, x, packed)
+
+    f0, b0 = NerfTrainKernel.forward_launches, NerfTrainKernel.backward_launches
+    NerfTrainKernel.forward_kernel = keep
+    try:
+        losses_k, grads_k = ts.make_loss_and_grads()(batch, targets, 1)
+    finally:
+        NerfTrainKernel.forward_kernel = launch
+    assert rows == [2 * 256 * 16, 2 * 256 * 48]
+    assert (NerfTrainKernel.forward_launches - f0, NerfTrainKernel.backward_launches - b0) == (2, 2)
+    ts.config_file.fusedTrainKernel = 0
+    losses_p, grads_p = ts.make_loss_and_grads()(batch, targets, 1)
+    ts.config_file.fusedTrainKernel = 1
+    for i in range(2):
+        assert abs(float(losses_k[i]) - float(losses_p[i])) <= 1e-2 * float(losses_p[i])
+        for k, ref in grads_p[i].items():
+            rel = float((grads_k[i][k] - ref).abs().max()) / (float(ref.abs().max()) + 1e-20)
+            assert rel <= 2e-2, (i, k, rel)
+    before = [{k: v.clone() for k, v in m.state_dict().items()} for m in ts.models]
+    ts.make_train_step()(batch, targets, 2)
+    for m, b in zip(ts.models, before):
+        assert any(not torch.equal(v, b[k]) for k, v in m.state_dict().items())

@@ -163,3 +163,15 @@ def test_prepare_dataset_matches_jax(tmp_path, monkeypatch):
         np.testing.assert_allclose(np.asarray(port[k], np.float64),
                                    np.asarray(want, np.float64), rtol=1e-6, atol=0)
     assert port["depth_range"] != [1.0, 8.0]  # rewritten from the depth maps
+
+
+def test_prepare_dataset_takes_the_jax_command_line(tmp_path):
+    """The JAX script's ``-d/--device`` is accepted (and, as there, unused):
+    the same file as without it."""
+    a = make_scene(str(tmp_path / "a"), with_depth=True)
+    b = str(tmp_path / "b")
+    shutil.copytree(a, b)
+    want = t_prepare.main(["-data", a])
+    got = t_prepare.main(["-data", b, "-d", "0"])
+    assert got == want
+    assert t_prepare.main(["-data", b, "--device", "1"]) == want

@@ -2,13 +2,17 @@
 
 import json
 import os
+import re
 import sys
 
 import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from adanerf_tpu.data import camera as jcamera
+from adanerf_tpu.ops.raygen import generate_ray_directions
 from adanerf_tpu_torch import viewer as tviewer
 from adanerf_tpu_torch.data.png import read_png
 from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
@@ -123,3 +127,59 @@ def test_camera_path_matches_jax_viewer():
     for (pos, rot), t in zip(cams, ref):
         np.testing.assert_array_equal(pos, t[:3, 3])
         np.testing.assert_array_equal(rot, t[:3, :3])
+
+
+def _dense_copy(tmp_path):
+    """demo/trained_mscene_export with adaptiveSamplingThreshold 0.0: the
+    kind of export a dense run writes, which the kernels do not take."""
+    src = os.path.join(ROOT, "demo", "trained_mscene_export")
+    dst = tmp_path / "dense_export"
+    dst.mkdir()
+    for name in os.listdir(src):
+        with open(os.path.join(src, name), "rb") as f:
+            data = f.read()
+        if name == "config.ini":
+            text = data.decode()
+            text = re.sub(r"adaptiveSamplingThreshold = [0-9.e-]+",
+                          "adaptiveSamplingThreshold = 0.0", text)
+            assert "adaptiveSamplingThreshold = 0.0" in text
+            data = text.encode()
+        (dst / name).write_bytes(data)
+    return str(dst)
+
+
+def test_dense_export_renders_through_the_plain_path_as_jax_does(tmp_path, capsys):
+    """Without --megakernel the port renders an export the kernels do not
+    take through RealtimeRenderer.render_frame, within 2e-4 of the JAX
+    viewer's plain frame (its make_frame_renderer) at the same camera, in
+    fp32; --dynamic parses."""
+    export = _dense_copy(tmp_path)
+    stats = tviewer.main([export, "-s", "20", "16", "-n", "2", "--device", "cpu", "--fp32",
+                          "--logging_interval", "1", "--dynamic"])
+    out = capsys.readouterr().out
+    assert "rendering through the plain renderer" in out and "threshold 0.0" in out
+    assert stats["route"].startswith("the plain renderer")
+    assert stats["samples_per_pixel"] == 8.0  # every slot of every ray
+    rt, scene = jviewer.build_renderer_from_export(export, 320, "fp32")
+    assert rt.threshold == 0.0
+    focal = 0.5 * 20 / np.tan(0.5 * scene.fov)
+    dirs = generate_ray_directions(20, 16, scene.fov, focal).reshape(-1, 3).astype(np.float32)
+    pose = jviewer.orbit_poses(scene.view_cell_center, 0.4 * scene.view_cell_radius, 2)[1]
+    render = rt.make_frame_renderer(dirs.shape[0])
+    frame, counts = render(*rt.params, jnp.asarray(pose, jnp.float32),
+                           jnp.eye(3, dtype=jnp.float32), jnp.asarray(dirs))
+    got = stats["last_frame"].reshape(-1, 3).numpy()
+    np.testing.assert_allclose(got, np.asarray(frame), rtol=0, atol=2e-4)
+
+
+def test_megakernel_still_refuses_a_dense_export(tmp_path):
+    with pytest.raises(SystemExit, match="adaptive model"):
+        tviewer.main([_dense_copy(tmp_path), "-s", "8", "8", "-n", "1", "--device", "cpu",
+                      "--megakernel", "v5d"])
+
+
+def test_an_adaptive_export_renders_through_k1_by_default(capsys):
+    stats = tviewer.main([os.path.join(ROOT, "demo", "trained_mscene_export"), "-s", "8", "8",
+                          "-n", "1", "--device", "cpu"])
+    assert stats["route"].startswith("K1 (MegakernelCompact")
+    assert "rendering through K1" in capsys.readouterr().out
