@@ -166,7 +166,7 @@ def build_parser() -> argparse.ArgumentParser:
     # additions of the JAX package (absent in the reference)
     p.add_argument("--meshDevices", default=-1, type=int,
                    help="number of devices for data-parallel training; -1 = all "
-                        "(the port trains on one device)")
+                        "(with --device cpu: N gloo ranks, -1 = one)")
     p.add_argument("--bf16", default=False, action=argparse.BooleanOptionalAction,
                    help="use bfloat16 matmul operands in the MLPs (fp32 accumulation)")
     p.add_argument("--fusedTrainKernel", default=1, type=int,

@@ -4,15 +4,14 @@ Counterpart of ``adanerf_tpu/data/dataset.py``. A scene directory holds
 ``dataset_info.json`` (view cell, resolution, fov, depth ranges),
 ``transforms_{train,val,test}.json`` (poses) and per-frame ``*.png`` (+
 optional ``*_depth.npz``, or with ``--useNerfDepthMap`` an exported NeRF's
-``*_QuantizedWeights_lo_nSD.raw``). A split is loaded whole into host
-memory as numpy arrays; the train step gathers its rays from them (pixel
-index convention ``y + h * x``). PNGs are decoded by ``data/png.py``. With
-``--samplePlacementDir`` a split carries a ``SamplePlacementTracker`` (the
-iterative sample placement's per-pixel active cells), read from
+``*_QuantizedWeights_lo_nSD.raw``). A split that fits the host's memory
+budget is loaded whole as numpy arrays, a larger one streams through a
+bounded LRU store (``data/streaming.py``, ``load_dataset_split``); the
+train step gathers its rays from either (pixel index convention ``y + h *
+x``). PNGs are decoded by ``data/png.py``. With ``--samplePlacementDir`` a
+split carries a ``SamplePlacementTracker`` (the iterative sample
+placement's per-pixel active cells), read from
 ``<dir>/<split>/<samples>.ckpt.npy`` where that file exists.
-
-Not ported yet: the streaming (bounded-memory) split (ROADMAP Queue 1,
-item 6).
 """
 
 from __future__ import annotations
@@ -271,6 +270,13 @@ class ViewCellDataset:
 
 def load_dataset_split(config, dataset_info, set_name, num_samples=2048,
                        load_images=True):
-    """A split fully loaded to host memory. (The JAX package streams splits
-    that do not fit its host budget; that policy is not ported yet.)"""
+    """The split with its residency policy, as the JAX package picks it:
+    fully loaded where the decoded split fits the host budget (gathers from
+    memory beat decoding PNGs every epoch), a bounded LRU store
+    (``streaming.StreamingViewCellDataset``) where it does not, unless
+    ``--storeFullData`` asks for the fully loaded split."""
+    if load_images and not config.storeFullData:
+        from .streaming import StreamingViewCellDataset, split_fits_in_memory
+        if not split_fits_in_memory(config, dataset_info, set_name):
+            return StreamingViewCellDataset(config, dataset_info, set_name, num_samples)
     return ViewCellDataset(config, dataset_info, set_name, num_samples, load_images)

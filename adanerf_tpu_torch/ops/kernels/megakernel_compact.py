@@ -23,6 +23,7 @@ stages (``swizzle128``), so that each chunk arrives by one bulk copy.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import math
 
@@ -276,6 +277,17 @@ class MegakernelCompact:
         dev = renderer.device
         self.weights = torch.from_numpy(np.concatenate(pk.w)).to(dev, wdtype)
         self.biases = torch.from_numpy(np.concatenate(pk.b)).to(dev)
+
+    def to(self, device):
+        """This wrapper with its packed weights on ``device`` (itself where
+        they are there already): a frame sharded over devices launches one
+        per device. The plain version stays on the renderer's device."""
+        device = torch.device(device)
+        if device == self.weights.device:
+            return self
+        out = copy.copy(self)
+        out.weights, out.biases = self.weights.to(device), self.biases.to(device)
+        return out
 
     def plain(self, dirs, pose, rot):
         """The plain PyTorch version: the renderer's compacted path."""

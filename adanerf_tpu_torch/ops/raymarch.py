@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from . import draws
+
 
 def raw2alpha(raw_sigma: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
     """1 - exp(-relu(sigma) * dist)."""
@@ -41,8 +43,7 @@ def nerf_raw2outputs(raw, z_vals, rays_d, raw_noise_std=0.0, white_bkgd=False,
     rgb = torch.sigmoid(raw[..., :3])
     sigma = raw[..., 3]
     if raw_noise_std > 0.0 and generator is not None:
-        sigma = sigma + torch.randn(sigma.shape, generator=generator,
-                                    device=sigma.device) * raw_noise_std
+        sigma = sigma + draws.randn(sigma.shape, generator, sigma.device) * raw_noise_std
 
     alpha = raw2alpha(sigma, dists)
     if depth is not None and accumulation_mult == "alpha":
@@ -130,7 +131,7 @@ def sample_pdf(bins, weights, n_samples, det=False, generator=None, u=None):
             u = torch.linspace(0.0, 1.0, n_samples, device=cdf.device,
                                dtype=cdf.dtype).expand(shape)
         else:
-            u = torch.rand(shape, generator=generator, device=cdf.device, dtype=cdf.dtype)
+            u = draws.rand(shape, generator, cdf.device, cdf.dtype)
     u = u.to(cdf.dtype).contiguous()
 
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)

@@ -24,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from . import draws
 from .depth_transforms import LinearTransform, LogTransform
 from .raymarch import sample_pdf
 
@@ -37,7 +38,7 @@ def _uniform(shape, like: torch.Tensor, generator, u):
     """``u`` where given, else uniforms from ``generator``."""
     if u is not None:
         return torch.as_tensor(u, dtype=like.dtype, device=like.device).reshape(shape)
-    return torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype)
+    return draws.rand(shape, generator, like.device, like.dtype)
 
 
 def _steps(n: int, last: float, device) -> torch.Tensor:

@@ -98,8 +98,17 @@ class BCEWithLogitsLoss:
 
 
 class CrossEntropyLoss:
+    """Mean NLL; with class weights, sum(w nll) / sum(w) over the batch.
+
+    That ratio of sums is no mean of equal counts, so on a rank of the
+    data-parallel step (``group`` set by ``parallel.mesh``) the denominator
+    is summed over the group's rays, and the rank's term is scaled by the
+    group's size: the group's mean of the ranks' terms, and of their
+    gradients, is then the whole batch's."""
+
     def __init__(self, config=None, net_idx=-1, weights=None):
         self.weights = weights
+        self.group = None
 
     def __call__(self, outputs, targets, inference_dicts=None, epoch=None,
                  inference_dict=None):
@@ -108,7 +117,12 @@ class CrossEntropyLoss:
         nll = -torch.take_along_dim(logp, targets[:, None], dim=-1)[:, 0]
         if self.weights is not None:
             w = self.weights.to(outputs.device)[targets]
-            return torch.sum(nll * w) / torch.sum(w)
+            if self.group is None:
+                return torch.sum(nll * w) / torch.sum(w)
+            import torch.distributed as dist
+            w_sum = torch.sum(w).detach()
+            dist.all_reduce(w_sum, group=self.group)
+            return torch.sum(nll * w) * dist.get_world_size(self.group) / w_sum
         return torch.mean(nll)
 
 

@@ -19,7 +19,10 @@ These are the plain versions that the hand-written CUDA kernels are held
 against: the compacted path for ``ops/kernels/megakernel_compact.py`` (K1),
 the dense path for ``ops/kernels/megakernel_dense.py`` (K2). The
 TPU-specific workarounds of the JAX stage (segmented scans, one-hot
-selects, capacity buckets) become native ``nonzero`` / index ops.
+selects, capacity buckets) become native ``nonzero`` / index ops. Each
+MLP runs on its rows padded to a multiple of ``ROWS`` (``mlp_rows``), so a
+ray's result depends on its own inputs only, as in the kernels: a frame
+renders the same whole or cut into slices (``parallel/render.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,21 @@ from .ops.encoding import get_encoder
 from .ops.normalization import get_normalization
 from .ops.raymarch import ndc_rays, ray_sphere_offset
 from .ops.samplers import adaptive_select, linearly_spaced_z
+
+ROWS = 64
+
+
+def mlp_rows(mlp, x, dtype, post=None):
+    """``post(mlp(x, dtype).float())`` on ``x`` padded with zero rows to a
+    multiple of ROWS. The CPU's GEMMs pick their kernels by the row count,
+    and its vectorized elementwise kernels (``sigmoid``) finish a short
+    tail another way, so without the padding a row's result would depend
+    on how many rows came with it."""
+    n = x.shape[0]
+    if n % ROWS:
+        x = torch.cat([x, x.new_zeros((ROWS - n % ROWS,) + tuple(x.shape[1:]))])
+    y = mlp(x, dtype).float()
+    return (y if post is None else post(y))[:n]
 
 
 class RealtimeRenderer:
@@ -88,7 +106,7 @@ class RealtimeRenderer:
         distance = ray_sphere_offset(nds, origins, self.center, self.scene.view_cell_radius)
         proj = origins + nds * distance[:, None]
         x = torch.cat([self.enc0_dir(nds), self.enc0_pos(proj)], dim=-1)
-        return origins, nds, proj, self.oracle(x, self.dtype).float()
+        return origins, nds, proj, mlp_rows(self.oracle, x, self.dtype)
 
     def _oracle_stage(self, pose, rotation, dirs):
         """dirs: (B, 3) camera-space unit dirs; pose (3,); rotation (3, 3).
@@ -144,9 +162,9 @@ class RealtimeRenderer:
         if self.use_ndc:
             # NDC rays step with the unnormalized d but encode the unit dir
             d_enc = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-        raw = self.nerf(self._encode_samples(pos, d_enc), self.dtype).float()
         restored = torch.zeros((B, S, 4), dtype=torch.float32, device=mask.device)
-        restored[ray, slot] = torch.sigmoid(raw)
+        restored[ray, slot] = mlp_rows(self.nerf, self._encode_samples(pos, d_enc), self.dtype,
+                                       torch.sigmoid)
         return self._composite(restored, z_probs)
 
     def _dense_shade_stage(self, o_sh, d_sh, z_world, z_probs, mask):
@@ -159,9 +177,9 @@ class RealtimeRenderer:
         if self.use_ndc:
             d_enc = d_sh / torch.linalg.vector_norm(d_sh, dim=-1, keepdim=True)
         dirs_exp = d_enc[:, None, :].expand(pos.shape)
-        raw = self.nerf(self._encode_samples(pos.reshape(-1, 3), dirs_exp.reshape(-1, 3)),
-                        self.dtype).float()
-        sig = torch.sigmoid(raw).reshape(B, S, 4) * mask[..., None]
+        sig = mlp_rows(self.nerf, self._encode_samples(pos.reshape(-1, 3),
+                                                       dirs_exp.reshape(-1, 3)),
+                       self.dtype, torch.sigmoid).reshape(B, S, 4) * mask[..., None]
         return self._composite(sig, z_probs)
 
     @torch.no_grad()

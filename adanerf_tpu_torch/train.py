@@ -1,7 +1,7 @@
 """Training entry point of the port:
 
   python -m adanerf_tpu_torch.train -c configs/dense_training.ini \\
-      -data <scene> -log <dir> --bf16 [--device cpu] [flags]
+      -data <scene> -log <dir> --bf16 [--device cpu] [--meshDevices N] [flags]
 
 Counterpart of the JAX package's root ``train.py``: initialize, resume (or
 bootstrap from a dense teacher), GT pretraining of each net with
@@ -14,10 +14,24 @@ with ``performEvaluation``, the evaluation of the ``checkPointName``
 checkpoint (``evaluation/evaluate.py``). On a CUDA device with ``--bf16``
 the shading MLP's forward and backward run through the K3 kernel.
 
-Refused before step 0, each naming its ROADMAP item: ``--meshDevices`` > 1
-(the port trains on one device), and a NeRF that the JAX package would
-train through its TPU kernel but K3 does not take yet (a width other than
-256) on a run that asks for K3.
+Data-parallel over the rays (``parallel/mesh.py``), as the JAX trainer
+with ``--meshDevices``: -1 takes every visible GPU (the one CPU with
+``--device cpu``), N takes N. Without a launcher the trainer starts one
+process per device itself and is rank 0 (``--device cpu --meshDevices N``:
+N gloo ranks on the CPU); under torchrun or the JAX package's
+``ADANERF_COORD`` / ``ADANERF_NPROC`` / ``ADANERF_PROC_ID`` each process
+is one rank of the launcher's group, joined before anything touches the
+device. Rank 0 alone writes: ``logs.csv``, checkpoints, ``opt.txt``,
+renders, videos, validation and the evaluation; the others wait at a
+barrier, and take rank 0's weights after it resumed or loaded a
+checkpoint. GT pretraining is not data-parallel (neither is JAX's): every
+rank runs it whole.
+
+Refused before step 0: more GPUs than the host has (JAX's ``make_mesh``
+would truncate), rays per image that do not divide over the ranks, and,
+naming its ROADMAP item, a NeRF that the JAX package would train through
+its TPU kernel but K3 does not take yet (a width other than 256) on a run
+that asks for K3.
 """
 
 from __future__ import annotations
@@ -29,22 +43,51 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import Config
 from .data.prefetch import BatchPrefetcher, epoch_image_indices
+from .parallel import mesh
 from .pipeline.keys import FSK
 from .render import calculate_mse, render_img, render_rays_chunked, render_video
 from .train_state import TrainState, parse_device
 from .utils.saveimage import Dim, save_img, transform_img
 
 
+def mesh_size(config) -> int:
+    """The run's ranks: a launcher's processes (``--meshDevices`` -1 or
+    their count), else ``--meshDevices`` devices of this host, -1 being
+    every GPU (the one CPU with ``--device cpu``). Raises ValueError for
+    more GPUs than the host has."""
+    n = config.meshDevices
+    launch = mesh.launcher_env()
+    if launch is not None:
+        if n not in (-1, launch["world"]):
+            raise ValueError(f"--meshDevices {n}: the launcher started {launch['world']} "
+                             "processes, one rank each")
+        return launch["world"]
+    if n == 0 or n < -1:
+        raise ValueError(f"--meshDevices {n}: -1 (every device) or a device count")
+    if parse_device(getattr(config, "device", "cuda")).type != "cuda":
+        return 1 if n == -1 else n
+    count = torch.cuda.device_count()
+    if n == -1:
+        return max(count, 1)
+    if n > 1 and n > count:
+        raise ValueError(f"--meshDevices {n}: only {count} CUDA device(s) present")
+    return n
+
+
 def unsupported(config) -> list:
-    """What this run asks for that the port cannot do yet, one message each."""
-    out = []
-    if config.meshDevices > 1:
-        out.append(f"--meshDevices {config.meshDevices}: multi-device training is not "
-                   "ported yet (ROADMAP Queue 1, item 9)")
-    return out
+    """What this run asks for that the port refuses, one message each."""
+    try:
+        world = mesh_size(config)
+    except ValueError as err:
+        return [str(err)]
+    samples = getattr(config, "samples", None)
+    if world > 1 and samples and samples % world:
+        return [f"--samples {samples}: an image's rays do not split over {world} ranks"]
+    return []
 
 
 def unsupported_by_k3(config) -> list:
@@ -177,7 +220,7 @@ def _save_opt(ts: TrainState, epoch: int, val_loss: float, img_data):
     print(f"Average PSNR: {np.array(psnrs).mean()}")
 
 
-def pre_train(ts: TrainState) -> dict:
+def pre_train(ts: TrainState, group=None) -> dict:
     """GT pretraining: each net with ``epochsPretrain`` beyond the start
     epoch trains alone (``TrainState.make_pretrain_step``) from ts.epoch0 to
     its epoch count on ``samplesPretrain`` rays of ``batchImagesPretrain``
@@ -187,8 +230,12 @@ def pre_train(ts: TrainState) -> dict:
     come from a permutation seeded by ``randomSeed`` (JAX draws from
     numpy's unseeded global generator). Returns {net index: {"losses",
     "step_ms", "validate_ms", "opt_epochs"}}, the last the epochs at which
-    a new best validation loss saved the net's ``_opt`` checkpoint."""
+    a new best validation loss saved the net's ``_opt`` checkpoint. In a
+    group every rank takes every step (JAX's pretraining step is not
+    sharded either); rank 0 alone writes and validates, and its loaded
+    checkpoint goes to the others."""
     c = ts.config_file
+    writer = mesh.rank_and_size(group)[0] == 0
     out = {}
     if not c.epochsPretrain:
         return out
@@ -217,45 +264,54 @@ def pre_train(ts: TrainState) -> dict:
             batch, targets = ts.assemble_train_batch(ts.train_dataset, img_idx)
             losses.append(step(batch, targets, epoch, ts.epoch0))
             clock.mark()
-            if epoch > 0 and epoch % c.epochsCheckpoint == 0:
+            if epoch > 0 and epoch % c.epochsCheckpoint == 0 and writer:
                 ts.save_weights(name_suffix=f"{epoch:07d}",
                                 params_only=bool(c.checkpointParamsOnly))
             if epoch % c.epochsValidate == 0 and epoch > 0:
                 _sync(ts.device)
                 t = time.perf_counter()
-                val_loss, _ = validate_batch(ts, epoch, 0.0, model_idx)
+                if writer:
+                    val_loss, _ = validate_batch(ts, epoch, 0.0, model_idx)
+                    if val_loss < best_val_loss:
+                        best_val_loss = val_loss
+                        with open(os.path.join(ts.logDir, "opt.txt"), "w") as f:
+                            f.write(f"Optimal validation loss {best_val_loss} at epoch {epoch}")
+                        ts.save_weights(name_suffix="_opt", model_idx=model_idx)
+                        opt_epochs.append(epoch)
+                mesh.barrier(group)
                 validate_ms.append((time.perf_counter() - t) * 1e3)
-                if val_loss < best_val_loss:
-                    best_val_loss = val_loss
-                    with open(os.path.join(ts.logDir, "opt.txt"), "w") as f:
-                        f.write(f"Optimal validation loss {best_val_loss} at epoch {epoch}")
-                    ts.save_weights(name_suffix="_opt", model_idx=model_idx)
-                    opt_epochs.append(epoch)
                 clock.restart()
-        ts.load_specific_weights(c.checkPointName, model_idx)
+        if writer:
+            ts.load_specific_weights(c.checkPointName, model_idx)
+        mesh.broadcast_state(ts, group)
         ts.epoch0 = epoch_pretrain
         out[model_idx] = {"losses": torch.stack(losses).float().cpu().numpy(),
                           "step_ms": clock.step_ms(), "validate_ms": validate_ms,
                           "opt_epochs": opt_epochs}
     ts.train_dataset.num_samples = c.samples
-    print("pre-training finished", flush=True)
+    if writer:
+        print("pre-training finished", flush=True)
     return out
 
 
-def train(ts: TrainState) -> dict:
+def train(ts: TrainState, group=None) -> dict:
     """The training loop from ts.epoch0 to ts.epochs - 1, with its
     checkpoint, render, video and validation legs. Returns per-step losses
     (steps, nets), step times in ms (the legs excluded) and the legs' own
     times in ms: {"render": [...], "video": [...], "validate": [...]}, and
-    the validation passes' images."""
+    the validation passes' images. In a group each rank gathers and steps
+    on its slice of every image's rays (``mesh.shard_train_step``); rank 0
+    alone saves and runs the legs while the others wait at a barrier."""
     c = ts.config_file
-    step = ts.make_train_step()
+    writer = mesh.rank_and_size(group)[0] == 0
+    step = mesh.shard_train_step(ts, group)
+    rays = None if group is None else mesh.local_batch_slice(group, c.samples)
     n_images = len(ts.train_dataset)
     batch_images = c.batchImages if c.batchImages != -1 else n_images
     seed = c.randomSeed if c.randomSeed != -1 else 0
     best_val_loss = sys.float_info.max if ts.best_valid_loss is None else ts.best_valid_loss
     prefetcher = BatchPrefetcher(
-        lambda idx: ts.assemble_train_batch(ts.train_dataset, idx),
+        lambda idx: ts.assemble_train_batch(ts.train_dataset, idx, rays),
         epoch_image_indices(n_images, batch_images, ts.epochs - ts.epoch0 + 1, seed))
     clock = _StepClock(ts.device)
     losses, legs = [], {"render": [], "video": [], "validate": []}
@@ -280,33 +336,33 @@ def train(ts: TrainState) -> dict:
             if not c.nonVerbose and c.verboseEvery > 0 and epoch % c.verboseEvery == 0:
                 vals = [float(v) for v in per_net]
                 loss_host = vals[-1]
-                print(f"epoch={epoch:<10} losses=[{', '.join(f'{v:.8f}' for v in vals)}] "
-                      f"({time.perf_counter() - t0:.1f}s)", flush=True)
-            if epoch % c.epochsCheckpoint == 0 and epoch > 0:
+                if writer:
+                    print(f"epoch={epoch:<10} losses=[{', '.join(f'{v:.8f}' for v in vals)}] "
+                          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+            if epoch % c.epochsCheckpoint == 0 and epoch > 0 and writer:
                 ts.save_weights(name_suffix=f"{epoch:07d}",
                                 params_only=bool(c.checkpointParamsOnly))
-            ran_leg = False
-            if epoch % c.epochsRender == 0 and epoch > 0:
+            render = epoch % c.epochsRender == 0 and epoch > 0
+            video = c.epochsVideo >= 0 and epoch % c.epochsVideo == 0 and epoch > 0
+            validate = epoch % c.epochsValidate == 0 and epoch > 0 and (
+                c.adaptiveSamplingThreshold > 0.0
+                or epoch > c.lossBlendingStart + c.lossBlendingDuration
+                or c.lossBlendingStart > ts.epochs)
+            if writer and render:
                 leg("render", render_img, ts, 0, ts.valid_dataset, img_name=f"{epoch:07d}")
-                ran_leg = True
-            rendered_video = False
-            if c.epochsVideo >= 0 and epoch % c.epochsVideo == 0 and epoch > 0:
+            if writer and video:
                 leg("video", render_video, ts, vid_name=f"{epoch:07d}")
-                rendered_video = ran_leg = True
-            if epoch % c.epochsValidate == 0 and epoch > 0 and (
-                    c.adaptiveSamplingThreshold > 0.0
-                    or epoch > c.lossBlendingStart + c.lossBlendingDuration
-                    or c.lossBlendingStart > ts.epochs):
+            if writer and validate:
                 val_loss, img_data = leg("validate", validate_batch, ts, epoch, loss_host)
-                ran_leg = True
                 if val_loss < best_val_loss:
                     best_val_loss = val_loss
                     _save_opt(ts, epoch, val_loss, img_data)
                     # (the JAX package copies an epoch's mp4 videos to _opt;
                     # the port writes frames, which it does not copy)
-                    if not rendered_video and c.epochsVideo >= 0:
+                    if not video and c.epochsVideo >= 0:
                         leg("video", render_video, ts, vid_name="_opt")
-            if ran_leg:
+            if render or video or validate:
+                mesh.barrier(group)
                 clock.restart()
     finally:
         prefetcher.close()
@@ -314,38 +370,95 @@ def train(ts: TrainState) -> dict:
             "step_ms": clock.step_ms(), "legs_ms": legs}
 
 
-def main(argv=None) -> dict:
-    """Parse ``argv`` (default: the command line), train, save and, with
-    ``performEvaluation``, evaluate. Returns the train-loop statistics, the
-    pretraining's (``pretrain``), the paths of the final checkpoint, the
-    evaluation's time in ms and the TrainState."""
-    config = Config.init(argv=argv)
-    early = unsupported(config) + unsupported_by_k3(config)
-    if early:  # refuse before loading any data
-        raise SystemExit("adanerf_tpu_torch.train: not supported yet:\n  " + "\n  ".join(early))
+def run(config, group=None) -> dict:
+    """Train ``config`` as one rank of ``group`` (None: alone), save and,
+    with ``performEvaluation``, evaluate (rank 0). Returns the train-loop
+    statistics, the pretraining's (``pretrain``), the paths of the final
+    checkpoint (none on other ranks), the evaluation's time in ms, the
+    rank, the group's size and the TrainState."""
+    rank, world = mesh.rank_and_size(group)
     ts = TrainState()
-    ts.initialize(config)
-    ts.load_latest_weights()
+    ts.initialize(config, writes=rank == 0)
+    if rank == 0:
+        ts.load_latest_weights()
+    mesh.broadcast_state(ts, group)
     try:
         routes = ts.train_apply_fns() or [None] * len(ts.models)
     except ValueError as err:  # a NeRF shape K3 does not take yet
         raise SystemExit(f"adanerf_tpu_torch.train: not supported yet:\n  {err}") from err
-    print(f"Training config: {ts.logDir.rstrip('/').split('/')[-1]} ({config.config}) on "
-          f"{ts.device}; epochs {ts.epoch0}..{ts.epochs - 1}; " + ", ".join(
-              f"{m.name}: {'K3 kernel' if r is not None else 'plain'}"
-              for m, r in zip(ts.models, routes)), flush=True)
-    pretrain = pre_train(ts)
-    stats = train(ts)
+    if rank == 0:
+        print(f"Training config: {ts.logDir.rstrip('/').split('/')[-1]} ({config.config}) on "
+              f"{ts.device}; epochs {ts.epoch0}..{ts.epochs - 1}; " + ", ".join(
+                  f"{m.name}: {'K3 kernel' if r is not None else 'plain'}"
+                  for m, r in zip(ts.models, routes)), flush=True)
+        if group is not None:
+            print(f"data-parallel over {world} ranks (rays axis, {dist.get_backend(group)}), "
+                  f"{config.samples // world} of each image's {config.samples} rays a rank",
+                  flush=True)
+    pretrain = pre_train(ts, group)
+    stats = train(ts, group)
     stats["pretrain"] = pretrain
-    stats["checkpoint"] = ts.save_weights(name_suffix=f"{ts.epochs - 1:07d}")
-    if config.performEvaluation:
+    stats["checkpoint"] = ts.save_weights(name_suffix=f"{ts.epochs - 1:07d}") if rank == 0 else []
+    mesh.barrier(group)
+    if config.performEvaluation and rank == 0:
         from .evaluation.evaluate import evaluate
         t = time.perf_counter()
         ts.load_specific_weights(config.checkPointName.replace(".weights", ""))
         evaluate(ts, None, ["complexity", "images", "flip", "psnr", "output_images"])
         _sync(ts.device)
         stats["evaluate_ms"] = (time.perf_counter() - t) * 1e3
-    stats["state"] = ts
+    stats.update(state=ts, rank=rank, world=world)
+    return stats
+
+
+def _rank_main(rank, group, device, argv):
+    """A rank the trainer started (``mesh.spawn_ranks``)."""
+    config = Config.init(argv=argv)
+    config.device = str(device)
+    run(config, group)
+
+
+def main(argv=None) -> dict:
+    """Parse ``argv`` (default: the command line) and train (``run``): in
+    the launcher's group, in a group of this host's devices that this
+    process starts and joins as rank 0, or alone. Returns rank 0's (this
+    process's) ``run`` statistics."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    config = Config.init(argv=argv)
+    early = unsupported(config) + unsupported_by_k3(config)
+    if early:  # refuse before loading any data
+        raise SystemExit("adanerf_tpu_torch.train: refused:\n  " + "\n  ".join(early))
+    launch = mesh.launcher_env()
+    if launch is not None:
+        mesh.init_multi_host(device=config.device)
+        config.device = str(mesh.rank_device(config.device, launch["rank"],
+                                             launch["local_rank"]))
+        return run(config, mesh.make_mesh(config.meshDevices))
+    world = mesh_size(config)
+    if world == 1:
+        return run(config)
+    dev = parse_device(config.device)
+    devices = [torch.device("cpu")] * world if dev.type == "cpu" else \
+        [torch.device("cuda", i) for i in range(world)]
+    if dev.type == "cuda" and config.bf16 and config.fusedTrainKernel:
+        from .ops.kernels import build, nerf_train
+        build.build([nerf_train.SOURCE])  # once, before the ranks load it
+    init = mesh.rendezvous(config.logDir)
+    procs = mesh.spawn_ranks(_rank_main, (argv,), devices, init, first=1)
+    watching = mesh.watch_ranks(procs)
+    try:
+        group = mesh.join_group(0, devices, init)
+        config.device = str(devices[0])
+        stats = run(config, group)
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    watching.set()
+    mesh.join_ranks(procs, timeout=600.0)
     return stats
 
 

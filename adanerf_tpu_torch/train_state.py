@@ -21,7 +21,11 @@ net alone on ground truth (GT pretraining, ``epochsPretrain``): the
 earlier stages' outputs are replaced by their targets, and the loss acts
 on the net's raw output through its plain forward, as in JAX.
 
-Not ported yet: multi-device training (ROADMAP Queue 1, item 9).
+On a rank of the data-parallel step (``parallel/mesh.py``) the batch
+assembly gathers the rank's slice of every image's rays (``rays``), the
+step draws its jitter over the whole batch and keeps that slice
+(``ray_shard``), and only the writing rank (``writes``) creates the log
+directory and its config echo.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 from .config import write_config_echo
 from .data.dataset import DatasetInfo, ViewCellDataset, load_dataset_split
 from .data.sampling import get_sequence_generator
+from .ops.draws import RaySlice
 from .models.mlp import NeRFDef, get_model, init_params
 from .pipeline.cascade import run_cascade
 from .pipeline.features import ClassifiedDepth, get_feature_sets
@@ -144,10 +149,13 @@ class TrainState:
         self.h = self.w = -1
         self.device = torch.device("cpu")
         self.generator = None
+        self.ray_shard = None  # (rank, world) on a rank of the data-parallel step
 
     # -- construction -------------------------------------------------------
 
-    def initialize(self, config, load_data=True, log_path=None, training=True):
+    def initialize(self, config, load_data=True, log_path=None, training=True, writes=True):
+        """Models, losses, optimizer states and the splits of ``config``;
+        ``writes`` False (a rank other than 0) leaves the disk alone."""
         self.config_file = config
         self.device = resolve_device(config.device)
         seed = config.randomSeed if config.randomSeed != -1 else 0
@@ -187,7 +195,8 @@ class TrainState:
         self.logDir = log_path if log_path is not None else \
             os.path.join(config.logDir, dataset_name, self.experiment_name) + "/"
         config.logDir = self.logDir
-        os.makedirs(self.logDir, exist_ok=True)
+        if writes:
+            os.makedirs(self.logDir, exist_ok=True)
         self.epochs = config.epochs
 
         # the best validation losses of an earlier run in this directory:
@@ -196,7 +205,8 @@ class TrainState:
         pretrain = [read_best_loss(os.path.join(self.logDir, f"opt_{i}.txt"))
                     for i in range(len(self.models))]
         self.best_valid_loss_pretrain = [v for v in pretrain if v is not None]
-        write_config_echo(config, self.logDir)
+        if writes:
+            write_config_echo(config, self.logDir)
 
         if load_data:
             self.pixel_idx_sequence_gen = get_sequence_generator(config.sampleGenerator, dims=2)
@@ -279,8 +289,12 @@ class TrainState:
             # each step's jitter comes from (seed, epoch), as the JAX step's
             # PRNGKey(epoch), so a resumed run draws what an unbroken one does
             self.generator.manual_seed(self.seed * 1_000_003 + int(epoch))
+            generator = self.generator
+            if self.ray_shard is not None:
+                generator = RaySlice(generator, batch[DatasetKeys.ray_directions_samples].shape[0],
+                                     *self.ray_shard)
             outs, dicts = run_cascade(self.models, self.f_in, batch, is_inference=False,
-                                      generator=self.generator, dtype=dtype,
+                                      generator=generator, dtype=dtype,
                                       apply_fns=apply_fns)
             total, per_net = None, []
             for i, crit in enumerate(self.losses):
@@ -482,19 +496,27 @@ class TrainState:
 
     # -- batch assembly -----------------------------------------------------
 
-    def assemble_host_batch(self, dataset: ViewCellDataset, image_indices: np.ndarray):
+    def assemble_host_batch(self, dataset: ViewCellDataset, image_indices: np.ndarray,
+                            rays: slice = None):
         """Host-side gather of a multi-image ray batch and its colour
         targets as numpy arrays: per-image low-discrepancy pixel picks,
-        image-major. Also returns the picks, (n_img, samples) flat pixel
+        image-major. ``rays`` keeps that slice of each image's picks (a
+        rank's share; the picks are drawn whole, so every rank draws the
+        same). Also returns the kept picks, (n_img, rays) flat pixel
         indices, from which ``assemble_train_batch`` builds the
         ``ClassifiedDepth`` target."""
         n_img, samples = len(image_indices), dataset.num_samples
+        if rays is not None:
+            samples = len(range(samples)[rays])
         dirs = np.zeros((n_img, samples, 3), np.float32)
         colors = depth_samples = placement = None
         tracker = getattr(dataset, "sample_placement_tracker", None)
         pixels = []
         for k, idx in enumerate(image_indices):
-            pix = self.pixel_idx_sequence_gen.pixel_indices(samples, dataset.h, dataset.w)
+            pix = self.pixel_idx_sequence_gen.pixel_indices(dataset.num_samples, dataset.h,
+                                                            dataset.w)
+            if rays is not None:
+                pix = pix[rays]
             pixels.append(pix)
             dirs[k] = dataset.directions[pix]
             if tracker is not None:
@@ -524,11 +546,12 @@ class TrainState:
                 targets[i] = colors.reshape(-1, 3)
         return batch, targets, np.stack(pixels)
 
-    def assemble_train_batch(self, dataset: ViewCellDataset, image_indices: np.ndarray):
+    def assemble_train_batch(self, dataset: ViewCellDataset, image_indices: np.ndarray,
+                             rays: slice = None):
         """``assemble_host_batch`` moved to the training device, where a
         ``ClassifiedDepth`` net's target is built from the depth maps of the
-        batch's images."""
-        batch, host_targets, pixels = self.assemble_host_batch(dataset, image_indices)
+        batch's images at the kept picks."""
+        batch, host_targets, pixels = self.assemble_host_batch(dataset, image_indices, rays)
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
         targets = {}
         for i, f_out in enumerate(self.f_out):

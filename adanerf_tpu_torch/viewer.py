@@ -16,7 +16,10 @@ samples) renders through K1, and any other (a dense run's export, threshold
 ``--megakernel``; a ``--megakernel`` that the export cannot take is refused,
 as in JAX. The viewer prints which path renders. ``--dynamic`` is accepted
 for the JAX viewer's command lines and changes nothing: the plain path has
-no capacity to bucket.
+no capacity to bucket. ``--mesh N`` shards each frame's rays over N GPUs
+(``parallel/render.py``: one kernel a GPU, no collectives); it needs a
+frame kernel and refuses more GPUs than there are, as the JAX viewer
+refuses ``--mesh`` without ``--megakernel`` and above its device count.
 
 On the card a kernel renders the whole frame and there is no fallback to
 the plain path; with ``--device cpu`` each kernel's plain PyTorch version
@@ -48,6 +51,7 @@ from .ops.depth_transforms import get_depth_transform
 from .ops.kernels.megakernel_compact import MegakernelCompact
 from .ops.kernels.megakernel_dense import MegakernelDense
 from .ops.raygen import generate_ray_directions
+from .parallel.render import ShardedFrame, devices_mesh
 from .pipeline.features import SceneStatic
 from .realtime import RealtimeRenderer
 from .utils.weights import load_export_weights
@@ -214,15 +218,13 @@ def main(argv=None):
                    help="the JAX viewer's in-graph bucketing of its plain path; accepted, "
                         "no effect here")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard each frame's rays over this many GPUs; only 0 or 1 for now")
+                   help="shard each frame's rays over this many GPUs (needs a frame "
+                        "kernel); 0 = the whole frame on one device")
     p.add_argument("--device", default="cuda",
                    help="'cuda' renders through the CUDA kernel; 'cpu' through "
                         "its plain PyTorch version")
     args = p.parse_args(argv)
 
-    if args.mesh > 1:
-        raise SystemExit(f"--mesh {args.mesh}: ray-sharded rendering over several GPUs is "
-                         "not ported yet (ROADMAP Queue 1, item 13)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu for the plain path")
@@ -244,6 +246,17 @@ def main(argv=None):
     print(f"rendering through {route}", flush=True)
     dirs = frame_directions(scene, w, h, device)
     n_pix = dirs.shape[0]
+    sharded = None
+    if args.mesh:
+        if kernel is None:
+            raise SystemExit("--mesh needs a frame kernel (the sharded frame runs K1 or K2 on "
+                             "each device's slice); this export renders on the plain path")
+        try:
+            devices = devices_mesh(args.mesh, device.type)
+        except ValueError as err:
+            raise SystemExit(str(err)) from err
+        print(f"rays-sharded rendering over {len(devices)} device(s)", flush=True)
+        sharded = ShardedFrame(kernel, devices, dirs)
     if args.camPath:
         cams = camera_path(args.camPath, args.frames)
     else:
@@ -251,6 +264,8 @@ def main(argv=None):
             scene.view_cell_center, 0.4 * scene.view_cell_radius, args.frames)]
 
     def render(pos, rot):
+        if sharded is not None:
+            return sharded(pos, rot)
         if kernel is None:
             return rt.render_frame(pos, rot, dirs)
         if device.type == "cuda":

@@ -20,8 +20,11 @@ against that evaluation's images leg, trains the repo's other two
 configurations (``adanerf_tpu_torch/configs/nerf_baseline.ini``: a coarse
 and a fine NeRF, both through K3, at 262,144 and 786,432 rows a step;
 ``gt_depth_training.ini``: GT pretraining of the oracle, then joint steps
-with the NeRF through K3), and prints, as its last two lines, a
-JSON line of per-kernel numbers and a JSON line
+with the NeRF through K3), runs the scale-out (phase 17: two gloo ranks
+sharing the card through K3 against the one-process step, a 1-rank NCCL
+step, K1 and K2 over 4 slices of a frame, the viewer with ``--mesh 1``),
+and prints, as its last two lines, a JSON line of per-kernel numbers and
+a JSON line
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, without those lines, when there is no CUDA device or any phase
 fails. Imports torch, numpy and the standard library besides the port
@@ -59,6 +62,7 @@ FINE_STEPS = 20
 K3_BASELINE_ROWS = (2 * 2048 * 64, 2 * 2048 * (64 + 128))
 K3_GT_ROWS = 2 * 2048 * 16  # gt_depth_training.ini's NeRF: 16 samples a ray
 BASELINE_STEPS, GT_PRETRAIN, GT_STEPS = 20, 10, 20
+DP_STEPS = 3  # phase 17's data-parallel steps
 # the JAX package's fine run committed in the repo (S=8, threshold 0.2, fp32),
 # its evaluation on this host's CPU by the JAX package, and the bars the
 # port's evaluation on the card is held to against that fixture
@@ -1185,6 +1189,117 @@ def videos_leg(port_evaluate, images_leg):
     return dict(ms=ms, worst_psnr=max(d_psnr), worst_flip=max(d_flip),
                 psnr=[r["psnr"] for r in rows])
 
+def scale_out_leg(viewer, dev):
+    """Phase 17: the port's scale-out on the one card. (a) Two gloo ranks
+    sharing it take DP_STEPS data-parallel steps of dense_training.ini on
+    demo/mscene at full width (each rank K3 at half the rows); their
+    group-averaged gradients of the first step are held against the
+    one-process K3 step on the same global batch (``nerf_train_check``'s
+    per-leaf bar, 2e-2), and both ranks' parameters must end bit for bit
+    equal. (b) A 1-rank NCCL group takes the same first step: its
+    gradients must equal the one-process step's bit for bit. (c) K1 and K2
+    render an 800x800 bf16 frame of trained_mscene_export over the device
+    list [cuda:0] * 4, bit for bit the whole frame's launch, and the viewer
+    renders with ``--mesh 1`` beside its unsharded run. Returns the
+    phase's numbers."""
+    import torch.distributed as dist
+    from adanerf_tpu_torch.frame_times import time_ms
+    from adanerf_tpu_torch.ops.kernels.megakernel_compact import MegakernelCompact
+    from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
+    from adanerf_tpu_torch.parallel import check, mesh
+    from adanerf_tpu_torch.parallel.render import ShardedFrame
+    out = {}
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_dp_")
+    argv = ["-c", DENSE_INI, "-data", MSCENE_DATA, "-log", os.path.join(work.name, "logs"),
+            "--bf16", "--randomSeed", "0",
+            "--epochsLockWeightsBefore", "-1", "--epochsLockWeightsBefore", "-1"]
+    t = time.perf_counter()
+    card = torch.device("cuda", 0)
+    mesh.run_ranks(check.rank_steps, (argv, DP_STEPS, 1, work.name), [card, card], work.name,
+                   timeout=300)
+    ranks = check.rank_records(work.name, 2)
+    print(f"  (a) 2 gloo ranks on one card, {DP_STEPS} steps: {time.perf_counter() - t:.1f} s "
+          "wall with the processes' start", flush=True)
+    ref = check.one_process_steps(argv, dev, DP_STEPS, 1)
+    launches = [r["k3_launches"].tolist() for r in ranks]
+    rows = [int(r["k3_rows"]) for r in ranks]
+    print(f"  K3 launches (forward, backward) per rank: {launches} at {rows} rows; one process "
+          f"{ref['k3_launches'].tolist()} at {int(ref['k3_rows'])} rows", flush=True)
+    if launches != [[DP_STEPS, DP_STEPS]] * 2 or rows != [K3_ROWS // 2] * 2:
+        raise SystemExit(f"the ranks launched K3 {launches} at {rows} rows, expected "
+                         f"{DP_STEPS} each at {K3_ROWS // 2}")
+    errs = {k: float(np.abs(ranks[0][k] - ref[k]).max()) / (float(np.abs(ref[k]).max()) + 1e-30)
+            for k in ref if k.startswith("grad/")}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    print(f"  all-reduced grads vs one-process K3 step: worst leaf {worst[0]} rel {worst[1]:.3e} "
+          f"(allowed 2e-2), median leaf {float(np.median(list(errs.values()))):.3e}", flush=True)
+    same = all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0] if k.startswith("param/"))
+    print(f"  ranks' parameters after {DP_STEPS} steps bit for bit equal: {same}; losses rank 0 "
+          f"{ranks[0]['losses'].tolist()}, one process {ref['losses'].tolist()}", flush=True)
+    step_ms = [r["step_ms"].tolist() for r in ranks]
+    print(f"  step ms, rank 0 / rank 1 (sharing the card): {step_ms}; one process "
+          f"{ref['step_ms'].tolist()}", flush=True)
+    if not (worst[1] <= 2e-2 and same):
+        raise SystemExit("the 2-rank step disagrees with the one-process step or the ranks differ")
+    out.update(dp_k3_launches=launches, dp_k3_rows=rows, dp_worst_leaf_rel=worst[1],
+               dp_step_ms=step_ms, one_process_step_ms=ref["step_ms"].tolist())
+
+    # (b) a 1-rank NCCL group on the same first step
+    dist.init_process_group("nccl", init_method=mesh.rendezvous(work.name), world_size=1, rank=0)
+    try:
+        one = check.take_steps(check.train_state(argv, dev), dist.group.WORLD, 1, 1)
+    finally:
+        dist.destroy_process_group()
+    grads = [k for k in ref if k.startswith("grad/")]
+    nccl_same = all(np.array_equal(one[k], ref[k]) for k in grads)
+    nccl_err = max(float(np.abs(one[k] - ref[k]).max()) for k in grads)
+    print(f"  (b) 1-rank NCCL group: grads bit for bit the one-process step's: {nccl_same} "
+          f"(max abs diff {nccl_err:.3e})", flush=True)
+    if not nccl_same:
+        raise SystemExit("the 1-rank NCCL step differs from the one-process step")
+    out.update(nccl_bit_equal=nccl_same)
+    del ranks, ref, one
+    work.cleanup()
+    torch.cuda.empty_cache()
+
+    # (c) K1 and K2 over 4 slices of one 800x800 frame on the card
+    rt, scene = viewer.build_renderer_from_export(MSCENE, dtype_str="bf16", device=dev)
+    dirs = viewer.frame_directions(scene, 800, 800, dev)
+    pose = viewer.orbit_poses(scene.view_cell_center, 0.4 * scene.view_cell_radius, 8)[1]
+    rot = np.eye(3, dtype=np.float32)
+    for kind in (MegakernelCompact, MegakernelDense):
+        k = kind(rt)
+        rgb, counts = k(dirs, pose, rot)
+        frame = ShardedFrame(k, [card] * 4, dirs)
+        kind.launches = 0
+        rgb_s, counts_s = frame(pose, rot)
+        n_launch = kind.launches
+        equal = torch.equal(rgb_s, rgb) and torch.equal(counts_s, counts)
+        ms_whole = time_ms(lambda: k(dirs, pose, rot), 10)
+        ms_4 = time_ms(lambda: frame(pose, rot), 10)
+        print(f"  (c) {kind.__name__} over [cuda:0] * 4: {n_launch} launches, bit for bit the "
+              f"whole frame: {equal}; {ms_4:.3f} ms a frame against {ms_whole:.3f} ms whole",
+              flush=True)
+        if n_launch != 4 or not equal:
+            raise SystemExit(f"the 4-slice {kind.__name__} frame differs from the whole frame")
+        out[kind.__name__] = {"launches": n_launch, "bit_equal": equal, "ms_4_slices": ms_4,
+                              "ms_whole": ms_whole}
+    del rt, dirs, rgb, counts, rgb_s, counts_s, frame, k
+    args = [MSCENE, "-s", "800", "800", "-n", "5", "--logging_interval", "5"]
+    MegakernelCompact.launches = 0
+    meshed = viewer.main(args + ["--mesh", "1"])
+    mesh_launches = MegakernelCompact.launches
+    whole = viewer.main(args)
+    print(f"  viewer --mesh 1 -n 5: {meshed['device_ms_per_frame']:.3f} ms a frame (device), "
+          f"{mesh_launches} K1 launches; unsharded {whole['device_ms_per_frame']:.3f} ms; the "
+          f"wrapper's overhead {meshed['device_ms_per_frame'] - whole['device_ms_per_frame']:.3f} "
+          "ms", flush=True)
+    if mesh_launches < 1 or not torch.equal(meshed["last_frame"], whole["last_frame"]):
+        raise SystemExit("the --mesh 1 viewer did not launch K1 or rendered another frame")
+    out.update(viewer_mesh1_ms=meshed["device_ms_per_frame"], viewer_mesh1_launches=mesh_launches,
+               viewer_whole_ms=whole["device_ms_per_frame"])
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1689,12 +1804,20 @@ def main():
     print(f"  card: {card_state()}", flush=True)
     done("16", t)
 
+    t = time.perf_counter()
+    phase(f"17 scale-out: 2 gloo ranks x {K3_ROWS // 2} rows through K3 on one card, a 1-rank "
+          "NCCL step, K1 and K2 over 4 slices of an 800x800 frame, the viewer with --mesh 1")
+    scale_out = scale_out_leg(viewer, dev)
+    print(f"  card: {card_state()}", flush=True)
+    done("17", t)
+
     k2_main = k2_16[scene_thr]
     phase("14 kernels")
     print(json.dumps({"training_legs": {"dense_validate_ms": dense_val_ms,
                                         "fine": {k: v for k, v in fine.items()},
                                         "nerf_baseline": baseline, "gt_depth": gt},
-                      "export": exported, "evaluation": evaluation, "videos": videos}),
+                      "export": exported, "evaluation": evaluation, "videos": videos,
+                      "scale_out": scale_out}),
           flush=True)
     print(json.dumps({"kernels": [{
         "name": "megakernel_compact", "route": "cuda",
@@ -1713,7 +1836,12 @@ def main():
         "fine_export_800_plain_ms": exported["k1_plain_ms"],
         "fine_export_800_bound_ms": exported["bound_ms"],
         "fine_export_viewer_device_ms": exported["k1_viewer_ms"],
-        "fine_export_samples_per_pixel": exported["spp"]}, {
+        "fine_export_samples_per_pixel": exported["spp"],
+        "sharded_4_launches": scale_out["MegakernelCompact"]["launches"],
+        "sharded_4_ms": scale_out["MegakernelCompact"]["ms_4_slices"],
+        "sharded_4_whole_ms": scale_out["MegakernelCompact"]["ms_whole"],
+        "viewer_mesh1_launches": scale_out["viewer_mesh1_launches"],
+        "viewer_mesh1_device_ms": scale_out["viewer_mesh1_ms"]}, {
         "name": "nerf_train_forward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
@@ -1731,7 +1859,9 @@ def main():
         "baseline_max_abs_err": [st["max_abs_err_fwd"] for st in baseline["stages"]],
         "baseline_train_step_ms": baseline["step_ms"],
         "gt_launches": gt["launches"][0], "gt_rows": gt["rows"],
-        "gt_train_step_ms": gt["step_ms"]}, {
+        "gt_train_step_ms": gt["step_ms"],
+        "dp_launches_per_rank": [x[0] for x in scale_out["dp_k3_launches"]],
+        "dp_rows_per_rank": scale_out["dp_k3_rows"]}, {
         "name": "nerf_train_backward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
@@ -1753,7 +1883,12 @@ def main():
         "baseline_max_abs_err": [st["max_abs_err_bwd"] for st in baseline["stages"]],
         "baseline_train_step_ms": baseline["step_ms"],
         "gt_launches": gt["launches"][1], "gt_rows": gt["rows"],
-        "gt_train_step_ms": gt["step_ms"]}, {
+        "gt_train_step_ms": gt["step_ms"],
+        "dp_launches_per_rank": [x[1] for x in scale_out["dp_k3_launches"]],
+        "dp_rows_per_rank": scale_out["dp_k3_rows"],
+        "dp_worst_leaf_rel_err": scale_out["dp_worst_leaf_rel"],
+        "dp_step_ms": scale_out["dp_step_ms"],
+        "dp_one_process_step_ms": scale_out["one_process_step_ms"]}, {
         "name": "megakernel_dense", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_dense.cu + adanerf_tpu_torch/csrc/megakernel.cuh",
         "replaces": "adanerf_tpu/ops/pallas/megakernel.py:281",
@@ -1773,7 +1908,10 @@ def main():
         "fine_export_launches": exported["k2_launches"], "fine_export_800_ms": exported["k2_ms"],
         "fine_export_800_plain_ms": exported["k2_plain_ms"],
         "fine_export_800_bound_ms": exported["bound_ms"],
-        "fine_export_viewer_device_ms": exported["k2_viewer_ms"]}]}), flush=True)
+        "fine_export_viewer_device_ms": exported["k2_viewer_ms"],
+        "sharded_4_launches": scale_out["MegakernelDense"]["launches"],
+        "sharded_4_ms": scale_out["MegakernelDense"]["ms_4_slices"],
+        "sharded_4_whole_ms": scale_out["MegakernelDense"]["ms_whole"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -233,3 +233,56 @@ def test_two_nerf_step_through_k3_matches_plain(tmp_path):
     ts.make_train_step()(batch, targets, 2)
     for m, b in zip(ts.models, before):
         assert any(not torch.equal(v, b[k]) for k, v in m.state_dict().items())
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_step_through_k3(tmp_path):
+    """The data-parallel step (parallel/mesh.py) with two gloo ranks sharing
+    the card, configs/dense_training.ini as shipped on demo/mscene (2 x
+    2048 rays at 128 samples): each rank launches K3 once forward and once
+    backward a step at its half of the rows, both ranks end bit for bit
+    equal, and the group's gradients of the first step agree with the
+    one-process K3 step's within 2e-2 of each leaf's max (the bar
+    chip_smoke.py holds a train step to). The oracle's L1 loss has sign
+    gradients, which flip where its output meets its target within a
+    rounding; the ranks' oracle GEMMs have other row counts than the
+    one-process one, so on a small batch a few flips weigh more: the
+    batch is the shipped one."""
+    _need_card()
+    from adanerf_tpu_torch.parallel import check, mesh
+    argv = ["-c", os.path.join(ROOT, "configs", "dense_training.ini"),
+            "-data", os.path.join(ROOT, "demo", "mscene"), "-log", str(tmp_path / "logs"),
+            "--bf16", "--randomSeed", "0",
+            "--epochsLockWeightsBefore", "-1", "--epochsLockWeightsBefore", "-1"]
+    mesh.run_ranks(check.rank_steps, (argv, 2, 1, str(tmp_path)), ["cuda:0", "cuda:0"],
+                   str(tmp_path), timeout=600)
+    ranks = check.rank_records(str(tmp_path), 2)
+    ref = check.one_process_steps(argv, "cuda", 1, 1)
+    for r in ranks:
+        assert r["k3_launches"].tolist() == [2, 2] and int(r["k3_rows"]) == 2 * 1024 * 128
+    for k in (k for k in ranks[0] if k.startswith("param/")):
+        np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
+    for k in (k for k in ref if k.startswith("grad/")):
+        rel = float(np.abs(ranks[0][k] - ref[k]).max()) / (float(np.abs(ref[k]).max()) + 1e-20)
+        assert rel <= 2e-2, (k, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [MegakernelCompact, MegakernelDense])
+def test_four_slice_frame_is_the_whole_frame(kind):
+    """A 200x200 bf16 frame of trained_mscene_export cut into 4 padded
+    slices on one card (parallel/render.py) equals the whole frame's
+    launch bit for bit, rgb and counts; each slice launches the kernel."""
+    _need_card()
+    from adanerf_tpu_torch.parallel.render import ShardedFrame
+    rt, scene = tviewer.build_renderer_from_export(EXPORTS["mscene"], dtype_str="bf16",
+                                                   device="cuda")
+    dirs, pose, rot = _frame_inputs(scene, 200 * 128)
+    dirs = dirs[:200 * 200 // 2 + 7].cuda()  # a count the slices must pad
+    k = kind(rt)
+    rgb, counts = k(dirs, pose, rot)
+    frame = ShardedFrame(k, ["cuda:0"] * 4, dirs)
+    before = kind.launches
+    rgb_s, counts_s = frame(pose, rot)
+    assert kind.launches == before + 4
+    assert torch.equal(counts_s, counts) and torch.equal(rgb_s, rgb)

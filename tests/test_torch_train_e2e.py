@@ -65,10 +65,14 @@ def test_main_returns_falling_losses(scene, tmp_path):
 
 
 @pytest.mark.parametrize("extra,words", [
-    pytest.param(["--meshDevices", "2"], "ROADMAP Queue 1, item 9",
-                 id="extra1-ROADMAP Queue 1, item 9"),
+    pytest.param(["--device", "cuda", "--meshDevices", str(torch.cuda.device_count() + 2)],
+                 "CUDA device(s) present", id="more GPUs than present"),
+    pytest.param(["--device", "cpu", "--meshDevices", "3"], "do not split over 3 ranks",
+                 id="rays that do not split over the ranks"),
 ])
 def test_unported_options_are_refused_before_step_0(scene, tmp_path, extra, words):
+    """Data-parallel training is ported (ROADMAP item 9 is done); what it
+    refuses is refused before anything ran."""
     with pytest.raises(SystemExit) as err:
         train.main(_args(scene, str(tmp_path / "logs")) + extra)
     assert words in str(err.value)
@@ -106,8 +110,8 @@ def test_render_points_beyond_the_run_are_fine():
     cfg = type("C", (), dict(epochsPretrain=[-1, -1], epochsRender=31, epochsValidate=5,
                              epochsVideo=7, performEvaluation=True, meshDevices=-1))()
     assert train.unsupported(cfg) == []
-    cfg.meshDevices = 2
-    assert len(train.unsupported(cfg)) == 1
+    cfg.device, cfg.meshDevices = "cuda", torch.cuda.device_count() + 2
+    assert len(train.unsupported(cfg)) == 1  # more GPUs than present
 
 
 def test_cuda_device_without_a_card_raises(scene, tmp_path):

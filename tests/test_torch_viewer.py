@@ -114,7 +114,10 @@ def test_non_adaptive_model_is_refused():
 
 
 def test_mesh_is_refused_naming_its_roadmap_item():
-    with pytest.raises(SystemExit, match="item 13"):
+    """--mesh is ported (ROADMAP item 13 is done): a mesh above the device
+    count is refused, as JAX's devices_mesh refuses it (the CPU is one
+    device)."""
+    with pytest.raises(SystemExit, match="only 1 device"):
         tviewer.main([os.path.join(ROOT, "demo", "trained_mscene_export"), "--device", "cpu",
                       "--mesh", "2"])
 
