@@ -11,6 +11,9 @@
 // mk_front_tc / mk_shade_tc, whose MLPs run on the tensor cores through
 // mlp_wgmma.cuh. Ray setup, the encode, the select, the sample coordinates
 // and the alpha and rgb heads are device functions that both share.
+//
+// Both MLPs are W wide (mlp_tile.cuh's MLP_WIDTH: 128, 256, 384 or 512, one
+// library per width), the views layer W / 2.
 
 #pragma once
 
@@ -21,6 +24,7 @@ namespace {
 
 constexpr int XS = 128;    // row stride of the encoded-input buffer
 constexpr int MAXL = 16;   // most layers per MLP
+constexpr int VW = W / 2;  // the views layer's width
 
 constexpr size_t SMEM_BYTES = sizeof(float) * (R * XS + 2 * R * W + KC * W);
 
@@ -288,13 +292,13 @@ __device__ __forceinline__ float alpha_dot(Act act, const T* __restrict__ w) {
   return s;
 }
 
-// The rgb head of one row, likewise: the views output act(k), k < 128,
-// times the 128 x 3 weights.
+// The rgb head of one row, likewise: the views output act(k), k < VW,
+// times the VW x 3 weights.
 template <typename T, class Act>
 __device__ __forceinline__ float3 rgb_dot(Act act, const T* __restrict__ w) {
   const int lane = threadIdx.x & 31;
   float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int k = lane; k < 128; k += 32) {
+  for (int k = lane; k < VW; k += 32) {
     const float h = act(k);
     s0 = fmaf(h, to_f(w[k * 3 + 0]), s0);
     s1 = fmaf(h, to_f(w[k * 3 + 1]), s1);
@@ -351,8 +355,8 @@ mk_front(const MkParams P, const float* __restrict__ dirs, const float* __restri
 
   // adaptive select: one warp per ray
   const int lane = t & 31, wy = t >> 5;
-  for (int i = 0; i < 8; ++i) {
-    const int row = wy * 8 + i;
+  for (int i = 0; i < RW; ++i) {
+    const int row = wy * RW + i;
     const int n = select_row<DENSE>(P, logits + row * 128, ray0 + row, zbuf, pbuf, counts);
     if (lane == 0) cnt_s[row] = n;
   }
@@ -416,19 +420,19 @@ mk_shade(const MkParams P, const T* __restrict__ wts, const float* __restrict__ 
     mlp_layer<T, W>({cur, W, W, wts + P.n_wf}, {}, 1, bias + P.n_bf, nxt, W, false, rb, wt);
     __syncthreads();
     // alpha head: one warp per row
-    for (int i = 0; i < 8; ++i) {
-      const int row = wy * 8 + i;
+    for (int i = 0; i < RW; ++i) {
+      const int row = wy * RW + i;
       const float s = alpha_dot([&](int k) { return cur[row * W + k]; }, wts + P.n_wa);
       if (lane == 0) alpha_s[row] = s + bias[P.n_ba];
     }
-    // views = relu([feature, dirs] @ wv + bv), 128 wide, written over the trunk
-    mlp_layer<T, 128>({nxt, W, W, wts + P.n_wvf}, {x, XS, P.in1, wts + P.n_wvd}, 2,
-                      bias + P.n_bv, cur, 128, true, rb, wt);
+    // views = relu([feature, dirs] @ wv + bv), VW wide, written over the trunk
+    mlp_layer<T, VW>({nxt, W, W, wts + P.n_wvf}, {x, XS, P.in1, wts + P.n_wvd}, 2,
+                     bias + P.n_bv, cur, VW, true, rb, wt);
     __syncthreads();
     // rgb head and the write-back by (ray, slot)
-    for (int i = 0; i < 8; ++i) {
-      const int row = wy * 8 + i;
-      const float3 s = rgb_dot([&](int k) { return cur[row * 128 + k]; }, wts + P.n_wrgb);
+    for (int i = 0; i < RW; ++i) {
+      const int row = wy * RW + i;
+      const float3 s = rgb_dot([&](int k) { return cur[row * VW + k]; }, wts + P.n_wrgb);
       const int j = tile * R + row;
       if (lane == 0 && j < total) {
         const int id = DENSE ? j : rows[j];
@@ -447,38 +451,70 @@ mk_shade(const MkParams P, const T* __restrict__ wts, const float* __restrict__ 
 // tile and does all the per-row work of its rows (ray setup or sample
 // coordinates, encode, select or heads) between its layers, under barriers
 // of its own. A layer's output is written over the tile's activations h
-// once every wgmma of the layer has completed; the oracle's 64 x 128 fp32
-// logits reuse h too. Shared memory, from its 1024-byte aligned base: the
-// stage ring, two x buffers and h of each consumer, then TcSmall, 230,968
-// of the 232,448 bytes a block can take. The shade encodes the next tile
-// into its other x buffer while the current tile's layers run, each
-// thread pair holding its row's coordinates in registers; the front, whose
-// x is free once layer 0 is done, encodes into its one x buffer and keeps
-// the coordinates in the other.
+// once every wgmma of the layer has completed (a 384- or 512-column layer,
+// two wgmma passes, parks its first pass in registers until then:
+// mlp_wgmma.cuh's tc_passes); the oracle's 64 x 128 fp32 logits reuse h
+// too. Shared memory, from its 1024-byte aligned base: the stage ring,
+// MK_XB x buffers and h of each consumer, then TcSmall, at most 232,448
+// bytes at every width: a 3-stage ring and two x buffers up to W = 256,
+// one x buffer at 384 and also a 2-stage ring at 512. With two x buffers
+// the shade encodes the next tile into its other x buffer while the
+// current tile's layers run, each thread pair holding its row's
+// coordinates in registers; with one it encodes a tile before its layers.
+// The front, whose x is free once layer 0 is done, encodes the next tile
+// into its one x buffer under layers 1.. at every width.
 
 constexpr int TC_THREADS = 384;
 constexpr int TC_TILE = 2 * TC_ROWS;           // rows per block tile
+constexpr int MK_STAGES = W <= 384 ? TC_STAGES : 2;
+constexpr int MK_XB = W <= 256 ? 2 : 1;
+using MkRing = RingN<MK_STAGES>;
 constexpr int TC_X_BYTES = TC_ROWS * 128 * 2;  // encoded input, at most 128 columns
-constexpr int TC_H_BYTES = TC_ROWS * W * 2;    // activations; or 64 x 128 fp32 logits
-constexpr int TC_OFF_X = TC_STAGES * TC_STAGE_BYTES;
-constexpr int TC_OFF_H = TC_OFF_X + 4 * TC_X_BYTES;
+// activations; or 64 x 128 fp32 logits
+constexpr int TC_H_BYTES = W * 2 > 128 * 4 ? TC_ROWS * W * 2 : TC_ROWS * 128 * 4;
+constexpr int TC_OFF_X = MK_STAGES * TC_STAGE_BYTES;
+constexpr int TC_OFF_H = TC_OFF_X + 2 * MK_XB * TC_X_BYTES;
 constexpr int TC_OFF_SMALL = TC_OFF_H + 2 * TC_H_BYTES;
 
 struct TcSmall {
-  unsigned long long full[TC_STAGES], empty[TC_STAGES];
+  unsigned long long full[MK_STAGES], empty[MK_STAGES];
   float alpha[TC_TILE];
   int cnt[TC_TILE], off[TC_TILE], base[2];
 };
 
 constexpr size_t TC_SMEM_BYTES = TC_OFF_SMALL + sizeof(TcSmall);
+static_assert(TC_SMEM_BYTES <= 232448 && SMEM_BYTES <= 232448, "a block's shared memory");
+
+// h = round_bf16(relu?(A @ W + bias)) for an N-column layer over the ring's
+// next chunks (A = [a0 | a1], kc0 + kc1 chunks a pass). IN_PLACE: A reads
+// h, so h is written once every warp's wgmmas of the layer are done, and a
+// 384- or 512-column layer parks its first pass's output in registers
+// until then.
+template <int N, bool IN_PLACE, class Side>
+__device__ __forceinline__ void tc_hidden(MkRing& ring, uint32_t a0, int kc0, uint32_t a1,
+                                          int kc1, Side side, const float* bias, bool relu,
+                                          uint8_t* h, int bar) {
+  uint32_t park[64];  // used where N > 256
+  tc_passes<N>(ring, a0, kc0, a1, kc1, side, [&](auto c0, auto& acc) {
+    constexpr int C0 = decltype(c0)::value, NP = acc_cols<decltype(acc)>;
+    if constexpr (IN_PLACE && C0 + NP < N) {
+      tc_pack_bf16<NP>(acc, bias + C0, relu, park);
+    } else {
+      if constexpr (IN_PLACE) wg_sync(bar);  // every warp's wgmma has read h
+      tc_store_bf16<NP>(acc, bias + C0, relu, h + (C0 / 64) * TC_BLOCK_BYTES);
+      if constexpr (IN_PLACE && C0 > 0) tc_put_packed<256>(park, h);
+    }
+  });
+}
 
 // Weight layer l of a kernel's stream: kc0 chunks multiply the first input
 // (the encoded x for layer 0, else the tile's activations h), kc1 chunks the
 // encoded input x (a NeRF skip layer, the views layer), and n output
-// columns. The front walks the oracle (depth0 layers, the last 128 wide);
-// the shade walks the NeRF trunk (depth1 layers), the feature layer and the
-// views layer (128 wide). megakernel_compact.py packs the stream in this
-// order (stream_plan mirrors this function).
+// columns (a layer wider than 256 comes pass by pass: tc_passes). The front
+// walks the oracle (depth0 layers, the last 128 wide); the shade walks the
+// NeRF trunk (depth1 layers), the feature layer and the views layer (VW
+// wide). megakernel_compact.py packs the stream in this order (stream_plan
+// mirrors this function).
 __device__ __forceinline__ void tc_plan(const MkParams& P, bool front, int l, int& kc0, int& kc1,
                                         int& n) {
   if (front) {
@@ -490,7 +526,7 @@ __device__ __forceinline__ void tc_plan(const MkParams& P, bool front, int l, in
   kc0 = l == 0 ? P.in1 / TC_KC : W / TC_KC;
   const bool skip = l > 0 && l < P.depth1 && ((P.skip_mask >> (l - 1)) & 1);
   kc1 = skip || l == P.depth1 + 1 ? P.in1 / TC_KC : 0;
-  n = l == P.depth1 + 1 ? 128 : W;
+  n = l == P.depth1 + 1 ? VW : W;
 }
 
 __device__ __forceinline__ int tc_layers(const MkParams& P, bool front) {
@@ -498,7 +534,7 @@ __device__ __forceinline__ int tc_layers(const MkParams& P, bool front) {
 }
 
 // The producer: one thread walks the stream once per tile the block owns,
-// keeping up to TC_STAGES chunks in flight.
+// keeping up to MK_STAGES chunks in flight.
 __device__ void tc_produce(const MkParams& P, bool front, const __nv_bfloat16* stream,
                            int ntiles, uint32_t full, uint32_t empty, uint32_t buf) {
   int stage = 0;
@@ -508,12 +544,14 @@ __device__ void tc_produce(const MkParams& P, bool front, const __nv_bfloat16* s
     for (int l = 0; l < tc_layers(P, front); ++l) {
       int kc0, kc1, n;
       tc_plan(P, front, l, kc0, kc1, n);
-      const uint32_t bytes = n * TC_KC * 2;
-      for (int c = 0; c < kc0 + kc1; ++c) {
-        mbar_wait(empty + 8 * stage, phase ^ 1);
-        bulk_load(buf + stage * TC_STAGE_BYTES, src, bytes, full + 8 * stage);
-        src += bytes;
-        if (++stage == TC_STAGES) { stage = 0; phase ^= 1; }
+      for (int c0 = 0; c0 < n; c0 += 256) {
+        const uint32_t bytes = (n - c0 < 256 ? n - c0 : 256) * TC_KC * 2;
+        for (int c = 0; c < kc0 + kc1; ++c) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          bulk_load(buf + stage * TC_STAGE_BYTES, src, bytes, full + 8 * stage);
+          src += bytes;
+          if (++stage == MK_STAGES) { stage = 0; phase ^= 1; }
+        }
       }
     }
   }
@@ -525,16 +563,16 @@ __device__ void tc_produce(const MkParams& P, bool front, const __nv_bfloat16* s
 struct TcBlock {
   uint8_t* sm;
   TcSmall* small;
-  Ring ring;
+  MkRing ring;
 
   __device__ __forceinline__ bool start(float4* smem4, const MkParams& P, bool front,
                                         const __nv_bfloat16* stream, int ntiles) {
     sm = reinterpret_cast<uint8_t*>(smem4);
     if (smem_u32(sm) & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
     small = reinterpret_cast<TcSmall*>(sm + TC_OFF_SMALL);
-    ring = Ring{smem_u32(small->full), smem_u32(small->empty), smem_u32(sm), 0, 0};
+    ring = MkRing{smem_u32(small->full), smem_u32(small->empty), smem_u32(sm), 0, 0};
     if (threadIdx.x == 0) {
-      for (int i = 0; i < TC_STAGES; ++i) {
+      for (int i = 0; i < MK_STAGES; ++i) {
         mbar_init(ring.full + 8 * i, 1);
         mbar_init(ring.empty + 8 * i, TC_CONSUMER_WARPS);
       }
@@ -551,7 +589,7 @@ struct TcBlock {
   }
   __device__ __forceinline__ int g() const { return (threadIdx.x >> 7) - 1; }
   __device__ __forceinline__ uint8_t* x(int b) const {
-    return sm + TC_OFF_X + (2 * g() + b) * TC_X_BYTES;
+    return sm + TC_OFF_X + (MK_XB * g() + (MK_XB == 2 ? b : 0)) * TC_X_BYTES;
   }
   __device__ __forceinline__ uint8_t* h() const { return sm + TC_OFF_H + g() * TC_H_BYTES; }
 };
@@ -600,15 +638,12 @@ mk_front_tc(const MkParams P, const float* __restrict__ dirs, const float* __res
     wg_sync(bar);  // x is encoded; the previous tile's select is done with h
 
     // oracle MLP: relu trunk, raw logits out (padded to 128 columns)
-    float acc[128];
-    tc_layer<256>(blk.ring, acc, xa, P.in0 / TC_KC, 0, 0);
-    tc_store_bf16<256>(acc, bias + P.o_b[0], true, h);
+    tc_hidden<W, false>(blk.ring, xa, P.in0 / TC_KC, 0, 0, [](int) {}, bias + P.o_b[0], true, h,
+                        bar);
     for (int l = 1; l < P.depth0 - 1; ++l) {
       fence_async_smem();
       wg_sync(bar);
-      tc_layer<256>(blk.ring, acc, ha, W / TC_KC, 0, 0, side);
-      wg_sync(bar);  // every warp's wgmma has read h
-      tc_store_bf16<256>(acc, bias + P.o_b[l], true, h);
+      tc_hidden<W, true>(blk.ring, ha, W / TC_KC, 0, 0, side, bias + P.o_b[l], true, h, bar);
     }
     fence_async_smem();
     wg_sync(bar);
@@ -676,56 +711,53 @@ mk_shade_tc(const MkParams P, const __nv_bfloat16* __restrict__ wts,
       encode_row_bf16(cr, xn, tl / 2, P.in1, P.fp1, P.fd1, tl & 1, slot - 1, PARTS);
     }
   };
-  if (blockIdx.x < ntiles)
+  if (MK_XB == 2 && blockIdx.x < ntiles)
     for (int slot = 0; slot <= PARTS; ++slot) prep(blockIdx.x, blk.x(0), slot);
 
   int b = 0;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, b ^= 1) {
     const int j0 = tile * TC_TILE + g * TC_ROWS, next = tile + gridDim.x;
     const uint32_t xa = smem_u32(blk.x(b));
+    if constexpr (MK_XB == 1)  // the previous tile's views layer is done with x
+      for (int slot = 0; slot <= PARTS; ++slot) prep(tile, blk.x(0), slot);
     int slot = 0;
     auto side = [&](int) {
-      if (next < ntiles) prep(next, blk.x(b ^ 1), slot);
-      ++slot;
+      if constexpr (MK_XB == 2) {
+        if (next < ntiles) prep(next, blk.x(b ^ 1), slot);
+        ++slot;
+      }
     };
     fence_async_smem();
     wg_sync(bar);  // x(b) is encoded; the previous tile's readers of h are done
 
     // NeRF trunk; layer i takes [h, x] when bit i-1 of skip_mask is set
-    float acc[128];
-    tc_layer<256>(blk.ring, acc, xa, kx, 0, 0);
-    tc_store_bf16<256>(acc, bias + P.n_b[0], true, h);
+    tc_hidden<W, false>(blk.ring, xa, kx, 0, 0, [](int) {}, bias + P.n_b[0], true, h, bar);
     for (int l = 1; l < P.depth1; ++l) {
       fence_async_smem();
       wg_sync(bar);
-      tc_layer<256>(blk.ring, acc, ha, W / TC_KC, xa, ((P.skip_mask >> (l - 1)) & 1) ? kx : 0,
-                    side);
-      wg_sync(bar);
-      tc_store_bf16<256>(acc, bias + P.n_b[l], true, h);
+      tc_hidden<W, true>(blk.ring, ha, W / TC_KC, xa, ((P.skip_mask >> (l - 1)) & 1) ? kx : 0,
+                         side, bias + P.n_b[l], true, h, bar);
     }
-    while (slot <= PARTS) side(0);  // a shallow NeRF leaves parts over
+    if constexpr (MK_XB == 2)
+      while (slot <= PARTS) side(0);  // a shallow NeRF leaves parts over
     fence_async_smem();
     wg_sync(bar);
     // feature = h @ wf + bf (no activation); the alpha head reads the trunk
-    // output while the feature layer's wgmmas run, RF rows a chunk, before
-    // its epilogue overwrites h
-    constexpr int RF = TC_ROWS / 4 / (W / TC_KC);
-    tc_layer<256>(blk.ring, acc, ha, W / TC_KC, 0, 0, [&](int c) {
-      for (int r = c * RF; r < (c + 1) * RF; ++r) {
-        const int row = wq * (TC_ROWS / 4) + r;
+    // output while the feature layer's wgmmas run, its share of a warp's
+    // rows under each of the layer's CF chunks, before the epilogue
+    // overwrites h
+    constexpr int CF = (W / TC_KC) * ((W + 255) / 256), RQ = TC_ROWS / 4;
+    tc_hidden<W, true>(blk.ring, ha, W / TC_KC, 0, 0, [&](int c) {
+      for (int r = RQ * c / CF; r < RQ * (c + 1) / CF; ++r) {
+        const int row = wq * RQ + r;
         const float a = alpha_dot([&](int k) { return ld_bf16(h, row, k); }, wts + P.n_wa);
         if (lane == 0) alpha_s[row] = a + bias[P.n_ba];
       }
-    });
-    wg_sync(bar);
-    tc_store_bf16<256>(acc, bias + P.n_bf, false, h);
+    }, bias + P.n_bf, false, h, bar);
     fence_async_smem();
     wg_sync(bar);
-    // views = relu([feature, dirs] @ wv + bv), 128 wide
-    float v[64];
-    tc_layer<128>(blk.ring, v, ha, W / TC_KC, xa, kx);
-    wg_sync(bar);
-    tc_store_bf16<128>(v, bias + P.n_bv, true, h);
+    // views = relu([feature, dirs] @ wv + bv), VW wide
+    tc_hidden<VW, true>(blk.ring, ha, W / TC_KC, xa, kx, [](int) {}, bias + P.n_bv, true, h, bar);
     wg_sync(bar);
     // rgb head and the write-back by (ray, slot)
     for (int i = 0; i < TC_ROWS / 4; ++i) {

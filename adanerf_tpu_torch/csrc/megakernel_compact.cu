@@ -37,6 +37,15 @@
 // through shared memory in 32-row chunks; each thread accumulates an 8-row
 // x 8-column register tile with fp32 FMAs. They are the exact reference.
 //
+// Widths: the numbers above are the 8x256 MLPs of the shipped configs. The
+// library is built once per MLP width (MLP_WIDTH: 128, 256, 384, 512; both
+// MLPs the same width, the views layer half of it). At 384 and 512 a
+// layer's wgmma runs in two passes of at most 256 columns (the first
+// pass's output parked in registers until the second has read h), each
+// consumer has one x buffer (the shade encodes a tile before its layers),
+// a 512-wide block a 2-stage ring, and the fp32 kernels 32-row tiles, so
+// every block fits its shared memory (megakernel.cuh).
+//
 // The kernels live in megakernel.cuh, shared with K2 (megakernel_dense.cu),
 // and are instantiated here with DENSE = false. Three launches on the
 // caller's stream, no host synchronisation:
@@ -73,6 +82,9 @@ extern "C" int mk_compact_launch(int device, const MkParams* P, const float* dir
 }
 
 extern "C" int mk_struct_size() { return static_cast<int>(sizeof(MkParams)); }
+
+// The MLP width this library is built for (MLP_WIDTH).
+extern "C" int mk_width() { return W; }
 
 // Dynamic shared memory a block of the fp32 (bf16 = 0) or bf16 kernels takes.
 extern "C" int mk_smem_bytes(int bf16) {

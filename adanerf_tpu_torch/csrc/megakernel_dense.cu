@@ -62,6 +62,9 @@ extern "C" int mk_dense_launch(int device, const MkParams* P, const float* dirs,
 
 extern "C" int mk_struct_size() { return static_cast<int>(sizeof(MkParams)); }
 
+// The MLP width this library is built for (MLP_WIDTH).
+extern "C" int mk_width() { return W; }
+
 // Dynamic shared memory a block of the fp32 (bf16 = 0) or bf16 kernels takes.
 extern "C" int mk_smem_bytes(int bf16) {
   return static_cast<int>(bf16 ? TC_SMEM_BYTES : SMEM_BYTES);

@@ -1,9 +1,12 @@
 // Shared building blocks of the port's hand-written MLP kernels for Hopper
 // (sm_90a): a block owns an R-row tile whose activations live in shared
 // memory, and each layer streams its weights through shared memory in
-// KC-row chunks while every thread accumulates an 8-row x 8-column register
-// tile with fp32 FMAs. Included by megakernel.cuh: the fp32 kernels of K1
-// and K2.
+// KC-row chunks while every thread accumulates an RW-row x 4 NV-column
+// register tile with fp32 FMAs. Included by megakernel.cuh: the fp32
+// kernels of K1 and K2. The MLPs' hidden width W is the macro MLP_WIDTH
+// (128, 256, 384 or 512; one library per width): at 384 and 512 a block
+// owns 32 rows, so that its two fp32 activation buffers fit in shared
+// memory.
 
 #pragma once
 
@@ -13,10 +16,15 @@
 
 namespace {
 
-constexpr int R = 64;      // rows (rays or samples) per block tile
-constexpr int NT = 256;    // threads per block: 8 warps x 8 rows each
+#ifndef MLP_WIDTH
+#define MLP_WIDTH 256
+#endif
+constexpr int W = MLP_WIDTH;         // hidden width of the MLPs
+static_assert(W == 128 || W == 256 || W == 384 || W == 512, "MLP widths: 128 to 512 step 128");
+constexpr int R = W <= 256 ? 64 : 32;  // rows (rays or samples) per block tile
+constexpr int NT = 256;    // threads per block: 8 warps x RW rows each
+constexpr int RW = R / 8;  // rows per warp
 constexpr int KC = 32;     // weight rows staged in shared memory per chunk
-constexpr int W = 256;     // hidden width of the MLPs
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -55,18 +63,19 @@ struct Seg {
 
 // out[R, N] = act_0 @ w_0 (+ act_1 @ w_1) + bias, optional relu, optional
 // bf16 rounding of the stored result; with ACC the sum is added to what
-// `out` holds (out += act @ w + bias) before the activation. Warp `wy` owns rows wy*8..wy*8+7; lane
-// owns columns v*128 + lane*4 + {0..3}. Callers must not alias `out` with an
-// input. Starts with a barrier, so the previous layer's output is complete.
+// `out` holds (out += act @ w + bias) before the activation. Warp `wy` owns
+// rows wy*RW..wy*RW+RW-1; lane owns columns v*128 + lane*4 + {0..3} below N
+// (N a multiple of 64). Callers must not alias `out` with an input. Starts
+// with a barrier, so the previous layer's output is complete.
 template <typename T, int N, bool ACC = false>
 __device__ void mlp_layer(Seg<T> s0, Seg<T> s1, int nseg, const float* bias,
                           float* out, int out_stride, bool relu, bool round_out,
                           float* wt) {
-  constexpr int NV = N / 128;
+  constexpr int NV = (N + 127) / 128;
   const int lane = threadIdx.x & 31, wy = threadIdx.x >> 5;
-  float acc[8][NV * 4];
+  float acc[RW][NV * 4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RW; ++i)
 #pragma unroll
     for (int c = 0; c < NV * 4; ++c) acc[i][c] = 0.f;
 
@@ -79,18 +88,18 @@ __device__ void mlp_layer(Seg<T> s0, Seg<T> s1, int nseg, const float* bias,
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < KC; kk += 4) {
-        float4 a[8];
+        float4 a[RW];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          a[i] = *reinterpret_cast<const float4*>(sg.act + (wy * 8 + i) * sg.stride + k0 + kk);
+        for (int i = 0; i < RW; ++i)
+          a[i] = *reinterpret_cast<const float4*>(sg.act + (wy * RW + i) * sg.stride + k0 + kk);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           float4 wv[NV];
 #pragma unroll
-          for (int v = 0; v < NV; ++v)
+          for (int v = 0; v < NV; ++v)  // past N (a 64- or 192-column layer): unused
             wv[v] = *reinterpret_cast<const float4*>(wt + (kk + q) * N + v * 128 + lane * 4);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
+          for (int i = 0; i < RW; ++i) {
             const float av = comp(a[i], q);
 #pragma unroll
             for (int v = 0; v < NV; ++v) {
@@ -105,19 +114,20 @@ __device__ void mlp_layer(Seg<T> s0, Seg<T> s1, int nseg, const float* bias,
     }
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RW; ++i)
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
+      if (N % 128 != 0 && v * 128 + lane * 4 >= N) continue;
       float o[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         float val = acc[i][v * 4 + c] + bias[v * 128 + lane * 4 + c];
-        if (ACC) val += out[(wy * 8 + i) * out_stride + v * 128 + lane * 4 + c];
+        if (ACC) val += out[(wy * RW + i) * out_stride + v * 128 + lane * 4 + c];
         if (relu) val = fmaxf(val, 0.f);
         if (round_out) val = round_bf16(val);
         o[c] = val;
       }
-      *reinterpret_cast<float4*>(out + (wy * 8 + i) * out_stride + v * 128 + lane * 4) =
+      *reinterpret_cast<float4*>(out + (wy * RW + i) * out_stride + v * 128 + lane * 4) =
           make_float4(o[0], o[1], o[2], o[3]);
     }
 }

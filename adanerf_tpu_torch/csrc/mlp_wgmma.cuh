@@ -5,6 +5,10 @@
 // that brings each layer's weights, chunk after chunk, by bulk async copy
 // into a ring of shared-memory stages guarded by mbarriers.
 //
+// A layer's N output columns are at most 256 a wgmma; a wider layer (384,
+// 512) runs in passes over the same A operand (tc_passes), the weight
+// chunks of a pass at most 256 columns, the unit of the stage ring.
+//
 // A block runs one producer warpgroup (one thread issues the copies) and
 // two consumer warpgroups. Each consumer owns a 64-row tile (the wgmma M)
 // and reads every staged chunk; both read the same stage, so a chunk
@@ -24,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -189,15 +195,75 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (N == 256) wgmma_m64n256k16(d, da, db, scale_d);
-  else wgmma_m64n128k16(d, da, db, scale_d);
+__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// The consumer side of the weight ring, one copy per thread of a consumer
-// warpgroup; both consumers walk the same stages in the same order.
-struct Ring {
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "wgmma N of this core");
+  if constexpr (N == 256) wgmma_m64n256k16(d, da, db, scale_d);
+  else if constexpr (N == 192) wgmma_m64n192k16(d, da, db, scale_d);
+  else if constexpr (N == 128) wgmma_m64n128k16(d, da, db, scale_d);
+  else wgmma_m64n64k16(d, da, db, scale_d);
+}
+
+// The consumer side of a weight ring of STAGES stages, one copy per thread
+// of a consumer warpgroup; both consumers walk the same stages in the same
+// order.
+template <int STAGES>
+struct RingN {
   uint32_t full, empty, buf;  // shared addresses of full[0], empty[0], stage 0
   int stage;
   uint32_t phase;
@@ -210,9 +276,10 @@ struct Ring {
     if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8 * st);
   }
   __device__ __forceinline__ void advance() {
-    if (++stage == TC_STAGES) { stage = 0; phase ^= 1; }
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
   }
 };
+using Ring = RingN<TC_STAGES>;
 
 // acc = [a0 | a1] @ W for the ring's next kc0 + kc1 chunks: a0 and a1 are
 // shared addresses of 64-row tiles (kc0 and kc1 blocks of 64 columns).
@@ -220,8 +287,8 @@ struct Ring {
 // warpgroup that touches neither the accumulators nor what the layer's
 // wgmmas read. Returns with every wgmma of the layer complete and its
 // stages released.
-template <int N, class Side>
-__device__ __forceinline__ void tc_layer(Ring& ring, float (&acc)[N / 2], uint32_t a0, int kc0,
+template <int N, class Rg, class Side>
+__device__ __forceinline__ void tc_layer(Rg& ring, float (&acc)[N / 2], uint32_t a0, int kc0,
                                          uint32_t a1, int kc1, Side side) {
   wgmma_fence();
   int prev = -1;
@@ -245,11 +312,38 @@ __device__ __forceinline__ void tc_layer(Ring& ring, float (&acc)[N / 2], uint32
   ring.release(prev);
 }
 
-template <int N>
-__device__ __forceinline__ void tc_layer(Ring& ring, float (&acc)[N / 2], uint32_t a0, int kc0,
+template <int N, class Rg>
+__device__ __forceinline__ void tc_layer(Rg& ring, float (&acc)[N / 2], uint32_t a0, int kc0,
                                          uint32_t a1, int kc1) {
   tc_layer<N>(ring, acc, a0, kc0, a1, kc1, [](int) {});
 }
+
+// A layer of N output columns, N = k x 64 up to 512. wgmma takes N up to
+// 256, so a wider layer (384, 512) runs in passes over the same A operand:
+// pass p takes columns [256 p, min(N, 256 p + 256)) and is one tc_layer
+// over the ring's next kc0 + kc1 chunks (the packers write a layer's chunks
+// pass by pass), then epi(c0, acc): c0 a std::integral_constant of the
+// pass's first column, acc its accumulator (64 x the pass's width). side(c)
+// runs under the layer's chunk c, counted over all passes. Each pass's
+// accumulator lives only in its pass; an epilogue that must not yet write
+// over A (a layer computed in place) parks the pass's packed output in
+// registers (tc_pack_bf16, tc_put_packed) until the last pass is done.
+template <int N, int C0 = 0, class Rg, class Side, class Epi>
+__device__ __forceinline__ void tc_passes(Rg& ring, uint32_t a0, int kc0, uint32_t a1, int kc1,
+                                          Side side, Epi epi) {
+  constexpr int NP = N - C0 < 256 ? N - C0 : 256;
+  {
+    float acc[NP / 2];
+    const int base = (C0 / 256) * (kc0 + kc1);
+    tc_layer<NP>(ring, acc, a0, kc0, a1, kc1, [&](int c) { side(base + c); });
+    epi(std::integral_constant<int, C0>{}, acc);
+  }
+  if constexpr (C0 + 256 < N) tc_passes<N, C0 + 256>(ring, a0, kc0, a1, kc1, side, epi);
+}
+
+// Columns of a pass's accumulator (the type of its epilogue's acc argument).
+template <class Acc>
+constexpr int acc_cols = 2 * static_cast<int>(std::extent<std::remove_reference_t<Acc>>::value);
 
 // Accumulator element e of this thread: row and column in the 64 x N tile.
 // Thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and
@@ -272,6 +366,39 @@ __device__ __forceinline__ void tc_store_bf16(const float (&acc)[N / 2], const f
       *reinterpret_cast<__nv_bfloat162*>(out + sw128(r0 + 8 * i, c)) = __floats2bfloat162_rn(v0, v1);
     }
   }
+}
+
+// The values tc_store_bf16 would write, packed (two bf16 a register) into
+// pk[2 j + i] for the element pair (row r0 + 8 i, columns 8 j + 2 p, + 1),
+// to be written later by tc_put_packed.
+template <int N>
+__device__ __forceinline__ void tc_pack_bf16(const float (&acc)[N / 2], const float* bias,
+                                             bool relu, uint32_t (&pk)[N / 4]) {
+  const int l = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = j * 8 + 2 * (l & 3);
+    const float2 b = *reinterpret_cast<const float2*>(bias + c);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float v0 = acc[j * 4 + 2 * i] + b.x, v1 = acc[j * 4 + 2 * i + 1] + b.y;
+      if (relu) { v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); }
+      const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+      pk[2 * j + i] = static_cast<uint32_t>(__bfloat16_as_ushort(v.x)) |
+                      (static_cast<uint32_t>(__bfloat16_as_ushort(v.y)) << 16);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void tc_put_packed(const uint32_t (&pk)[N / 4], uint8_t* out) {
+  const int t = threadIdx.x & 127, l = t & 31;
+  const int r0 = (t >> 5) * 16 + (l >> 2);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(out + sw128(r0 + 8 * i, j * 8 + 2 * (l & 3))) = pk[2 * j + i];
 }
 
 // out (64 x 128 fp32, row-major) = acc + bias: the oracle's raw logits.

@@ -4,8 +4,11 @@ Each ``.cu`` source under ``adanerf_tpu_torch/csrc/`` compiles on its own
 (with ``csrc/`` on the include path for the shared ``.cuh`` headers) into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), cached in ``adanerf_tpu_torch/_build/`` under a hash of the
-source and the flags. Sources build in parallel, one ``nvcc`` each.
-Nothing is compiled at import time.
+source and the flags. A library is named by its source, or by a variant of
+it, ``"<source>:<MACRO>=<value>"`` (``variant``), which compiles the source
+with ``-D<MACRO>=<value>``: the kernels' MLP width is such a macro, one
+library per width. Libraries build in parallel, one ``nvcc`` each. Nothing
+is compiled at import time.
 """
 
 from __future__ import annotations
@@ -43,21 +46,34 @@ def find_nvcc() -> str:
                        "with the CUDA toolkit")
 
 
+def variant(source: str, macro: str, value: int) -> str:
+    """The library of ``source`` compiled with ``-D<macro>=<value>``."""
+    return f"{source}:{macro}={value}"
+
+
+def _split(lib: str):
+    """(source file, [-D flags]) of a library name."""
+    source, _, define = lib.partition(":")
+    return source, ([f"-D{define}"] if define else [])
+
+
 def library_path(source: str) -> str:
-    """Cache path of ``source``'s library: a hash of its text, the shared
-    headers of ``csrc/`` and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    """Cache path of ``source``'s library (a source, or a ``variant``): a
+    hash of its text, the shared headers of ``csrc/`` and the flags."""
+    src, defines = _split(source)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
     headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
-    for name in [source] + headers:
+    for name in [src] + headers:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()
-    stem = os.path.splitext(source)[0]
+    stem = os.path.splitext(src)[0] + "".join("-" + d[2:].replace("=", "") for d in defines)
     return os.path.join(BUILD_DIR, f"{stem}-{digest[:16]}.so")
 
 
 def nvcc_command(nvcc: str, source: str, out: str) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", out, os.path.join(CSRC_DIR, source)]
+    src, defines = _split(source)
+    return [nvcc, *NVCC_FLAGS, *defines, "-I", CSRC_DIR, "-o", out, os.path.join(CSRC_DIR, src)]
 
 
 def build(sources: List[str]) -> Dict[str, str]:

@@ -10,6 +10,10 @@ it renders a batch of rays to ``(rgb (B, 3), counts (B,))``:
   * on a CPU tensor it runs the plain version, ``plain``, which is the
     renderer's own PyTorch path (``adanerf_tpu_torch/realtime.py``).
 
+It takes MLPs of one width, 128, 256, 384 or 512 (``WIDTHS``; one library
+each, ``library``); ``refusal`` says why it does not take an export, and
+the viewer's default route asks it.
+
 The kernel takes the renderer's precision: fp32 weights when
 ``renderer.dtype`` is None, bf16 weights and bf16-rounded matmul inputs
 with fp32 accumulation when it is ``torch.bfloat16``. Both precisions pack
@@ -34,7 +38,8 @@ from . import build
 
 SOURCE = "megakernel_compact.cu"
 MAXL = 16   # most layers per MLP (MkParams arrays)
-WIDTH = 256  # hidden width the kernel is written for
+WIDTHS = (128, 256, 384, 512)  # hidden widths the kernels are built for
+ROADMAP = "ROADMAP Queue 2, K1/K2 widths above 512"
 ALIGN = 64   # element alignment of each packed matrix
 
 _ll16 = ctypes.c_longlong * MAXL
@@ -56,6 +61,7 @@ class MkParams(ctypes.Structure):
         [(k, ctypes.c_float) for k in ("z_a", "z_b", "ndc_wf", "ndc_hf")]
 
 
+PASS = 256  # widest output a wgmma pass takes: wider layers run in passes
 TC_KC = 64  # K rows of a bf16 weight chunk: one 128-byte swizzle atom of bf16
 # rows one walk of a bf16 stream serves: a block's two 64-row consumers
 # read every chunk it fetches from L2
@@ -64,6 +70,20 @@ TC_ROWS_PER_WALK = 128
 
 def _pad(n: int, m: int) -> int:
     return m * math.ceil(n / m)
+
+
+def library(source: str, width: int) -> str:
+    """The library (``build`` name) of a frame kernel's source at an MLP
+    width: the source as it is at 256, its ``MLP_WIDTH`` variant at the
+    others."""
+    return source if width == 256 else build.variant(source, "MLP_WIDTH", width)
+
+
+def passes(n: int):
+    """[(first column, columns)] of the wgmma passes of an n-column layer:
+    one up to 256 columns, else 256 and the rest (csrc/mlp_wgmma.cuh's
+    tc_passes)."""
+    return [(c0, min(PASS, n - c0)) for c0 in range(0, n, PASS)]
 
 
 def swizzle128(n_rows: int) -> np.ndarray:
@@ -85,26 +105,41 @@ def unpack_chunks(flat: np.ndarray, off: int, rows: int, n: int) -> np.ndarray:
     return np.concatenate([c[idx].T for c in chunks])
 
 
-def stream_plan(P, front: bool):
+def stream_plan(P, front: bool, width: int = 256):
     """[(kc0, kc1, n)] for each weight layer of a bf16 stream, as
     ``csrc/megakernel.cuh::tc_plan`` walks it: kc0 chunks of the layer's
     first input, kc1 of the encoded input x (a NeRF skip layer, the views
-    layer), n output columns. The front walks the oracle, the shade the NeRF
-    trunk, the feature layer and the views layer."""
+    layer), n output columns (a layer wider than 256 comes pass by pass,
+    ``passes``: each pass's kc0 + kc1 chunks). The front walks the oracle,
+    the shade the NeRF trunk, the feature layer and the views layer (width
+    / 2 wide)."""
+    W = width
     if front:
-        return [(P.in0 // TC_KC if l == 0 else WIDTH // TC_KC, 0,
-                 128 if l == P.depth0 - 1 else WIDTH) for l in range(P.depth0)]
-    plan = [(P.in1 // TC_KC, 0, WIDTH)]
+        return [(P.in0 // TC_KC if l == 0 else W // TC_KC, 0,
+                 128 if l == P.depth0 - 1 else W) for l in range(P.depth0)]
+    plan = [(P.in1 // TC_KC, 0, W)]
     for l in range(1, P.depth1):
-        plan.append((WIDTH // TC_KC, P.in1 // TC_KC if (P.skip_mask >> (l - 1)) & 1 else 0,
-                     WIDTH))
-    return plan + [(WIDTH // TC_KC, 0, WIDTH), (WIDTH // TC_KC, P.in1 // TC_KC, 128)]
+        plan.append((W // TC_KC, P.in1 // TC_KC if (P.skip_mask >> (l - 1)) & 1 else 0, W))
+    return plan + [(W // TC_KC, 0, W), (W // TC_KC, P.in1 // TC_KC, W // 2)]
 
 
-def stream_bytes(P, front: bool) -> int:
+def stream_bytes(P, front: bool, width: int = 256) -> int:
     """Bytes of one walk of a bf16 stream: what TC_ROWS_PER_WALK rows read
     from L2."""
-    return sum((kc0 + kc1) * n * TC_KC * 2 for kc0, kc1, n in stream_plan(P, front))
+    return sum((kc0 + kc1) * n * TC_KC * 2 for kc0, kc1, n in stream_plan(P, front, width))
+
+
+def unpack_layer(flat: np.ndarray, off: int, kcs, n: int):
+    """The matrices (kc * 64 rows, n columns each, for kc in kcs; None where
+    kc is 0) of one layer that ``_Packer.layer`` wrote at element ``off``,
+    pass by pass, as the kernel reads them back; and the offset past it."""
+    parts = [[] for _ in kcs]
+    for _, np_ in passes(n):
+        for m, kc in enumerate(kcs):
+            if kc:
+                parts[m].append(unpack_chunks(flat, off, kc * TC_KC, np_))
+                off += kc * TC_KC * np_
+    return [np.concatenate(p, axis=1) if p else None for p in parts], off
 
 
 class _Packer:
@@ -132,21 +167,28 @@ class _Packer:
         self.nw += flat.size
         return off
 
-    def chunks(self, a, n, rows=None):
-        """Appends a (K, <= n) matrix as bf16 weight chunks: rows padded with
-        zeros to ``rows`` (default K) and then to a multiple of 64, columns
-        to n; each 64-row block transposed to (n, 64) and laid out by
-        ``swizzle128``, n * 64 elements a chunk, one after the other."""
-        a = np.asarray(a, np.float32)
-        a = self._pad(a, _pad(rows or a.shape[0], TC_KC), n)
-        idx = swizzle128(n)
-        out = np.zeros((a.shape[0] // TC_KC, n * TC_KC), np.float32)
-        for c in range(out.shape[0]):
-            out[c, idx] = a[c * TC_KC:(c + 1) * TC_KC].T
-        off = self.nw
-        self.w.append(out.reshape(-1))
-        self.nw += out.size
-        return off
+    def layer(self, mats, n):
+        """Appends one layer's input matrices [(a (K, <= n), rows or None)]
+        as bf16 weight chunks: rows padded with zeros to ``rows`` (default K)
+        and then to a multiple of 64, columns to n; pass by pass
+        (``passes``), each matrix's columns of the pass as 64-row blocks,
+        each transposed to (pass columns, 64) and laid out by
+        ``swizzle128``, one after the other. Returns each matrix's offset
+        (of its first chunk)."""
+        padded = [self._pad(np.asarray(a, np.float32), _pad(rows or a.shape[0], TC_KC), n)
+                  for a, rows in mats]
+        offs = [None] * len(mats)
+        for c0, np_ in passes(n):
+            idx = swizzle128(np_)
+            for m, a in enumerate(padded):
+                out = np.zeros((a.shape[0] // TC_KC, np_ * TC_KC), np.float32)
+                for c in range(out.shape[0]):
+                    out[c, idx] = a[c * TC_KC:(c + 1) * TC_KC, c0:c0 + np_].T
+                if offs[m] is None:
+                    offs[m] = self.nw
+                self.w.append(out.reshape(-1))
+                self.nw += out.size
+        return offs
 
     def vec(self, v, n=None):
         v = np.asarray(v, np.float32).reshape(-1)
@@ -162,6 +204,52 @@ def _numpy_state(module):
     return {k: v.detach().float().cpu().numpy() for k, v in module.state_dict().items()}
 
 
+def refusal(renderer):
+    """Why K1 (and K2, which adds refusals of its own) does not take this
+    renderer's export, or None when it does. The wrapper raises it; the
+    viewer's default route asks it to choose between K1 and the plain
+    path."""
+    rt, cfg = renderer, renderer.config
+    oracle, nerf = rt.oracle, rt.nerf
+    if renderer.dtype not in (None, torch.bfloat16):
+        return f"kernel precision is fp32 or bf16, got {renderer.dtype}"
+    if list(cfg.posEnc) != ["nerf", "nerf"]:
+        return f"kernel implements the nerf encoding, got {cfg.posEnc}"
+    if not rt.threshold > 0.0:
+        return (f"kernel needs an adaptive model (adaptiveSamplingThreshold > 0; this one has "
+                f"threshold {rt.threshold})")
+    D, S = oracle.n_out, rt.max_samples
+    if D % 32 or D > 128 or not 1 <= S <= 16:
+        return f"kernel needs D in 32..128 step 32 and S <= 16 (D={D}, S={S})"
+    if rt.norm_name not in ("InverseSqrtDistCentered", "None", "none"):
+        # an absent key means MaxDepth, which the kernel does not implement
+        return (f"kernel supports rayMarchNormalization[1] in "
+                f"('InverseSqrtDistCentered', 'None'); got {rt.norm_name!r}")
+    if rt.accumulation_mult not in (None, "alpha", "weights"):
+        return f"unknown accumulationMult {rt.accumulation_mult!r}"
+    if nerf.width > WIDTHS[-1] and nerf.width % 128 == 0:
+        return (f"MLP width {nerf.width}: the kernels are built for widths up to "
+                f"{WIDTHS[-1]} ({ROADMAP})")
+    if nerf.width not in WIDTHS:
+        return f"kernel needs an MLP width in {WIDTHS}, got {nerf.width}"
+    if oracle.width != nerf.width:
+        return (f"kernel needs the oracle as wide as the NeRF (oracle {oracle.width}, "
+                f"NeRF {nerf.width}; {ROADMAP} and mixed widths)")
+    if oracle.skip or oracle.depth > MAXL or nerf.depth > MAXL:
+        return f"kernel needs a skip-free oracle and MLPs of <= {MAXL} layers"
+    if oracle.depth < 2:
+        return "kernel needs an oracle of at least 2 layers"
+    fp0, fd0 = [int(x) for x in cfg.posEncArgs[0].split('-')]
+    fp1, fd1 = [int(x) for x in cfg.posEncArgs[1].split('-')]
+    in_ch, in_views = nerf.input_ch, nerf.input_ch_views
+    if in_ch != 6 * fp1 + 3 or in_views != 6 * fd1 + 3 \
+            or oracle.n_in != 6 * (fp0 + fd0) + 6:
+        return "MLP input widths do not match posEncArgs"
+    if oracle.n_in > 128 or in_ch + in_views > 128:
+        return "encoded inputs wider than 128 columns"
+    return None
+
+
 class MegakernelCompact:
     """K1 wrapper around a ``RealtimeRenderer`` (the plain version).
 
@@ -174,40 +262,19 @@ class MegakernelCompact:
 
     def __init__(self, renderer):
         self.renderer = renderer
+        reason = refusal(renderer)
+        if reason is not None:
+            raise ValueError(reason)
         rt, cfg, sc = renderer, renderer.config, renderer.scene
         oracle, nerf = rt.oracle, rt.nerf
-        if renderer.dtype not in (None, torch.bfloat16):
-            raise ValueError(f"kernel precision is fp32 or bf16, got {renderer.dtype}")
-        if oracle.width != WIDTH or nerf.width != WIDTH:
-            raise ValueError(f"kernel needs width {WIDTH} MLPs")
-        if oracle.skip or oracle.depth > MAXL or nerf.depth > MAXL:
-            raise ValueError("kernel needs a skip-free oracle of <= 16 layers")
-        if list(cfg.posEnc) != ["nerf", "nerf"]:
-            raise ValueError(f"kernel implements the nerf encoding, got {cfg.posEnc}")
-        if not rt.threshold > 0.0:
-            raise ValueError("kernel needs an adaptive model (adaptiveSamplingThreshold > 0)")
+        W = self.width = nerf.width
         D, S = oracle.n_out, rt.max_samples
-        if D % 32 or D > 128 or not 1 <= S <= 16:
-            raise ValueError(f"kernel needs D in 32..128 step 32 and S <= 16 (D={D}, S={S})")
-        if rt.norm_name not in ("InverseSqrtDistCentered", "None", "none"):
-            # an absent key means MaxDepth, which the kernel does not implement
-            raise ValueError(f"kernel supports rayMarchNormalization[1] in "
-                             f"('InverseSqrtDistCentered', 'None'); got {rt.norm_name!r}")
-        if rt.accumulation_mult not in (None, "alpha", "weights"):
-            raise ValueError(f"unknown accumulationMult {rt.accumulation_mult!r}")
         fp0, fd0 = [int(x) for x in cfg.posEncArgs[0].split('-')]
         fp1, fd1 = [int(x) for x in cfg.posEncArgs[1].split('-')]
         in_ch, in_views = nerf.input_ch, nerf.input_ch_views
-        if in_ch != 6 * fp1 + 3 or in_views != 6 * fd1 + 3 \
-                or oracle.n_in != 6 * (fp0 + fd0) + 6:
-            raise ValueError("MLP input widths do not match posEncArgs")
-        if oracle.depth < 2:
-            raise ValueError("kernel needs an oracle of at least 2 layers")
         bf16 = renderer.dtype is torch.bfloat16
         # the tensor-core layer takes K in 64-column blocks
         in0, in1 = (_pad(n, TC_KC if bf16 else 32) for n in (oracle.n_in, in_ch + in_views))
-        if in0 > 128 or in1 > 128:
-            raise ValueError("encoded inputs wider than 128 columns")
 
         P = MkParams()
         pk = _Packer()
@@ -216,7 +283,7 @@ class MegakernelCompact:
         # rows), the feature and views layers, then the row-major heads. bf16
         # writes each as stream chunks, which its kernels walk from o_w[0]
         # and n_w[0]; fp32 keeps them row-major, read by their offsets
-        mat = (lambda a, rows=None, cols=None: pk.chunks(a, cols or a.shape[1], rows)) \
+        mat = (lambda a, rows=None, cols=None: pk.layer([(a, rows)], cols or a.shape[1])[0]) \
             if bf16 else pk.mat
         ow = _numpy_state(oracle)
         for i in range(oracle.depth):
@@ -232,15 +299,18 @@ class MegakernelCompact:
             w = nw[f"pts.{i}.w"]
             skip = (i - 1) in nerf.skips  # input is [input_pts, h]
             skip_mask |= skip << (i - 1)
-            P.n_w[i] = mat(w[in_ch:] if skip else w)
-            if skip:
-                P.n_wx[i] = mat(w[:in_ch], rows=in1)
+            if skip and bf16:  # [h, x] pass by pass
+                P.n_w[i], P.n_wx[i] = pk.layer([(w[in_ch:], None), (w[:in_ch], in1)], W)
+            else:
+                P.n_w[i] = mat(w[in_ch:] if skip else w)
+                if skip:
+                    P.n_wx[i] = mat(w[:in_ch], rows=in1)
             P.n_b[i] = pk.vec(nw[f"pts.{i}.b"])
         P.n_wf, P.n_bf = mat(nw["feature.w"]), pk.vec(nw["feature.b"])
         wv = nw["views.0.w"]  # input is [feature W | dirs in_views]
-        P.n_wvf = mat(wv[:WIDTH])
-        wvd = np.zeros((in1, WIDTH // 2), np.float32)
-        wvd[in_ch:in_ch + in_views] = wv[WIDTH:]
+        P.n_wvf = mat(wv[:W])
+        wvd = np.zeros((in1, W // 2), np.float32)
+        wvd[in_ch:in_ch + in_views] = wv[W:]
         P.n_wvd = mat(wvd)
         P.n_bv = pk.vec(nw["views.0.b"])
         P.n_wa, P.n_ba = pk.mat(nw["alpha.w"]), pk.vec(nw["alpha.b"])
@@ -343,7 +413,7 @@ class MegakernelCompact:
         raw = torch.empty((B, S, 4), **f32)
         rgb = torch.empty((B, 3), **f32)
 
-        launch = _library(self.SOURCE, self.SYMBOL)
+        launch = _library(self.SOURCE, self.SYMBOL, self.width)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
             dev.index if dev.index is not None else torch.cuda.current_device(),
@@ -356,10 +426,10 @@ class MegakernelCompact:
         return o_sh, d_sh, zbuf, pbuf, counts, rgb
 
 
-def _library(source, symbol):
-    """The launch function ``symbol`` of ``source``'s library, bound and
-    checked against this MkParams layout."""
-    lib = build.load(source)
+def _library(source, symbol, width):
+    """The launch function ``symbol`` of ``source``'s library at an MLP
+    width, bound and checked against this MkParams layout."""
+    lib = build.load(library(source, width))
     if not getattr(lib, "_mk_bound", False):
         fn = getattr(lib, symbol)
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(MkParams)] + [ctypes.c_void_p] * 15
@@ -369,5 +439,8 @@ def _library(source, symbol):
         if lib.mk_struct_size() != ctypes.sizeof(MkParams):
             raise RuntimeError(f"MkParams layout differs: C {lib.mk_struct_size()} "
                                f"bytes, ctypes {ctypes.sizeof(MkParams)} bytes")
+        lib.mk_width.restype = ctypes.c_int
+        if lib.mk_width() != width:
+            raise RuntimeError(f"{library(source, width)} is built for width {lib.mk_width()}")
         lib._mk_bound = True
     return getattr(lib, symbol)

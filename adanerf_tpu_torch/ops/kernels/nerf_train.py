@@ -19,7 +19,9 @@ returns ``[rgb, alpha] (..., 4)``, and autograd reaches every NeRF leaf and
 
 The kernel's arithmetic is the TPU kernel's: each product rounds both
 operands to bf16 and sums in fp32, in the weight gradients too; biases and
-bias gradients are fp32.
+bias gradients are fp32. It takes a NeRF of width 128, 256, 384 or 512
+(``WIDTHS``; one library each, ``library``), at most 16 trunk layers and
+128 encoded input columns, and refuses any other by name.
 
 Layouts the card reads, built here (the CPU tests hold them):
   * two weight streams (``stream_plan``): every matrix the forward and the
@@ -44,19 +46,25 @@ import numpy as np
 import torch
 
 from . import build
-from .megakernel_compact import TC_KC, swizzle128
+from .megakernel_compact import PASS, TC_KC, passes, swizzle128, unpack_chunks
 
 SOURCE = "nerf_train.cu"
 MAXL = 16    # most trunk layers (K3Params arrays)
-WIDTH = 256  # hidden width the kernel is written for
-VW = WIDTH // 2  # views layer width
+WIDTHS = (128, 256, 384, 512)  # hidden widths the kernel is built for, one library each
 XW = 128     # encoded input columns, padded: the kernel takes at most this many
 TILE_ROWS = 64   # rows of a scratch tile (the wgmma M)
 DW_SLICE_TILES = 256  # row tiles per weight-gradient partial (16,384 rows)
-DW_PART = 2 * TILE_ROWS * WIDTH  # floats of one partial slot
+DW_PART = 2 * TILE_ROWS * PASS  # floats of one partial slot
 BACKWARD_KERNEL_NAMES = ("k3_recompute", "k3_chain", "k3_dw", "k3_reduce")  # launch order
 BACKWARD_KERNELS = len(BACKWARD_KERNEL_NAMES)
 ROADMAP = "other NeRF shapes: ROADMAP Queue 2, K3"
+
+
+def library(width: int) -> str:
+    """The library (``build`` name) of K3 at a hidden width: the source as
+    it is at 256, its ``K3_WIDTH`` variant at the others."""
+    return SOURCE if width == 256 else build.variant(SOURCE, "K3_WIDTH", width)
+
 
 _ll = ctypes.c_longlong * MAXL
 
@@ -81,23 +89,44 @@ class DwTile(ctypes.Structure):
                                      "ldo", "m_valid", "pad")]
 
 
-def stream_plan(depth: int, skips) -> Tuple[List[Tuple[str, int, int]], List[Tuple[str, int, int]]]:
+def stream_plan(depth: int, skips, width: int = 256
+                ) -> Tuple[List[Tuple[str, int, int]], List[Tuple[str, int, int]]]:
     """(forward, backward): [(what, K, N)] for each matrix B of the products
     ``A (64 x K) @ B (K x N)`` that the kernels walk, in the walk order of
-    ``csrc/nerf_train.cu::k3_produce``. x is padded to XW columns."""
-    fwd = [("pts.0", XW, WIDTH)]
+    ``csrc/nerf_train.cu::k3_produce``. x is padded to XW columns. A
+    product wider than 256 columns comes pass by pass (``passes``): pass
+    c0's columns of each of its matrices, named ``what@c0``."""
+    W, H = width, width // 2
+
+    def layer(n, *mats):  # mats: (what, K) of the product's inputs
+        if n <= PASS:
+            return [(what, K, n) for what, K in mats]
+        return [(f"{what}@{c0}", K, np_) for c0, np_ in passes(n) for what, K in mats]
+    fwd = layer(W, ("pts.0", XW))
     for i in range(1, depth):
-        fwd.append((f"pts.{i}", WIDTH, WIDTH))
-        if (i - 1) in skips:
-            fwd.append((f"pts.{i}.x", XW, WIDTH))
-    fwd += [("feature", WIDTH, WIDTH), ("views.f", WIDTH, VW), ("views.x", XW, VW)]
-    bwd = [("views.x^T", VW, XW), ("views.f^T", VW, WIDTH), ("feature^T", WIDTH, WIDTH)]
+        fwd += layer(W, (f"pts.{i}", W), *([(f"pts.{i}.x", XW)] if (i - 1) in skips else []))
+    fwd += layer(W, ("feature", W)) + layer(H, ("views.f", W), ("views.x", XW))
+    bwd = layer(XW, ("views.x^T", H)) + layer(W, ("views.f^T", H)) + layer(W, ("feature^T", W))
     for i in range(depth - 1, 0, -1):
         if (i - 1) in skips:
-            bwd.append((f"pts.{i}.x^T", WIDTH, XW))
-        bwd.append((f"pts.{i}^T", WIDTH, WIDTH))
-    bwd.append(("pts.0^T", WIDTH, XW))
+            bwd += layer(XW, (f"pts.{i}.x^T", W))
+        bwd += layer(W, (f"pts.{i}^T", W))
+    bwd += layer(XW, ("pts.0^T", W))
     return fwd, bwd
+
+
+def unpack_stream(flat: np.ndarray, plan) -> Dict[str, np.ndarray]:
+    """{what: (K, N) matrix} of a weight stream walked by its plan, as the
+    kernels read it: a matrix streamed in passes has its passes' columns
+    put back side by side."""
+    out, off = {}, 0
+    for what, K, N in plan:
+        name, _, c0 = what.partition("@")
+        m = unpack_chunks(flat, off, K, N)
+        out[name] = np.concatenate([out[name], m], axis=1) if c0 not in ("", "0") else m
+        off += K * N
+    assert off == flat.size, (off, flat.size)
+    return out
 
 
 def chunk_order(a: np.ndarray, fill) -> np.ndarray:
@@ -151,8 +180,9 @@ class NerfTrainKernel:
     forward_rows = None
 
     def __init__(self, nerf):
-        if nerf.width != WIDTH:
-            raise ValueError(f"kernel needs NeRF width {WIDTH}, got {nerf.width} ({ROADMAP})")
+        if nerf.width not in WIDTHS:
+            raise ValueError(f"kernel needs a NeRF width in {WIDTHS}, got {nerf.width} "
+                             f"({ROADMAP})")
         if nerf.depth > MAXL or nerf.depth < 1:
             raise ValueError(f"kernel needs 1..{MAXL} trunk layers, got {nerf.depth} ({ROADMAP})")
         n_in = nerf.input_ch + nerf.input_ch_views
@@ -160,7 +190,8 @@ class NerfTrainKernel:
             raise ValueError(f"kernel takes at most {XW} input columns, got {n_in} ({ROADMAP})")
         self.nerf = nerf
         self.n_in = n_in
-        W, H, ic, iv, D = WIDTH, VW, nerf.input_ch, nerf.input_ch_views, nerf.depth
+        self.width = W = nerf.width
+        H, ic, iv, D = W // 2, nerf.input_ch, nerf.input_ch_views, nerf.depth
         self.names = [n for n, _ in nerf.named_parameters()]
         self.shapes = {n: tuple(p.shape) for n, p in nerf.named_parameters()}
 
@@ -188,12 +219,14 @@ class NerfTrainKernel:
             mats[f"pts.{i}"] = h_part(i)
             if (i - 1) in nerf.skips:
                 mats[f"pts.{i}.x"] = _pad(m(f"pts.{i}.w")[:ic], XW, W, Z)
-        self.plan = stream_plan(D, nerf.skips)
+        self.plan = stream_plan(D, nerf.skips, W)
         streams = []
         for plan in self.plan:
             parts = []
             for what, K, N in plan:
-                a = mats[what[:-2]].T if what.endswith("^T") else mats[what]
+                name, _, c0 = what.partition("@")
+                a = mats[name[:-2]].T if name.endswith("^T") else mats[name]
+                a = a[:, int(c0 or 0):int(c0 or 0) + N]
                 assert a.shape == (K, N), (what, a.shape)
                 parts.append(chunk_order(a, Z))
             streams.append(np.concatenate(parts))
@@ -283,10 +316,10 @@ class NerfTrainKernel:
         x, each trunk layer's output h.i, the feature, the views output hv,
         each trunk layer's output cotangent g.i (after its relu mask), and
         the feature's and views layer's, g.feat and g.hv."""
-        D = self.nerf.depth
-        order = [("x", XW)] + [(f"h.{i}", WIDTH) for i in range(D)] + \
-            [("feat", WIDTH), ("hv", VW)] + [(f"g.{i}", WIDTH) for i in range(D)] + \
-            [("g.feat", WIDTH), ("g.hv", VW)]
+        D, W = self.nerf.depth, self.width
+        order = [("x", XW)] + [(f"h.{i}", W) for i in range(D)] + \
+            [("feat", W), ("hv", W // 2)] + [(f"g.{i}", W) for i in range(D)] + \
+            [("g.feat", W), ("g.hv", W // 2)]
         out, off, T = {}, 0, self.tiles(N)
         for name, F in order:
             out[name] = (off, F)
@@ -305,30 +338,32 @@ class NerfTrainKernel:
         return untile_rows(scratch[off:], self.tiles(N), F, N)
 
     def relu_outputs(self, scratch: torch.Tensor, N: int) -> List[torch.Tensor]:
-        """A used scratch's bf16 relu outputs: each trunk layer's (N, 256),
-        then the views layer's (N, 128)."""
+        """A used scratch's bf16 relu outputs: each trunk layer's (N, W),
+        then the views layer's (N, W / 2)."""
         return [self.scratch_matrix(scratch, N, f"h.{i}") for i in range(self.nerf.depth)] + \
             [self.scratch_matrix(scratch, N, "hv")]
 
     def dw_tiles(self, N: int) -> List[DwTile]:
         """The weight-gradient table for N rows: per gradient (or its x
         rows), its output tiles of at most two 64-row slabs of A's features
-        by B's columns; dst offsets index the grads buffer."""
-        lay, W, ic, D = self.scratch_layout(N), WIDTH, self.nerf.input_ch, self.nerf.depth
+        by at most 256 of B's columns; dst offsets index the grads
+        buffer."""
+        lay, W, ic, D = self.scratch_layout(N), self.width, self.nerf.input_ch, self.nerf.depth
         out = []
 
         def job(a, k_lo, k_hi, b, leaf, row0):
             (sa, fa), (sb, fb) = lay[a], lay[b]
             ldo = self.shapes[leaf][1]
-            for s0 in range(k_lo // 64, math.ceil(k_hi / 64), 2):
-                t = DwTile()
-                t.a, t.b = sa + s0 * 64 * 64, sb
-                t.a_stride, t.b_stride, t.n = TILE_ROWS * fa, TILE_ROWS * fb, fb
-                t.nslab = min(2, math.ceil(k_hi / 64) - s0)
-                t.k0, t.k_lo, t.k_hi = 64 * s0, k_lo, k_hi
-                t.ldo, t.m_valid = ldo, ldo
-                t.dst = self.grad_slices[leaf] + row0 * ldo
-                out.append(t)
+            for c0, n in passes(fb):
+                for s0 in range(k_lo // 64, math.ceil(k_hi / 64), 2):
+                    t = DwTile()
+                    t.a, t.b = sa + s0 * 64 * 64, sb + c0 * TILE_ROWS
+                    t.a_stride, t.b_stride, t.n = TILE_ROWS * fa, TILE_ROWS * fb, n
+                    t.nslab = min(2, math.ceil(k_hi / 64) - s0)
+                    t.k0, t.k_lo, t.k_hi = 64 * s0, k_lo, k_hi
+                    t.ldo, t.m_valid = ldo, n
+                    t.dst = self.grad_slices[leaf] + row0 * ldo + c0
+                    out.append(t)
         job("x", 0, ic, "g.0", "pts.0.w", 0)
         for i in range(1, D):
             skip = (i - 1) in self.nerf.skips
@@ -382,7 +417,7 @@ class NerfTrainKernel:
         out = torch.empty((N, 4), dtype=torch.float32, device=x.device)
         P = self._params(N, x.device)
         fs, _, vec = packed
-        rc = _library().k3_forward(_device_index(x), ctypes.byref(P), x.data_ptr(), fs.data_ptr(),
+        rc = _library(self.width).k3_forward(_device_index(x), ctypes.byref(P), x.data_ptr(), fs.data_ptr(),
                                    vec.data_ptr(), out.data_ptr(),
                                    torch.cuda.current_stream(x.device).cuda_stream)
         if rc != 0:
@@ -402,14 +437,15 @@ class NerfTrainKernel:
         if scratch is None:
             scratch = self.new_scratch(N, dev)
         slots = 2 * P.blocks
-        masks = torch.empty(P.tiles * (self.nerf.depth + 1) * 512, dtype=torch.int32, device=dev)
+        masks = torch.empty(P.tiles * (self.nerf.depth + 1) * 2 * self.width, dtype=torch.int32,
+                            device=dev)
         bpart = torch.empty((slots, P.bp_width), dtype=torch.float32, device=dev)
         dx = torch.empty((N, self.n_in), dtype=torch.float32, device=dev)
         gbuf = torch.empty(self.grad_size, dtype=torch.float32, device=dev)
         table, n_tiles, S, tps = self._table(N, dev)
         part = torch.empty(n_tiles * S * DW_PART, dtype=torch.float32, device=dev)
         fs, bs, vec = packed
-        rc = _library().k3_backward(
+        rc = _library(self.width).k3_backward(
             _device_index(x), ctypes.byref(P), x.data_ptr(), g.data_ptr(), fs.data_ptr(),
             bs.data_ptr(), vec.data_ptr(), scratch.data_ptr(), masks.data_ptr(),
             bpart.data_ptr(), dx.data_ptr(), table.data_ptr(), n_tiles, S, tps, part.data_ptr(),
@@ -445,8 +481,8 @@ def _device_index(t: torch.Tensor) -> int:
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
-def _library():
-    lib = build.load(SOURCE)
+def _library(width: int):
+    lib = build.load(library(width))
     if not getattr(lib, "_k3_bound", False):
         lib.k3_forward.argtypes = [ctypes.c_int, ctypes.POINTER(K3Params)] + [ctypes.c_void_p] * 5
         lib.k3_forward.restype = ctypes.c_int
@@ -459,5 +495,7 @@ def _library():
             if lib.k3_struct_size(which) != ctypes.sizeof(cls):
                 raise RuntimeError(f"{cls.__name__} layout differs: C {lib.k3_struct_size(which)} "
                                    f"bytes, ctypes {ctypes.sizeof(cls)} bytes")
+        if lib.k3_struct_size(2) != width:
+            raise RuntimeError(f"{library(width)} is built for width {lib.k3_struct_size(2)}")
         lib._k3_bound = True
     return lib

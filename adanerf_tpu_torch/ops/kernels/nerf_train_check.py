@@ -34,7 +34,16 @@ NVIDIA H100 at 130 to 524,288 rows (PERF.md §6): forward on rows whose bf16
 outputs differ 1.1e-3 to 5.7e-3 of the output scale in 10.7% to 19.2% of
 the rows (the plain version alone is 1.1e-3 to 5.7e-3 from float64 sums of
 the same roundings); dX in rows whose relu signs differ up to 9.1e-2 of
-max |dX|, in 0.19% to 0.96% of the rows.
+max |dX|, in 0.19% to 0.96% of the rows. Those readings are of the 8x256
+NeRF, and the caps hold from 128 to 256. A wider NeRF gives each row
+more units whose bf16 rounding or relu sign can differ, and a difference
+in an early layer carries into every later one: on the same card at 384
+and 512 columns, 4,096 rows, 25% to 38% of the rows differed and 4.6% to
+8.5% flipped, with dX in flipped rows up to 2.2e-1 of max |dX| (PERF.md
+§6), while the kernel's layers stayed within their float64 bound and the
+plain version with the kernel's bf16 outputs stayed within the plain
+bars on every row. ``WIDE_CAPS`` are the caps above 256; the bars on
+agreeing rows and on every leaf are the same at every width.
 """
 
 from typing import Callable, Dict, List, Optional, Tuple
@@ -49,6 +58,14 @@ DIFFER_SHARE = 0.25  # the most such rows, as a share of all rows
 DX_FLIP_BAR = 2e-1  # dX, of max |dX|, in rows whose relu signs differ
 FLIP_SHARE = 0.02  # the most such rows, as a share of all rows
 REPORT_LINES = 40  # relu sign differences listed in the report
+# (DIFFER_SHARE, FLIP_SHARE, DX_FLIP_BAR) for a NeRF wider than 256
+WIDE_CAPS = (0.5, 0.12, 0.4)
+
+
+def caps(width: int) -> Tuple[float, float, float]:
+    """(share of rows whose bf16 layer outputs may differ, share of rows
+    whose relu signs may differ, dX bar in those rows) at a NeRF width."""
+    return (DIFFER_SHARE, FLIP_SHARE, DX_FLIP_BAR) if width <= 256 else WIDE_CAPS
 
 
 def gamma(n: int) -> float:
@@ -89,7 +106,7 @@ def compare(k3, x: torch.Tensor, cot: Callable[[torch.Tensor], torch.Tensor]) ->
         grads = torch.autograd.grad(out, [xr] + leaves, g)
         return out.detach(), g.detach(), dict(zip(["x"] + names, grads))
 
-    res = {"out": {}, "grads": {}, "report": []}
+    res = {"out": {}, "grads": {}, "report": [], "width": nerf.width}
     f0, b0 = type(k3).forward_launches, type(k3).backward_launches
     res["out"]["k"], g_k, res["grads"]["k"] = run(k3)
     res["launched"] = (type(k3).forward_launches - f0, type(k3).backward_launches - b0)
@@ -204,6 +221,7 @@ def verdict(res: Dict, scale: float = 1.0, dx_abs: Optional[float] = None
     place of the relative one with its relu-sign rows."""
     out, grads = res["out"], res["grads"]
     N = out["k"].shape[0]
+    differ_share, flip_share, dx_flip_bar = caps(res.get("width", 256))
     flips, differ = res["flips"], res["differ"]
     row_err = (out["k"] - out["p"]).abs().max(1).values / scale
     agree = ~differ
@@ -222,13 +240,13 @@ def verdict(res: Dict, scale: float = 1.0, dx_abs: Optional[float] = None
         f"forward, of the output scale {scale:.4g}: {fwd_agree:.3e} on the {int(agree.sum())} "
         f"rows whose bf16 layer outputs agree (allowed {FWD_BAR}), {fwd_differ:.3e} on the "
         f"{int(differ.sum())} others ({100 * float(differ.float().mean()):.2f}% of {N}; allowed "
-        f"{FWD_DIFFER_BAR} in at most {100 * DIFFER_SHARE:.0f}%); with the kernel's bf16 layer "
+        f"{FWD_DIFFER_BAR} in at most {100 * differ_share:.0f}%); with the kernel's bf16 layer "
         f"outputs {fwd_f:.3e} on every row (allowed {FWD_BAR})",
         f"grads: worst parameter leaf {worst[1]} {worst[0]:.3e} of its max (allowed {GRAD_BAR}); "
         f"with the kernel's bf16 layer outputs worst leaf {worst_f[1]} {worst_f[0]:.3e}, dX "
         f"included (allowed {GRAD_BAR})"]
     ok = (res["layer_faults"] == 0 and res["deterministic"] and fwd_agree <= FWD_BAR
-          and fwd_differ <= FWD_DIFFER_BAR and float(differ.float().mean()) <= DIFFER_SHARE
+          and fwd_differ <= FWD_DIFFER_BAR and float(differ.float().mean()) <= differ_share
           and fwd_f <= FWD_BAR and worst[0] <= GRAD_BAR and worst_f[0] <= GRAD_BAR)
     if dx_abs is not None:
         lines.append(f"dX max abs err {errs['x'][1]:.3e} on every element (allowed {dx_abs}), "
@@ -240,9 +258,9 @@ def verdict(res: Dict, scale: float = 1.0, dx_abs: Optional[float] = None
             f"{GRAD_BAR}: {int((dx_rel > GRAD_BAR).sum())} elements in {int(bad_rows.sum())} rows, "
             f"{unexplained} of them without a relu sign difference (allowed 0); rows with relu "
             f"sign differences {int(flips.sum())} ({100 * float(flips.float().mean()):.2f}%; "
-            f"allowed {100 * FLIP_SHARE:.0f}%, dX there within {DX_FLIP_BAR})")
-        ok = ok and unexplained == 0 and float(flips.float().mean()) <= FLIP_SHARE \
-            and float(dx_rel.max()) <= DX_FLIP_BAR
+            f"allowed {100 * flip_share:.0f}%, dX there within {dx_flip_bar})")
+        ok = ok and unexplained == 0 and float(flips.float().mean()) <= flip_share \
+            and float(dx_rel.max()) <= dx_flip_bar
     lines.append(f"kernel layers within their float64 bound on every element: "
                  f"{res['layer_faults'] == 0}; a second backward bit for bit equal: "
                  f"{res['deterministic']}")

@@ -113,6 +113,29 @@ def init_multi_host(device="cpu") -> int:
     return launch["rank"]
 
 
+def leave_group(in_step: bool = True):
+    """End this process's part in the group ``init_multi_host`` joined:
+    a barrier, then ``destroy_process_group``. Rank 0 hosts the ``tcp://``
+    store, so it leaves last: it keeps the store up until every other rank
+    has destroyed its group and said so through the store (a rank whose
+    store goes while its c10d threads run aborts at exit). ``in_step``
+    False (this rank failed, the others may never reach the barrier) only
+    destroys the group. Nothing to do without a group."""
+    if not dist.is_initialized():
+        return
+    if not in_step:
+        dist.destroy_process_group()
+        return
+    store = dist.distributed_c10d._get_default_store()  # outlives the group below
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        store.wait([f"left/{r}" for r in range(1, world)], TIMEOUT)
+    else:
+        store.set(f"left/{rank}", "1")
+
+
 def make_mesh(n_devices: int = -1):
     """The group of ranks that trains: the default group of a run that
     joined one (``init_multi_host``, ``spawn_ranks``), None on a single

@@ -30,8 +30,8 @@ rank runs it whole.
 Refused before step 0: more GPUs than the host has (JAX's ``make_mesh``
 would truncate), rays per image that do not divide over the ranks, and,
 naming its ROADMAP item, a NeRF that the JAX package would train through
-its TPU kernel but K3 does not take yet (a width other than 256) on a run
-that asks for K3.
+its TPU kernel but K3 does not take yet (a width above 512, more than 16
+layers) on a run that asks for K3.
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ def unsupported_by_k3(config) -> list:
     ``--fusedTrainKernel 1``), each NeRF that the JAX package trains through
     its TPU kernel (width a multiple of 128) but K3 does not take yet: such a
     run is refused rather than trained on the plain path."""
-    from .ops.kernels.nerf_train import MAXL, ROADMAP, WIDTH
+    from .ops.kernels.nerf_train import MAXL, ROADMAP, WIDTHS
     if not (config.bf16 and config.fusedTrainKernel
             and parse_device(config.device).type == "cuda"):
         return []
@@ -104,9 +104,9 @@ def unsupported_by_k3(config) -> list:
         width, depth = config.layerWidth[i], config.layers[i]
         if act != "nerf" or width % 128 or width < 128:
             continue
-        if width != WIDTH or depth > MAXL:
+        if width not in WIDTHS or depth > MAXL:
             out.append(f"--layerWidth {width}, --layers {depth} (net {i}) with --bf16 and "
-                       f"--fusedTrainKernel 1 on CUDA: K3 takes width {WIDTH} and at most "
+                       f"--fusedTrainKernel 1 on CUDA: K3 takes widths {WIDTHS} and at most "
                        f"{MAXL} layers ({ROADMAP}); --fusedTrainKernel 0 trains this net on "
                        "the plain path")
     return out
@@ -433,7 +433,13 @@ def main(argv=None) -> dict:
         mesh.init_multi_host(device=config.device)
         config.device = str(mesh.rank_device(config.device, launch["rank"],
                                              launch["local_rank"]))
-        return run(config, mesh.make_mesh(config.meshDevices))
+        done = False
+        try:
+            stats = run(config, mesh.make_mesh(config.meshDevices))
+            done = True
+            return stats
+        finally:
+            mesh.leave_group(in_step=done)
     world = mesh_size(config)
     if world == 1:
         return run(config)
@@ -442,7 +448,9 @@ def main(argv=None) -> dict:
         [torch.device("cuda", i) for i in range(world)]
     if dev.type == "cuda" and config.bf16 and config.fusedTrainKernel:
         from .ops.kernels import build, nerf_train
-        build.build([nerf_train.SOURCE])  # once, before the ranks load it
+        build.build(sorted({nerf_train.library(w) for a, w in zip(config.activation,
+                                                                   config.layerWidth)
+                            if a == "nerf" and w in nerf_train.WIDTHS}))  # before the ranks
     init = mesh.rendezvous(config.logDir)
     procs = mesh.spawn_ranks(_rank_main, (argv,), devices, init, first=1)
     watching = mesh.watch_ranks(procs)

@@ -9,12 +9,15 @@ frames as PNG. ``--megakernel`` picks the kernel: ``v5d`` and ``v5`` run
 K1, the compacted renderer (``ops/kernels/megakernel_compact.py``); ``v3``
 runs K2, the dense-slot renderer (``ops/kernels/megakernel_dense.py``),
 which suits frames whose rays sit at the sample cap. Without
-``--megakernel``, an export the kernels take (adaptive, at most 16
-samples) renders through K1, and any other (a dense run's export, threshold
-0 or more samples) through the plain renderer,
+``--megakernel``, an export K1 takes (``megakernel_compact.refusal``, the
+predicate its wrapper raises on: adaptive, at most 16 samples, MLPs 128 to
+512 wide, the nerf encoding, an implemented normalization...) renders
+through K1, and any other (a dense run's export, a ``MaxDepth``
+normalization, a width above 512...) through the plain renderer,
 ``RealtimeRenderer.render_frame``, as the JAX viewer renders it without
 ``--megakernel``; a ``--megakernel`` that the export cannot take is refused,
-as in JAX. The viewer prints which path renders. ``--dynamic`` is accepted
+as in JAX (and, for a width above 512, which the JAX kernels take, naming
+its ROADMAP item). The viewer prints which path renders and why. ``--dynamic`` is accepted
 for the JAX viewer's command lines and changes nothing: the plain path has
 no capacity to bucket. ``--mesh N`` shards each frame's rays over N GPUs
 (``parallel/render.py``: one kernel a GPU, no collectives); it needs a
@@ -48,7 +51,7 @@ from .data.camera import PredefinedCamera
 from .data.png import write_png
 from .models.mlp import BaseNetDef, NeRFDef
 from .ops.depth_transforms import get_depth_transform
-from .ops.kernels.megakernel_compact import MegakernelCompact
+from .ops.kernels.megakernel_compact import MegakernelCompact, refusal as kernel_refusal
 from .ops.kernels.megakernel_dense import MegakernelDense
 from .ops.raygen import generate_ray_directions
 from .parallel.render import ShardedFrame, devices_mesh
@@ -160,18 +163,13 @@ def frame_directions(scene, w, h, device):
     return torch.from_numpy(dirs.astype(np.float32)).to(device)
 
 
-def kernel_takes(rt) -> bool:
-    """Do the frame kernels take this export: adaptive (threshold > 0) with
-    at most 16 samples?"""
-    return rt.threshold > 0.0 and 8 * rt.max_samples <= 128
-
-
 def build_kernel(rt, variant):
     """The frame kernel of a ``--megakernel`` variant, with the JAX viewer's
     refusals: a non-adaptive model or more than 16 samples for any variant
-    (SystemExit), an NDC export for ``v3`` (ValueError)."""
+    (SystemExit), an NDC export for ``v3`` (ValueError); and the kernels'
+    own (ValueError: ``megakernel_compact.refusal``, K2's)."""
     S = rt.max_samples
-    if not kernel_takes(rt):
+    if not (rt.threshold > 0.0 and S <= 16):
         raise SystemExit("--megakernel needs an adaptive model (threshold>0, <=16 samples; "
                          f"got thr={rt.threshold}, S={S})")
     if variant == "v3":
@@ -212,8 +210,8 @@ def main(argv=None):
                         "dynamic-trip variants differ only on the TPU; K1 takes any live "
                         "count on the device); v3: K2, the dense-slot kernel, which shades "
                         "every slot and suits rays at the sample cap. Not given: K1 where "
-                        "the export is adaptive with at most 16 samples, else the plain "
-                        "renderer")
+                        "K1 takes the export (adaptive, at most 16 samples, MLPs 128 to 512 "
+                        "wide, ...), else the plain renderer")
     p.add_argument("--dynamic", action="store_true",
                    help="the JAX viewer's in-graph bucketing of its plain path; accepted, "
                         "no effect here")
@@ -233,16 +231,16 @@ def main(argv=None):
     rt, scene = build_renderer_from_export(args.model_dir, batch_size=bs,
                                            dtype_str="fp32" if args.fp32 else "bf16",
                                            device=device)
-    if args.megakernel is not None or kernel_takes(rt):
+    refused = None if args.megakernel is not None else kernel_refusal(rt)
+    if refused is None:
         variant = args.megakernel or "v5d"
         kernel = build_kernel(rt, variant)
         route = (f"{'K2' if variant == 'v3' else 'K1'} ({type(kernel).__name__}, "
                  + ("CUDA kernel)" if device.type == "cuda" else "its plain version on the CPU)"))
     else:
         kernel = None
-        route = (f"the plain renderer (RealtimeRenderer.render_frame): the kernels take "
-                 f"adaptive exports of at most 16 samples, this one has threshold "
-                 f"{rt.threshold} and {rt.max_samples} samples")
+        route = (f"the plain renderer (RealtimeRenderer.render_frame): K1 does not take this "
+                 f"export: {refused}")
     print(f"rendering through {route}", flush=True)
     dirs = frame_directions(scene, w, h, device)
     n_pix = dirs.shape[0]

@@ -3,7 +3,8 @@
 
   python3 chip_smoke.py
 
-Builds the CUDA kernels from the checkout (printing each kernel's
+Builds the CUDA kernels from the checkout, one library per source and MLP
+width (printing each kernel's
 registers, spills, shared memory and HGMMA count), holds each against its
 plain PyTorch version on the card (K3's backward also against itself: two
 calls must agree bit for bit), drives the port's paths (the viewer
@@ -23,8 +24,11 @@ and a fine NeRF, both through K3, at 262,144 and 786,432 rows a step;
 with the NeRF through K3), runs the scale-out (phase 17: two gloo ranks
 sharing the card through K3 against the one-process step, a 1-rank NCCL
 step, K1 and K2 over 4 slices of a frame, the viewer with ``--mesh 1``),
-and prints, as its last two lines, a JSON line of per-kernel numbers and
-a JSON line
+drives the main path at other MLP widths (phase 18: K3 alone at 524,288
+rows at widths 128, 384 and 512; at 128 and 512 both nets of the dense
+then the fine ini through K3, and the fine run's export through K1 and
+K2), and prints, as its last two lines, a JSON line of per-kernel numbers
+(each kernel's ``widths`` too) and a JSON line
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, without those lines, when there is no CUDA device or any phase
 fails. Imports torch, numpy and the standard library besides the port
@@ -63,6 +67,11 @@ K3_BASELINE_ROWS = (2 * 2048 * 64, 2 * 2048 * (64 + 128))
 K3_GT_ROWS = 2 * 2048 * 16  # gt_depth_training.ini's NeRF: 16 samples a ray
 BASELINE_STEPS, GT_PRETRAIN, GT_STEPS = 20, 10, 20
 DP_STEPS = 3  # phase 17's data-parallel steps
+# phase 18: the main path at other MLP widths (both nets --layerWidth W):
+# K3 alone at K3_ROWS rows at each of K3_WIDTHS, the dense -> fine -> export
+# -> viewer path at each of MAIN_WIDTHS
+K3_WIDTHS, MAIN_WIDTHS = (128, 384, 512), (128, 512)
+WIDTH_DENSE_STEPS = 8
 # the JAX package's fine run committed in the repo (S=8, threshold 0.2, fp32),
 # its evaluation on this host's CPU by the JAX package, and the bars the
 # port's evaluation on the card is held to against that fixture
@@ -581,8 +590,8 @@ def stage_report(label, n_rows_front, n_rows_shade, oracle, nerf, mk, ms_front, 
     from adanerf_tpu_torch.ops.kernels.megakernel_compact import TC_ROWS_PER_WALK, stream_bytes
     tiles_f = math.ceil(n_rows_front / TC_ROWS_PER_WALK)
     tiles_s = math.ceil(n_rows_shade / TC_ROWS_PER_WALK)
-    l2_f = tiles_f * stream_bytes(mk.params, True)
-    l2_s = tiles_s * stream_bytes(mk.params, False)
+    l2_f = tiles_f * stream_bytes(mk.params, True, mk.width)
+    l2_s = tiles_s * stream_bytes(mk.params, False, mk.width)
     ops_f = 2.0 * n_rows_front * oracle.macs_per_input()
     ops_s = 2.0 * n_rows_shade * nerf.macs_per_input()
     ms_s = ms_shade - ms_front
@@ -678,6 +687,117 @@ def k3_bounds(rows, nerf):
         out[key] = (max(bo, bb), "operations" if bo >= bb else "bytes",
                     ops / PEAK_OPS["fp32"] * 1e3)
     return out
+
+
+def k3_alone(width, dev):
+    """Phase 18a: K3 at K3_ROWS rows on a seeded 8 x ``width`` NeRF (x in
+    the encoding's range [-1, 1], the grads of mean((out - t)^2) with
+    seeded targets) against its plain version, with nerf_train_check's bars
+    and its caps for the width; then its times, the plain version's and
+    the bounds. Returns the numbers."""
+    from adanerf_tpu_torch.frame_times import time_ms
+    from adanerf_tpu_torch.models.mlp import NeRFDef
+    from adanerf_tpu_torch.ops.kernels import nerf_train_check
+    from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel
+    nerf = NeRFDef(8, width, 63, 27, 4, (4,))
+    nerf.reset_parameters(torch.Generator().manual_seed(width))
+    nerf = nerf.to(dev)
+    k3 = NerfTrainKernel(nerf)
+    rng = np.random.default_rng(width)
+    x = torch.from_numpy(rng.uniform(-1, 1, (K3_ROWS, 90)).astype(np.float32)).to(dev)
+    tg = torch.from_numpy(rng.standard_normal((K3_ROWS, 4)).astype(np.float32)).to(dev)
+    res = nerf_train_check.compare(
+        k3, x, lambda out: torch.autograd.grad(torch.mean((out - tg) ** 2), out,
+                                               retain_graph=True)[0])
+    torch.cuda.synchronize()
+    errs = grad_errors(res["grads"]["p"], res["grads"]["k"])
+    fwd_abs = float((res["out"]["k"] - res["out"]["p"]).abs().max())
+    bwd_abs = max(v[1] for v in errs.values())
+    ok, lines = nerf_train_check.verdict(res)
+    print(f"  K3 at width {width}, {K3_ROWS} rows, seeded weights and inputs, MSE:\n    "
+          + "\n    ".join(lines + res["report"][-3:]), flush=True)
+    if not ok or res["launched"] != (1, 1):
+        raise SystemExit(f"K3 at width {width} disagrees with its plain version")
+    del res
+    g = (2.0 / (K3_ROWS * 4)) * (k3.plain(x).detach() - tg)  # the MSE's cotangent
+    packed = k3.pack(dict(nerf.named_parameters()), dev)
+    ms_f = time_ms(lambda: k3.forward_kernel(x, packed), 5)
+    ms_b = time_ms(lambda: k3.backward_kernel(x, g, packed), 3)
+    with torch.no_grad():
+        ms_pf = time_ms(lambda: k3.plain(x), 3)
+    xr = x.clone().requires_grad_(True)
+    out_graph = k3.plain(xr)
+    leaves = [p for _, p in nerf.named_parameters()]
+    ms_pb = time_ms(lambda: torch.autograd.grad(out_graph, [xr] + leaves, g, retain_graph=True), 2)
+    del out_graph, xr, packed, x, tg, g
+    bounds = k3_bounds(K3_ROWS, nerf)
+    print(f"  K3 at width {width}: forward {ms_f:.3f} ms (bound {bounds['fwd'][0]:.3f}, "
+          f"{bounds['fwd'][1]}), backward {ms_b:.3f} ms (bound {bounds['bwd'][0]:.3f}, "
+          f"{bounds['bwd'][1]}); plain forward {ms_pf:.3f} ms, plain backward {ms_pb:.3f} ms; "
+          f"{nerf.macs_per_input()} multiply-adds a row forward", flush=True)
+    torch.cuda.empty_cache()
+    return dict(fwd_ms=ms_f, bwd_ms=ms_b, plain_fwd_ms=ms_pf, plain_bwd_ms=ms_pb,
+                bound_fwd_ms=bounds["fwd"][0], bound_bwd_ms=bounds["bwd"][0],
+                bound_fwd_by=bounds["fwd"][1], bound_bwd_by=bounds["bwd"][1],
+                max_abs_err_fwd=fwd_abs, max_abs_err_bwd=bwd_abs,
+                worst_leaf_rel_err=max(v[0] for k, v in errs.items() if k != "x"))
+
+
+def width_runs(train, kernel, width, log_dir, extra=()):
+    """Phase 18b: ``configs/dense_training.ini`` with both nets
+    ``--layerWidth width`` on demo/mscene (val and test cut to one image),
+    bf16, WIDTH_DENSE_STEPS steps validating at the last, then
+    ``configs/fine_training.ini`` at the same width from its ``_opt``
+    checkpoints (the teacher its regex derives) for FINE_STEPS steps,
+    validating at the last. K3's launches are counted from 0 for each run
+    and must equal its steps; each run's NeRF loss must fall. Returns
+    (numbers, the fine run's state, its trained weights as flat dicts, its
+    arguments)."""
+    from adanerf_tpu_torch.utils.weights import to_flat
+    scene = one_image_scene(log_dir)
+    logs = os.path.join(log_dir, "logs")
+    wide = ["--layerWidth", str(width), "--layerWidth", str(width), "--randomSeed", "0",
+            "--bf16", "--epochsRender", "1000000", "--epochsVideo", "-1",
+            "--epochsCheckpoint", "1000000", "--no-performEvaluation", "--verboseEvery", "5",
+            *extra]
+    out = {}
+    runs = (("dense", DENSE_INI, WIDTH_DENSE_STEPS,
+             ["--epochsLockWeightsBefore", "-1", "--epochsLockWeightsBefore", "-1"]),
+            ("fine", FINE_INI, FINE_STEPS, ["--preTrained", os.path.join(logs, "mscene")] * 2))
+    for name, ini, steps, more in runs:
+        argv = ["-c", ini, "-data", scene, "-log", logs, "--epochs", str(1 + steps),
+                "--epochsValidate", str(steps)] + wide + more
+        kernel.forward_launches = kernel.backward_launches = 0
+        kernel.forward_rows = None
+        stats = train.main(argv)
+        launches = (kernel.forward_launches, kernel.backward_launches)
+        ts = stats["state"]
+        mse = stats["losses"][:, 1]
+        k = max(1, steps // 4)
+        step_ms = stats["step_ms"][min(TRAIN_WARMUP, steps - 1):]
+        opt = sorted(f for f in os.listdir(ts.logDir) if "__opt." in f)
+        widths = [getattr(m, "width", None) for m in ts.models]
+        print(f"  {name} run at width {width} ({ts.logDir.rstrip('/').split('/')[-1]}): nets "
+              f"{widths}; K3 launches forward {launches[0]}, backward {launches[1]} ({steps} "
+              f"steps) at {kernel.forward_rows} rows; step {float(np.mean(step_ms)):.3f} ms "
+              f"(mean of {len(step_ms)}); NeRF loss mean of the first {k} steps "
+              f"{float(mse[:k].mean()):.6f}, of the last {k} {float(mse[-k:].mean()):.6f}; "
+              f"_opt files {opt}", flush=True)
+        if launches != (steps, steps) or widths != [width, width]:
+            raise SystemExit(f"the {name} run at width {width} launched K3 {launches} times, "
+                             f"expected {steps}, or its nets are {widths}")
+        if not (np.isfinite(stats["losses"]).all() and mse[-k:].mean() < mse[:k].mean()):
+            raise SystemExit(f"the {name} run's loss at width {width} did not fall")
+        if len(opt) != 2 * len(ts.models):
+            raise SystemExit(f"the {name} run at width {width} wrote no _opt checkpoints")
+        if name == "fine" and ts.teacher_experiment_name() != out["dense"]["name"]:
+            raise SystemExit(f"the fine run's teacher {ts.teacher_experiment_name()} is not the "
+                             f"dense run {out['dense']['name']}")
+        out[name] = dict(name=os.path.basename(ts.logDir.rstrip("/")), launches=launches,
+                         rows=kernel.forward_rows,
+                         step_ms=float(np.mean(step_ms)), loss_first=float(mse[:k].mean()),
+                         loss_last=float(mse[-k:].mean()))
+    return out, ts, [to_flat(m) for m in ts.models], argv
 
 
 def fine_leg(train, port_test, kernel, check, log_dir, dense_dir):
@@ -1338,13 +1458,16 @@ def main():
 
     t = time.perf_counter()
     phase("2 build")
-    sources = [SOURCE, nerf_train.SOURCE, megakernel_dense.SOURCE]
-    logs = build.build(sources)
-    print(f"  built {len(logs)} source(s) in {time.perf_counter() - t:.1f}s", flush=True)
+    # every width the kernels are built for (one library each), all at once
+    from adanerf_tpu_torch.ops.kernels.megakernel_compact import WIDTHS, library
+    frame_libs = [library(src, w) for src in (SOURCE, megakernel_dense.SOURCE) for w in WIDTHS]
+    k3_libs = [nerf_train.library(w) for w in nerf_train.WIDTHS]
+    logs = build.build(frame_libs + k3_libs)
+    print(f"  built {len(logs)} librar(ies) in {time.perf_counter() - t:.1f}s", flush=True)
     for src, log in logs.items():
         for name, info in ptxas_report(log):
             print(f"  {src}: {name}: {info}", flush=True)
-    for src in (SOURCE, megakernel_dense.SOURCE):
+    for src in frame_libs:
         lib = build.library_path(src)
         smem = build.load(src).mk_smem_bytes
         print(f"  {src}: dynamic shared memory per block: fp32 kernels {smem(0)} B, "
@@ -1356,12 +1479,13 @@ def main():
             if "_tc" in name and n_hgmma == 0:
                 raise SystemExit(f"{name} has no HGMMA instruction")
     # K3: every kernel but the reduce multiplies on the tensor cores
-    for name, instrs in sass.kernel_sass(build.library_path(nerf_train.SOURCE)).items():
-        n_hgmma = sass.hgmma_count(instrs)
-        print(f"  {nerf_train.SOURCE}: {demangle(name)}: {len(instrs)} SASS instructions, "
-              f"{n_hgmma} HGMMA", flush=True)
-        if "k3_reduce" not in name and n_hgmma == 0:
-            raise SystemExit(f"{name} has no HGMMA instruction")
+    for lib in k3_libs:
+        for name, instrs in sass.kernel_sass(build.library_path(lib)).items():
+            n_hgmma = sass.hgmma_count(instrs)
+            print(f"  {lib}: {demangle(name)}: {len(instrs)} SASS instructions, "
+                  f"{n_hgmma} HGMMA", flush=True)
+            if "k3_reduce" not in name and n_hgmma == 0:
+                raise SystemExit(f"{lib}: {name} has no HGMMA instruction")
     done("2 build", t)
 
     t = time.perf_counter()
@@ -1811,8 +1935,53 @@ def main():
     print(f"  card: {card_state()}", flush=True)
     done("17", t)
 
+    t = time.perf_counter()
+    phase(f"18 the main path at other widths: K3 alone at {K3_ROWS} rows at widths {K3_WIDTHS}; "
+          f"at widths {MAIN_WIDTHS} (both nets) the dense ini ({WIDTH_DENSE_STEPS} steps) and "
+          f"the fine ini ({FINE_STEPS} steps from its _opt) through K3, bf16, and the fine run's "
+          "export viewed through K1 and K2")
+    widths = {w: {"k3": k3_alone(w, dev)} for w in K3_WIDTHS}
+    for w in MAIN_WIDTHS:
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_w{w}_") as tmp:
+            runs, ts_w, trained_w, argv_w = width_runs(train, NerfTrainKernel, w, tmp)
+            widths[w]["runs"] = runs
+            widths[w]["export"] = export_leg(port_export, viewer, ts_w, trained_w, argv_w, dev)
+            del ts_w, trained_w
+        torch.cuda.empty_cache()
+    print(f"  card: {card_state()}", flush=True)
+    done("18", t)
+
+    def k3_widths(way):  # the kernels line's K3 numbers at each width
+        out = {}
+        for w, v in widths.items():
+            k = v["k3"]
+            runs = v.get("runs", {})
+            out[str(w)] = {
+                "launches": {r: n["launches"][way == "bwd"] for r, n in runs.items()},
+                "rows": {r: n["rows"] for r, n in runs.items()},
+                "step_ms": {r: n["step_ms"] for r, n in runs.items()},
+                "ms": k[f"{way}_ms"], "plain_ms": k[f"plain_{way}_ms"],
+                "bound_ms": k[f"bound_{way}_ms"], "bound_by": k[f"bound_{way}_by"],
+                "max_abs_err": k[f"max_abs_err_{way}"], "alone_rows": K3_ROWS}
+        return out
+
+    def frame_widths(key):  # the kernels line's K1 (key k1) or K2 (k2) numbers at each width
+        out = {}
+        for w in MAIN_WIDTHS:
+            e = widths[w]["export"]
+            out[str(w)] = {"launches": e[f"{key}_launches"], "ms": e[f"{key}_ms"],
+                           "plain_ms": e[f"{key}_plain_ms"], "bound_ms": e["bound_ms"],
+                           "bound_by": e["bound_by"],
+                           "max_abs_err": e["k1_fp32"]["err_p"] if key == "k1"
+                           else e["k2_fp32_err"], "viewer_device_ms": e[f"{key}_viewer_ms"],
+                           "samples_per_pixel": e["spp"]}
+            if key == "k1":
+                out[str(w)]["psnr_bf16_vs_plain_fp32"] = e["k1_psnr_fp32"]
+        return out
+
     k2_main = k2_16[scene_thr]
     phase("14 kernels")
+    print(json.dumps({"widths": {str(w): d for w, d in widths.items()}}), flush=True)
     print(json.dumps({"training_legs": {"dense_validate_ms": dense_val_ms,
                                         "fine": {k: v for k, v in fine.items()},
                                         "nerf_baseline": baseline, "gt_depth": gt},
@@ -1841,7 +2010,8 @@ def main():
         "sharded_4_ms": scale_out["MegakernelCompact"]["ms_4_slices"],
         "sharded_4_whole_ms": scale_out["MegakernelCompact"]["ms_whole"],
         "viewer_mesh1_launches": scale_out["viewer_mesh1_launches"],
-        "viewer_mesh1_device_ms": scale_out["viewer_mesh1_ms"]}, {
+        "viewer_mesh1_device_ms": scale_out["viewer_mesh1_ms"],
+        "widths": frame_widths("k1")}, {
         "name": "nerf_train_forward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
@@ -1861,7 +2031,7 @@ def main():
         "gt_launches": gt["launches"][0], "gt_rows": gt["rows"],
         "gt_train_step_ms": gt["step_ms"],
         "dp_launches_per_rank": [x[0] for x in scale_out["dp_k3_launches"]],
-        "dp_rows_per_rank": scale_out["dp_k3_rows"]}, {
+        "dp_rows_per_rank": scale_out["dp_k3_rows"], "widths": k3_widths("fwd")}, {
         "name": "nerf_train_backward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
@@ -1888,7 +2058,8 @@ def main():
         "dp_rows_per_rank": scale_out["dp_k3_rows"],
         "dp_worst_leaf_rel_err": scale_out["dp_worst_leaf_rel"],
         "dp_step_ms": scale_out["dp_step_ms"],
-        "dp_one_process_step_ms": scale_out["one_process_step_ms"]}, {
+        "dp_one_process_step_ms": scale_out["one_process_step_ms"],
+        "widths": k3_widths("bwd")}, {
         "name": "megakernel_dense", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_dense.cu + adanerf_tpu_torch/csrc/megakernel.cuh",
         "replaces": "adanerf_tpu/ops/pallas/megakernel.py:281",
@@ -1911,7 +2082,8 @@ def main():
         "fine_export_viewer_device_ms": exported["k2_viewer_ms"],
         "sharded_4_launches": scale_out["MegakernelDense"]["launches"],
         "sharded_4_ms": scale_out["MegakernelDense"]["ms_4_slices"],
-        "sharded_4_whole_ms": scale_out["MegakernelDense"]["ms_whole"]}]}), flush=True)
+        "sharded_4_whole_ms": scale_out["MegakernelDense"]["ms_whole"],
+        "widths": frame_widths("k2")}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

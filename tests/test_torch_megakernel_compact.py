@@ -22,6 +22,7 @@ from adanerf_tpu.ops.pallas.megakernel3 import make_megakernel_compact
 from adanerf_tpu_torch import viewer as tviewer
 from adanerf_tpu_torch.ops.kernels import build
 from adanerf_tpu_torch.ops.kernels.megakernel_compact import MegakernelCompact
+from torch_wide_export import write_wide_export
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -54,6 +55,30 @@ def test_plain_matches_jax_kernel_interpret(name):
     before = MegakernelCompact.launches
     rgb, counts = mk(dirs, pose, rot)
     assert MegakernelCompact.launches == before  # CPU tensors never reach the kernel
+    np.testing.assert_array_equal(counts.numpy(), out[:, 3].astype(int))
+    np.testing.assert_allclose(rgb.numpy(), out[:, :3], atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("width", [128, 384])
+def test_plain_matches_jax_kernel_interpret_at_other_widths(tmp_path, width):
+    """The same comparison on a seeded export at another MLP width (a
+    64-wide views layer at 128; two wgmma passes a layer at 384 on the
+    card), which K1 takes from 128 to 512."""
+    export = write_wide_export(tmp_path / "export", width, width)
+    rt_j, scene_j = jviewer.build_renderer_from_export(export, 128, "fp32")
+    rt_t, scene_t = tviewer.build_renderer_from_export(export, 128, "fp32", device="cpu")
+    assert rt_t.nerf.width == rt_j.nerf_def.width == width
+    dirs, pose, rot = _frame_inputs(scene_t, 128)
+    po = pack_oracle_weights(rt_j.oracle_def, rt_j.params[0], dtype=jnp.float32)
+    pn = pack_nerf_weights(rt_j.nerf_def, rt_j.params[1], dtype=jnp.float32)
+    run = make_megakernel_compact(rt_j.oracle_def, rt_j.nerf_def, scene_j, rt_j.config,
+                                  tile=64, chunk=64, interpret=True, dynamic=True)(po, pn)
+    out = np.asarray(run(*prep_inputs(jnp.asarray(dirs.numpy()), jnp.asarray(pose),
+                                      jnp.asarray(rot))))
+    mk = MegakernelCompact(rt_t)
+    assert mk.width == width
+    rgb, counts = mk(dirs, pose, rot)
+    assert 1.0 <= float(counts.float().mean()) <= 8.0
     np.testing.assert_array_equal(counts.numpy(), out[:, 3].astype(int))
     np.testing.assert_allclose(rgb.numpy(), out[:, :3], atol=2e-4, rtol=0)
 

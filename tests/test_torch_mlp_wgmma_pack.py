@@ -18,6 +18,7 @@ import torch
 
 from adanerf_tpu_torch import viewer as tviewer
 from adanerf_tpu_torch.ops.kernels import megakernel_compact as mc
+from torch_wide_export import write_wide_export
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXPORTS = {"mscene": os.path.join(ROOT, "demo", "trained_mscene_export"),
@@ -48,24 +49,24 @@ def _expected_layers(rt, P):
     two inputs (None where the layer has no second input), padded as the
     kernel reads them."""
     ow, nw = mc._numpy_state(rt.oracle), mc._numpy_state(rt.nerf)
-    in_ch, in_views = rt.nerf.input_ch, rt.nerf.input_ch_views
+    in_ch, in_views, W = rt.nerf.input_ch, rt.nerf.input_ch_views, rt.nerf.width
     front = []
     for i in range(rt.oracle.depth):
         w = ow[f"{i}.w"]
         rows = P.in0 if i == 0 else w.shape[0]
-        front.append((_pad(w, rows, 128 if i == rt.oracle.depth - 1 else mc.WIDTH), None))
-    shade = [(_pad(nw["pts.0.w"], P.in1, mc.WIDTH), None)]
+        front.append((_pad(w, rows, 128 if i == rt.oracle.depth - 1 else W), None))
+    shade = [(_pad(nw["pts.0.w"], P.in1, W), None)]
     for i in range(1, rt.nerf.depth):
         w = nw[f"pts.{i}.w"]
         if (i - 1) in rt.nerf.skips:
-            shade.append((w[in_ch:], _pad(w[:in_ch], P.in1, mc.WIDTH)))
+            shade.append((w[in_ch:], _pad(w[:in_ch], P.in1, W)))
         else:
             shade.append((w, None))
     shade.append((nw["feature.w"], None))
     wv = nw["views.0.w"]
-    wvd = np.zeros((P.in1, mc.WIDTH // 2), np.float32)
-    wvd[in_ch:in_ch + in_views] = wv[mc.WIDTH:]
-    shade.append((wv[:mc.WIDTH], wvd))
+    wvd = np.zeros((P.in1, W // 2), np.float32)
+    wvd[in_ch:in_ch + in_views] = wv[W:]
+    shade.append((wv[:W], wvd))
     return front, shade
 
 
@@ -109,6 +110,38 @@ def test_bf16_stream_untiles_to_every_matrix(name):
     for off, key in ((P.n_wa, "alpha.w"), (P.n_wrgb, "rgb.w")):
         w = nw[key]
         np.testing.assert_array_equal(flat[off:off + w.size].reshape(w.shape), _bits(w))
+
+
+@pytest.mark.parametrize("width", [128, 384, 512])
+def test_bf16_stream_untiles_at_other_widths(tmp_path, width):
+    """At the other widths K1 and K2 take: walking each layer pass by pass
+    (a layer wider than 256 columns is two wgmma passes, each pass's chunks
+    of every input in turn: megakernel_compact.unpack_layer) un-tiles every
+    matrix bit for bit; every chunk is one bulk copy of at most a stage,
+    1024-byte aligned; the oracle's stream runs into the NeRF's."""
+    export = write_wide_export(tmp_path / "export", width, width)
+    rt, _ = tviewer.build_renderer_from_export(export, dtype_str="bf16", device="cpu")
+    mk = mc.MegakernelCompact(rt)
+    P = mk.params
+    flat = mk.weights.view(torch.int16).numpy()
+    want_front, want_shade = _expected_layers(rt, P)
+    for front, start, want in ((True, P.o_w[0], want_front), (False, P.n_w[0], want_shade)):
+        plan = mc.stream_plan(P, front, width)
+        assert len(plan) == len(want)
+        off = start
+        for (kc0, kc1, n), (m0, m1) in zip(plan, want):
+            assert n in (128, width, width // 2)
+            got, end = mc.unpack_layer(flat, off, (kc0, kc1), n)
+            for g, m in zip(got, (m0, m1)):
+                assert (g is None) == (m is None)
+                if m is not None:
+                    np.testing.assert_array_equal(g, _bits(m))
+            for _, np_ in mc.passes(n):
+                assert np_ * mc.TC_KC * 2 <= STAGE_BYTES and (off * 2) % 1024 == 0
+                off += (kc0 + kc1) * mc.TC_KC * np_
+            assert off == end
+        assert (off - start) * 2 == mc.stream_bytes(P, front, width)
+    assert P.n_w[0] == P.o_w[0] + mc.stream_bytes(P, True, width) // 2
 
 
 @pytest.mark.parametrize("n_rows", [128, 256])

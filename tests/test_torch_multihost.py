@@ -80,3 +80,40 @@ def test_two_process_rendezvous(tmp_path):
     assert final.keys() == alone.keys()
     for k in final:
         np.testing.assert_allclose(final[k], alone[k], rtol=2e-5, atol=2e-6, err_msg=k)
+
+
+_JOIN = """
+import sys, time
+from adanerf_tpu_torch.parallel import mesh
+rank = mesh.init_multi_host("cpu")
+if rank == 1:
+    time.sleep(3.0)  # still running when rank 0 is done
+mesh.leave_group()
+print("left", rank, flush=True)
+"""
+
+
+def test_a_launched_rank_outlives_rank_0_and_exits_cleanly():
+    """Rank 1 joins through mesh.init_multi_host and is still working when
+    rank 0 (which hosts the tcp:// store) is done; the trainer's exit path,
+    mesh.leave_group, keeps rank 0 until rank 1 has left, and both exit 0
+    (a rank whose store went first aborted at exit, SIGABRT)."""
+    port = _free_port()
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK")}
+    procs = [subprocess.Popen([sys.executable, "-c", _JOIN], cwd=REPO, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              env=dict(base, ADANERF_COORD=f"localhost:{port}",
+                                       ADANERF_NPROC="2", ADANERF_PROC_ID=str(i)))
+             for i in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=120)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {i} exited {p.returncode}:\n{out[-4000:]}"
+        assert f"left {i}" in out, out

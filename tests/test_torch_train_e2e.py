@@ -79,13 +79,15 @@ def test_unported_options_are_refused_before_step_0(scene, tmp_path, extra, word
     assert not os.path.exists(tmp_path / "logs")  # refused before anything ran
 
 
-@pytest.mark.parametrize("widths,refused", [(("256", "512"), True), (("256", "128"), True),
+@pytest.mark.parametrize("widths,refused", [(("256", "640"), True), (("256", "1024"), True),
+                                            (("256", "512"), False), (("256", "128"), False),
                                             (("32", "256"), False), (("256", "96"), False)])
 def test_nerf_widths_k3_does_not_take_are_refused_on_cuda(scene, tmp_path, widths, refused):
     """With --bf16 on a CUDA device, a NeRF width that the JAX package trains
-    through its TPU kernel (a multiple of 128) but K3 does not take (other
-    than 256) stops the run before anything ran; a width that JAX trains on
-    its plain path (96) is not refused by this rule."""
+    through its TPU kernel (a multiple of 128) but K3 does not take (above
+    512) stops the run before anything ran; K3 takes 128 to 512, and a
+    width that JAX trains on its plain path (96) is not refused by this
+    rule."""
     args = _args(scene, str(tmp_path / "logs"))
     at = args.index("--layerWidth")
     args[at + 1], args[at + 3] = widths

@@ -17,8 +17,7 @@ import jax.numpy as jnp
 from adanerf_tpu.models.mlp import NeRFDef as JNeRFDef
 from adanerf_tpu.ops.pallas.train_kernel import make_nerf_train_apply
 from adanerf_tpu_torch.models.mlp import NeRFDef
-from adanerf_tpu_torch.ops.kernels.megakernel_compact import unpack_chunks
-from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel
+from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel, unpack_stream
 from adanerf_tpu_torch.utils.weights import flatten_params, from_jax_params
 
 
@@ -28,7 +27,8 @@ def k3_replay(kernel, nerf, x, g):
     K3's packed buffers, on x's device: every matrix is un-tiled from the
     forward and backward weight streams by walking their plan, as the CUDA
     source walks them, and the biases and heads' weights are read from the
-    vector buffer by their offsets. Returns (out, {leaf: grad}, acts) for
+    vector buffer by their offsets (a product wider than 256 columns put
+    back together from its passes). Returns (out, {leaf: grad}, acts) for
     the weight matrices and x, given the cotangent g of out; acts holds the
     bf16 matrices the backward's scratch carries, by ``scratch_layout``
     name."""
@@ -38,17 +38,14 @@ def k3_replay(kernel, nerf, x, g):
     fs, bs, vec = kernel.pack(dict(nerf.named_parameters()), x.device)
 
     def walk(stream, plan):
-        flat, mats, off = stream.float().cpu().numpy(), {}, 0
-        for what, K, N in plan:
-            mats[what] = torch.from_numpy(unpack_chunks(flat, off, K, N)).to(x.device)
-            off += K * N
-        assert off == flat.size
-        return mats
+        return {k: torch.from_numpy(m).to(x.device)
+                for k, m in unpack_stream(stream.float().cpu().numpy(), plan).items()}
     Fm, Bm = walk(fs, kernel.plan[0]), walk(bs, kernel.plan[1])
 
     def v(off, n):
         return vec[off:off + n]
-    W, H, D, ic, n_in = 256, 128, nerf.depth, nerf.input_ch, kernel.n_in
+    W, D, ic, n_in = kernel.width, nerf.depth, nerf.input_ch, kernel.n_in
+    H = W // 2
     N, dev = x.shape[0], x.device
     X = torch.zeros(N, 128, device=dev)
     X[:, :n_in] = bf(x)
@@ -161,14 +158,31 @@ def test_cpu_tensor_takes_the_plain_version():
     assert (NerfTrainKernel.forward_launches, NerfTrainKernel.backward_launches) == before
 
 
+@pytest.mark.parametrize("width,depth,skips", [(128, 4, (2,)), (384, 3, (0,)),
+                                               (512, 3, (1,))])
+def test_cuda_kernel_arithmetic_matches_jax_kernel_at_other_widths(width, depth, skips):
+    """The same replay at the other widths K3 takes: 128 (views layer 64
+    wide), and 384 and 512, whose products wider than 256 columns the
+    kernels run in two passes (the streams carry them pass by pass)."""
+    jdef, params, tdef, x, g = _setup(depth, width, skips, 200, width)
+    out_ref, grads_ref = _jax_kernel_grads(jdef, params, x, g)
+    k3 = NerfTrainKernel(tdef)
+    assert any("@256" in what for what, _, _ in k3.plan[0]) == (width > 256)
+    with torch.no_grad():
+        out, grads, _ = k3_replay(k3, tdef, torch.from_numpy(x), torch.from_numpy(g))
+    grads_ref = {k: v for k, v in grads_ref.items() if k in grads}
+    assert len(grads_ref) == len(grads) == 1 + depth + 4
+    _check(out.numpy(), {k: v.numpy() for k, v in grads.items()}, out_ref, grads_ref)
+
+
 def test_kernel_width_is_checked():
-    with pytest.raises(ValueError, match="width 256"):
-        NerfTrainKernel(NeRFDef(4, 128, 63, 27, 4, (2,)))
+    with pytest.raises(ValueError, match="width in \\(128, 256, 384, 512\\), got 640"):
+        NerfTrainKernel(NeRFDef(4, 640, 63, 27, 4, (2,)))
 
 
-@pytest.mark.parametrize("shape,routed", [((8, 256, 63, 27), True), ((8, 512, 63, 27), None),
-                                          ((8, 128, 63, 27), None), ((8, 256, 99, 36), None),
-                                          ((8, 96, 63, 27), False)])
+@pytest.mark.parametrize("shape,routed", [((8, 256, 63, 27), True), ((8, 512, 63, 27), True),
+                                          ((8, 128, 63, 27), True), ((8, 640, 63, 27), None),
+                                          ((8, 256, 99, 36), None), ((8, 96, 63, 27), False)])
 def test_train_step_routes_every_nerf_jax_routes(shape, routed):
     """On a CUDA device with --bf16 and --fusedTrainKernel 1, every NeRF the
     JAX package sends through its TPU kernel (width a multiple of 128) goes

@@ -20,11 +20,13 @@ from adanerf_tpu_torch.ops.kernels import nerf_train as nt
 from adanerf_tpu_torch.ops.kernels.megakernel_compact import swizzle128, unpack_chunks
 from test_torch_train_kernel import k3_replay
 
-SHAPES = {"8x256": (8, (4,)), "5x256, skips 1 and 3": (5, (1, 3))}
+SHAPES = {"8x256": (8, (4,)), "5x256, skips 1 and 3": (5, (1, 3)),
+          "4x128, skip 2": (4, (2,), 128), "3x384, skip 0": (3, (0,), 384),
+          "3x512, skip 1": (3, (1,), 512)}
 
 
-def _nerf(depth, skips, seed=0):
-    nerf = NeRFDef(depth, 256, 63, 27, 4, skips)
+def _nerf(depth, skips, seed=0, width=256):
+    nerf = NeRFDef(depth, width, 63, 27, 4, skips)
     nerf.reset_parameters(torch.Generator().manual_seed(seed))
     return nerf
 
@@ -42,10 +44,10 @@ def _pad(a, rows, cols, at=(0, 0)):
 def _expected(nerf):
     """{plan name: (K, N) matrix} as the kernels multiply by it."""
     p = {n: v.detach().numpy() for n, v in nerf.named_parameters()}
-    ic, W = nerf.input_ch, 256
+    ic, W = nerf.input_ch, nerf.width
     out = {"pts.0": _pad(p["pts.0.w"], 128, W), "feature": p["feature.w"],
            "views.f": p["views.0.w"][:W],
-           "views.x": _pad(p["views.0.w"][W:], 128, 128, at=(ic, 0))}
+           "views.x": _pad(p["views.0.w"][W:], 128, W // 2, at=(ic, 0))}
     for i in range(1, nerf.depth):
         w = p[f"pts.{i}.w"]
         if (i - 1) in nerf.skips:
@@ -59,8 +61,9 @@ def _expected(nerf):
 
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_weight_streams_untile_to_every_matrix(shape):
-    depth, skips = SHAPES[shape]
-    nerf = _nerf(depth, skips)
+    depth, skips, *width = SHAPES[shape]
+    nerf = _nerf(depth, skips, width=(width or [256])[0])
+    W = nerf.width
     k3 = nt.NerfTrainKernel(nerf)
     fs, bs, vec = k3.pack(dict(nerf.named_parameters()), "cpu")
     assert fs.dtype == bs.dtype == torch.bfloat16 and vec.dtype == torch.float32
@@ -68,17 +71,23 @@ def test_weight_streams_untile_to_every_matrix(shape):
     fwd, bwd = k3.plan
     # the walk the producer takes: layer 0 on x, layer i on [h, x] where it
     # takes x, feature, views; then the backward chain's transposes
-    assert [w for w, _, _ in fwd][:2] == ["pts.0", "pts.1"] and fwd[-2][0] == "views.f"
-    assert [w for w, _, _ in bwd][:3] == ["views.x^T", "views.f^T", "feature^T"]
+    # (a product wider than 256 columns comes pass by pass: pass c0's
+    # columns of each of its inputs, named what@c0)
+    names = [[w.split("@")[0] for w, _, _ in plan] for plan in (fwd, bwd)]
+    assert names[0][:2] == (["pts.0", "pts.1"] if W <= 256 else ["pts.0"] * 2)
+    assert names[0][-2] == "views.f"
+    assert [w for w in dict.fromkeys(names[1])][:3] == ["views.x^T", "views.f^T", "feature^T"]
     assert bwd[-1][0] == "pts.0^T"
-    n_x = sum(1 for w, _, _ in bwd if w.endswith(".x^T") and w.startswith("pts"))
+    n_x = len({w for w in names[1] if w.endswith(".x^T") and w.startswith("pts")})
     assert n_x == len(skips)
     for stream, plan in ((fs, fwd), (bs, bwd)):
         flat, off = stream.view(torch.int16).numpy(), 0
         for what, K, N in plan:
-            assert K % 64 == 0 and N in (128, 256), what
+            assert K % 64 == 0 and N in (64, 128, 192, 256), what
+            name, _, c0 = what.partition("@")
             got = unpack_chunks(flat, off, K, N)
-            np.testing.assert_array_equal(got, _bits(want[what]), err_msg=what)
+            c0 = int(c0 or 0)
+            np.testing.assert_array_equal(got, _bits(want[name][:, c0:c0 + N]), err_msg=what)
             # each chunk is one bulk copy of N * 128 bytes at a 1024-byte
             # aligned place of the stream
             assert (off * 2) % 1024 == 0
@@ -87,8 +96,8 @@ def test_weight_streams_untile_to_every_matrix(shape):
     P = k3.params
     p = {n: v.detach() for n, v in nerf.named_parameters()}
     for i in range(depth):
-        torch.testing.assert_close(vec[P.b[i]:P.b[i] + 256], p[f"pts.{i}.b"], rtol=0, atol=0)
-    for off, name, n in ((P.bf, "feature.b", 256), (P.bv, "views.0.b", 128),
+        torch.testing.assert_close(vec[P.b[i]:P.b[i] + W], p[f"pts.{i}.b"], rtol=0, atol=0)
+    for off, name, n in ((P.bf, "feature.b", W), (P.bv, "views.0.b", W // 2),
                          (P.brgb, "rgb.b", 3), (P.ba, "alpha.b", 1)):
         assert off % 4 == 0
         torch.testing.assert_close(vec[off:off + n], p[name], rtol=0, atol=0)
@@ -99,7 +108,7 @@ def test_weight_streams_untile_to_every_matrix(shape):
 
 
 @pytest.mark.parametrize("N", [130, 256, 1000])
-@pytest.mark.parametrize("F", [128, 256])
+@pytest.mark.parametrize("F", [64, 128, 192, 256, 512])
 def test_scratch_layout_round_trips(N, F):
     T = 2 * math.ceil(N / 128)
     a = torch.from_numpy(np.random.default_rng(N + F).standard_normal((N, F)).astype(np.float32))
@@ -147,8 +156,8 @@ def _run_table(k3, N, acts):
 @pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("N", [200, 128])
 def test_dw_table_covers_every_leaf_once(shape, N):
-    depth, skips = SHAPES[shape]
-    nerf = _nerf(depth, skips, seed=N)
+    depth, skips, *width = SHAPES[shape]
+    nerf = _nerf(depth, skips, seed=N, width=(width or [256])[0])
     k3 = nt.NerfTrainKernel(nerf)
     rng = np.random.default_rng(N)
     x = torch.from_numpy(rng.uniform(-1, 1, (N, 90)).astype(np.float32))

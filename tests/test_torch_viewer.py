@@ -186,3 +186,49 @@ def test_an_adaptive_export_renders_through_k1_by_default(capsys):
                           "-n", "1", "--device", "cpu"])
     assert stats["route"].startswith("K1 (MegakernelCompact")
     assert "rendering through K1" in capsys.readouterr().out
+
+
+def _max_depth(text):
+    out = text.replace("rayMarchNormalization = [InverseSqrtDistCentered, InverseSqrtDistCentered]",
+                       "rayMarchNormalization = [MaxDepth, MaxDepth]")
+    assert out != text
+    return out
+
+
+@pytest.mark.parametrize("case", ["MaxDepth normalization", "width 640"])
+def test_an_export_k1_refuses_renders_through_the_plain_path_as_jax_does(tmp_path, capsys, case):
+    """Without --megakernel, an adaptive export of at most 16 samples that
+    K1 does not take renders on the plain path, and says why, within 2e-4
+    of the JAX viewer's plain frame (fp32): a MaxDepth normalization, which
+    the kernels do not implement (nor do JAX's), and MLPs 640 wide, which
+    the JAX kernels take and the port's do not yet. With --megakernel it
+    raises: the normalization as JAX's kernel does, the width naming its
+    ROADMAP item."""
+    from torch_wide_export import write_wide_export
+    if case == "width 640":
+        export = write_wide_export(tmp_path / "export", 640, 640, depth=(3, 3))
+        refusal = "width 640.*ROADMAP Queue 2, K1/K2 widths above 512"
+    else:
+        export = write_wide_export(tmp_path / "export", 256, 256, config_edit=_max_depth)
+        refusal = "rayMarchNormalization.*'MaxDepth'"
+    stats = tviewer.main([export, "-s", "20", "16", "-n", "2", "--device", "cpu", "--fp32",
+                          "--logging_interval", "1"])
+    out = capsys.readouterr().out
+    assert "rendering through the plain renderer" in out and "K1 does not take" in out
+    assert re.search(refusal, out), out
+    assert stats["route"].startswith("the plain renderer")
+    rt, scene = jviewer.build_renderer_from_export(export, 320, "fp32")
+    assert rt.threshold > 0.0 and rt.config.numRaymarchSamples[1] <= 16
+    focal = 0.5 * 20 / np.tan(0.5 * scene.fov)
+    dirs = generate_ray_directions(20, 16, scene.fov, focal).reshape(-1, 3).astype(np.float32)
+    pose = jviewer.orbit_poses(scene.view_cell_center, 0.4 * scene.view_cell_radius, 2)[1]
+    render = rt.make_frame_renderer(dirs.shape[0])
+    frame, counts = render(*rt.params, jnp.asarray(pose, jnp.float32),
+                           jnp.eye(3, dtype=jnp.float32), jnp.asarray(dirs))
+    np.testing.assert_allclose(stats["last_frame"].reshape(-1, 3).numpy(), np.asarray(frame),
+                               rtol=0, atol=2e-4)
+    assert stats["samples_per_pixel"] == float(np.asarray(counts).sum()) / dirs.shape[0]
+    for variant in ("v5d", "v3"):
+        with pytest.raises(ValueError, match=refusal):
+            tviewer.main([export, "-s", "8", "8", "-n", "1", "--device", "cpu",
+                          "--megakernel", variant])
