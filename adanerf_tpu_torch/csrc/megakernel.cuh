@@ -145,10 +145,15 @@ __device__ __forceinline__ void ray_setup(const MkParams& P, const float* __rest
                                           float* __restrict__ o_sh, float* __restrict__ d_sh) {
   float dx = 0.f, dy = 0.f, dz = 0.f;
   if (ray < P.B) { dx = dirs[ray * 3]; dy = dirs[ray * 3 + 1]; dz = dirs[ray * 3 + 2]; }
-  // world dirs = rot @ dir
-  const float nx = rot[0] * dx + rot[1] * dy + rot[2] * dz;
-  const float ny = rot[3] * dx + rot[4] * dy + rot[5] * dz;
-  const float nz = rot[6] * dx + rot[7] * dy + rot[8] * dz;
+  // world dirs = rot @ dir, each product and sum rounded as the plain
+  // version's (realtime.py::world_dirs): no fused multiply-add, so both
+  // shade the same rays bit for bit (NDC shading is sensitive to an ulp)
+  const float nx = __fadd_rn(__fadd_rn(__fmul_rn(dx, rot[0]), __fmul_rn(dy, rot[1])),
+                             __fmul_rn(dz, rot[2]));
+  const float ny = __fadd_rn(__fadd_rn(__fmul_rn(dx, rot[3]), __fmul_rn(dy, rot[4])),
+                             __fmul_rn(dz, rot[5]));
+  const float nz = __fadd_rn(__fadd_rn(__fmul_rn(dx, rot[6]), __fmul_rn(dy, rot[7])),
+                             __fmul_rn(dz, rot[8]));
   const float ox = pose[0], oy = pose[1], oz = pose[2];
   // exit point on the view-cell sphere
   const float mx = ox - P.center[0], my = oy - P.center[1], mz = oz - P.center[2];
@@ -160,9 +165,11 @@ __device__ __forceinline__ void ray_setup(const MkParams& P, const float* __rest
   c[3] = px; c[4] = py; c[5] = pz;
   if (ray < P.B) {
     float so[3] = {px, py, pz}, sd[3] = {nx, ny, nz};
-    if (P.ndc) {  // ndc_rays with near = 1, from the un-projected origin
+    if (P.ndc) {  // ndc_rays with near = 1, from the un-projected origin,
+      // rounded as ops/raymarch.py::ndc_rays rounds (2 / q = 2 x (1 / q) exactly)
       const float ts = -(1.f + oz) / nz;
-      const float qx = ox + ts * nx, qy = oy + ts * ny, qz = oz + ts * nz;
+      const float qx = __fadd_rn(ox, __fmul_rn(ts, nx)), qy = __fadd_rn(oy, __fmul_rn(ts, ny)),
+                  qz = __fadd_rn(oz, __fmul_rn(ts, nz));
       so[0] = P.ndc_wf * qx / qz;
       so[1] = P.ndc_hf * qy / qz;
       so[2] = 1.f + 2.f / qz;
@@ -262,12 +269,17 @@ __device__ __forceinline__ void sample_coords(const MkParams& P, const float* __
   const float z = zbuf[id];
   const float ox = o_sh[r * 3], oy = o_sh[r * 3 + 1], oz = o_sh[r * 3 + 2];
   const float dx = d_sh[r * 3], dy = d_sh[r * 3 + 1], dz = d_sh[r * 3 + 2];
-  const float px = ox + dx * z, py = oy + dy * z, pz = oz + dz * z;
+  // o + d z and the unit direction rounded as the plain version's
+  // (realtime.py::_shade_stage, unit): the position encode's top frequency
+  // turns an ulp of the position into a visible change of an NDC sample
+  const float px = __fadd_rn(ox, __fmul_rn(dx, z)), py = __fadd_rn(oy, __fmul_rn(dy, z)),
+              pz = __fadd_rn(oz, __fmul_rn(dz, z));
   if (P.norm_none) {
     c[0] = px; c[1] = py; c[2] = pz;
     float ex = dx, ey = dy, ez = dz;
     if (P.ndc) {  // encode the unit NDC direction
-      const float nrm = sqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-24f));
+      const float nrm = sqrtf(fmaxf(
+          __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz)), 1e-24f));
       ex = dx / nrm; ey = dy / nrm; ez = dz / nrm;
     }
     c[3] = ex; c[4] = ey; c[5] = ez;

@@ -5,9 +5,10 @@ Counterpart of ``adanerf_tpu/data/llff.py``: read ``poses_bounds.npy``
 ``factor`` where no ``images_{factor}/`` folder holds them already
 (``utils/resize.py::resize_area``, OpenCV's ``INTER_AREA``, as the JAX
 package resizes with cv2), recenter the pose cloud, rescale by the near
-bound, and generate the spiral render path. Images are decoded with the
-port's PNG decoder; JPEG images are refused by name (the port has no JPEG
-decoder yet, ROADMAP Queue 1, item 19).
+bound, and generate the spiral render path. PNG and JPEG images
+(a capture's full-size ``images/`` are JPEG) are decoded with the port's
+own decoders (``png.py::read_image``), as the JAX package reads them with
+imageio.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import numpy as np
 
 from ..utils.resize import resize_area
-from .png import read_png, refuse_jpegs
+from .png import read_image
 
 
 def _normalize(x):
@@ -73,10 +74,9 @@ def _load_images(basedir, factor):
         factor_applied = factor is None or factor <= 1
     files = sorted(f for f in os.listdir(img_dir)
                    if f.lower().endswith((".jpg", ".jpeg", ".png")))
-    refuse_jpegs(img_dir, files)
     imgs = []
     for f in files:
-        img = read_png(os.path.join(img_dir, f)).astype(np.float32) / 255.0
+        img = read_image(os.path.join(img_dir, f)).astype(np.float32) / 255.0
         if not factor_applied:
             img = resize_area(img, img.shape[1] // factor, img.shape[0] // factor)
         imgs.append(img[..., :3])

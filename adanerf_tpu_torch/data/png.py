@@ -6,6 +6,8 @@ that runs the port on the GPU has neither. This decoder reads the formats
 the scenes use: 8-bit RGB (colour type 2) and RGBA (colour type 6), not
 interlaced. Any other PNG raises a ``ValueError`` that names its format.
 ``write_png`` writes the same two formats, every row unfiltered.
+``read_image`` reads a PNG or a JPEG (``jpeg.py``) by its signature, the
+port's counterpart of the JAX package's ``imageio.v2.imread``.
 
 The five row filters (None, Sub, Up, Average, Paeth) are undone along
 anti-diagonals: pixel (r, x) depends only on (r, x-1), (r-1, x) and
@@ -19,6 +21,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from .jpeg import decode_jpeg, is_jpeg, probe_jpeg
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {2: 3, 6: 4}  # colour type -> samples per pixel
@@ -94,14 +98,29 @@ def _scanlines(path: str):
     return raw.reshape(h, 1 + w * bpp), bpp
 
 
-def refuse_jpegs(directory: str, names):
-    """Raise ValueError naming the JPEG files among ``names`` (in
-    ``directory``): the port decodes PNG only (ROADMAP Queue 1, item 19)."""
-    jpegs = [n for n in names if n.lower().endswith((".jpg", ".jpeg"))]
-    if jpegs:
-        raise ValueError(f"{directory}: JPEG images ({', '.join(jpegs[:3])}"
-                         f"{', ...' if len(jpegs) > 3 else ''}) need a JPEG decoder, which the "
-                         "port does not have yet (ROADMAP Queue 1, item 19); convert them to PNG")
+def read_image(path: str) -> np.ndarray:
+    """Decode a PNG or JPEG file, told apart by its signature, not its name:
+    (h, w, 3 or 4) uint8 for a PNG (``read_png``), (h, w, 3) or (h, w)
+    uint8 for a JPEG (``jpeg.read_jpeg``), as ``imageio.v2.imread`` gives."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(_SIGNATURE):
+        return read_png(path)
+    if is_jpeg(data):
+        return decode_jpeg(data, path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+
+
+def check_image(path: str):
+    """Raise the ValueError that ``read_image`` would raise for a file that
+    is not a PNG or JPEG, or a JPEG format the port does not decode, from
+    its headers alone."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(_SIGNATURE):
+        if not is_jpeg(data):
+            raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+        probe_jpeg(data, path)
 
 
 def read_png(path: str) -> np.ndarray:

@@ -12,9 +12,10 @@ there, or under ``--outDir/<dataset>/<experiment>``. A run whose optimal
 epoch is evaluated already is skipped unless ``--force``. The default
 evaluations are complexity, images, flip, psnr, ssim and output_images;
 ``videos`` holds the ``cam_path.json`` camera path against
-``<scene>/reference_video/*.png`` and ``export`` writes the viewer artifacts
-to ``exported_model/``. A JPEG reference frame is refused before any run is
-loaded (ROADMAP Queue 1, item 19).
+``<scene>/reference_video/*.{png,jpg}`` and ``export`` writes the viewer
+artifacts to ``exported_model/``. A reference frame the port cannot decode
+(a progressive JPEG, ROADMAP Queue 1, item 21) is refused before any run is
+loaded.
 
 ``--device`` (``-d``) is ``cuda`` by default (an index N means
 ``cuda:N``), ``cpu`` on request; a missing card raises and nothing falls

@@ -12,13 +12,14 @@ files under the same names: ``complexity.txt``, ``network_description.txt``,
 and ``exported_model/``. Rendering runs the plain cascade on the run's
 device, FLIP runs there too, IW-SSIM on the host.
 
-The ``videos`` evaluation reads ``<scene>/reference_video/*.png`` with the
-port's PNG decoder and resizes a frame of another size with
+The ``videos`` evaluation reads ``<scene>/reference_video/*.{png,jpg}``
+with the port's PNG and JPEG decoders (``data/png.py::read_image``) and
+resizes a frame of another size with
 ``utils/resize.py::resize_area`` (OpenCV's ``INTER_AREA``). Its diff,
 square-diff and FLIP frame sequences are written as
 ``{_diff,_square_diff,_flip}_frames/%05d.png``, what the JAX package writes
-when it has no video encoder. A JPEG frame is refused by name: the port
-has no JPEG decoder yet (ROADMAP Queue 1, item 19).
+when it has no video encoder. A JPEG frame in a format the decoder does not
+take (progressive, ROADMAP Queue 1, item 21) is refused by name.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from shutil import copyfile
 import numpy as np
 
 from ..data.camera import PredefinedCamera
-from ..data.png import read_png, refuse_jpegs, write_png
+from ..data.png import check_image, read_image, write_png
 from ..pipeline.keys import FSK
 from ..render import render_rays_chunked, render_video
 from ..utils import colormaps
@@ -206,23 +207,26 @@ def generate_data(ts, flags, out_dir=None):
 
 def reference_frame_files(data_path):
     """The frames of ``<data_path>/reference_video`` (``.png`` and ``.jpg``,
-    in name order), or None when there is no such directory. A ``.jpg``
-    frame raises ValueError: the port has no JPEG decoder yet."""
+    in name order), or None when there is no such directory. A frame the
+    port cannot decode (``data/png.py::check_image``: a progressive JPEG,
+    say) raises ValueError, from its headers alone."""
     ref_path = os.path.join(data_path, "reference_video")
     if not os.path.exists(ref_path):
         return None
     names = [f for f in sorted(os.listdir(ref_path)) if f.lower().endswith((".png", ".jpg"))]
-    refuse_jpegs(ref_path, names)
-    return [os.path.join(ref_path, f) for f in names]
+    files = [os.path.join(ref_path, f) for f in names]
+    for f in files:
+        check_image(f)
+    return files
 
 
 def load_reference_video(data_path):
-    """The frames of ``<data_path>/reference_video/*.png`` as uint8 arrays,
-    or None when there are none."""
+    """The frames of ``<data_path>/reference_video/*.{png,jpg}`` as uint8
+    arrays, or None when there are none."""
     files = reference_frame_files(data_path)
     if not files:
         return None
-    return [read_png(f) for f in files]
+    return [read_image(f) for f in files]
 
 
 def _write_frames(out_dir, name, frames):
@@ -315,7 +319,7 @@ def evaluate(ts, reference_video, evaluations):
         ts.outDir = ts.logDir
     videos = "videos" in evaluations and not ts.config_file.trainWithGTDepth
     if videos and reference_video is None:
-        # read before any leg runs, so a refused (JPEG) frame stops the run early
+        # read before any leg runs, so a refused frame (a progressive JPEG) stops the run early
         reference_video = load_reference_video(ts.config_file.data)
 
     if "opt" in evaluations and not ts.config_file.trainWithGTDepth:

@@ -50,6 +50,23 @@ def mlp_rows(mlp, x, dtype, post=None):
     return (y if post is None else post(y))[:n]
 
 
+def world_dirs(dirs, rotation):
+    """(B, 3) world directions ``dirs @ rotation.T``, each product and sum
+    rounded in the order K1/K2's ray setup rounds them
+    (``csrc/megakernel.cuh::ray_setup``), where a matmul's order would be
+    its library's: an NDC sample's shading turns an ulp into a visible
+    change."""
+    return (dirs[:, 0:1] * rotation[:, 0] + dirs[:, 1:2] * rotation[:, 1]) \
+        + dirs[:, 2:3] * rotation[:, 2]
+
+
+def unit(d):
+    """d / |d| along the last axis, |d|^2 summed and clamped at 1e-24 as
+    K1/K2 sum and clamp it."""
+    return d / torch.sqrt(torch.clamp(d[..., 0:1] * d[..., 0:1] + d[..., 1:2] * d[..., 1:2]
+                                      + d[..., 2:3] * d[..., 2:3], min=1e-24))
+
+
 class RealtimeRenderer:
     """Compacted adaptive renderer for the AdaNeRF oracle + NeRF cascade.
 
@@ -101,7 +118,7 @@ class RealtimeRenderer:
         """dirs: (B, 3) camera-space unit dirs; pose (3,); rotation (3, 3).
         Returns (origins, world dirs, sphere exit points) (B, 3) and the
         oracle's raw per-bin logits (B, D) f32."""
-        nds = dirs @ rotation.T
+        nds = world_dirs(dirs, rotation)
         origins = pose.expand(nds.shape)
         distance = ray_sphere_offset(nds, origins, self.center, self.scene.view_cell_radius)
         proj = origins + nds * distance[:, None]
@@ -161,7 +178,7 @@ class RealtimeRenderer:
         d_enc = d
         if self.use_ndc:
             # NDC rays step with the unnormalized d but encode the unit dir
-            d_enc = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+            d_enc = unit(d)
         restored = torch.zeros((B, S, 4), dtype=torch.float32, device=mask.device)
         restored[ray, slot] = mlp_rows(self.nerf, self._encode_samples(pos, d_enc), self.dtype,
                                        torch.sigmoid)
@@ -175,7 +192,7 @@ class RealtimeRenderer:
         pos = o_sh[:, None, :] + d_sh[:, None, :] * z_safe[..., None]
         d_enc = d_sh
         if self.use_ndc:
-            d_enc = d_sh / torch.linalg.vector_norm(d_sh, dim=-1, keepdim=True)
+            d_enc = unit(d_sh)
         dirs_exp = d_enc[:, None, :].expand(pos.shape)
         sig = mlp_rows(self.nerf, self._encode_samples(pos.reshape(-1, 3),
                                                        dirs_exp.reshape(-1, 3)),

@@ -12,12 +12,15 @@ lacks: the oracle histogram (``{name}_oracle_histogram.png``) is a plain
 bar raster drawn with numpy, in the same counts and colours, without axes
 or text; and a video is always written as PNG frames
 (``{vid}_{net}_frames/00000.png``...), the JAX code's own fallback when it
-cannot write mp4. ``plot_training_stats`` (pandas and matplotlib) is not
-ported; the CSV it reads is written as JAX writes it.
+cannot write mp4. ``plot_training_stats`` writes the JAX package's
+``{x}_{y}.pdf`` files with the port's own PDF writer
+(``utils/pdfplot.py``) where JAX uses pandas and matplotlib: the same
+columns against the same x, drawn otherwise.
 """
 
 from __future__ import annotations
 
+import csv
 import os
 from typing import Dict, List, Optional
 
@@ -28,7 +31,7 @@ from .data.camera import camera_path_transforms
 from .data.png import write_png
 from .ops.normalization import get_normalization_abbr
 from .pipeline.keys import FSK, DatasetKeys
-from .utils import colormaps
+from .utils import colormaps, pdfplot
 from .utils.saveimage import Dim, save_img, transform_img
 
 
@@ -241,3 +244,17 @@ def render_video(ts, vid_name=None, out_dir=None):
         os.makedirs(frame_dir, exist_ok=True)
         for fi, fr in enumerate(frames):
             write_png(os.path.join(frame_dir, f"{fi:05d}.png"), fr)
+
+
+def plot_training_stats(log_dir, csv_path, x_column, y_column):
+    """Plot the column (or list of columns) ``y_column`` of the CSV
+    ``log_dir/csv_path`` against ``x_column`` into
+    ``log_dir/{x_column}_{y_column joined by _}.pdf``, as the JAX package's
+    ``plot_training_stats`` names it."""
+    with open(os.path.join(log_dir, csv_path), newline="") as f:
+        rows = list(csv.DictReader(f))
+    ys = [y_column] if isinstance(y_column, str) else list(y_column)
+    x = [float(r[x_column]) for r in rows]
+    series = [(y, [float(r[y]) for r in rows]) for y in ys]
+    pdfplot.line_plot(os.path.join(log_dir, f"{x_column}_{'_'.join(ys)}.pdf"), x, series,
+                      xlabel=x_column)

@@ -49,9 +49,16 @@ from .config import Config
 from .data.prefetch import BatchPrefetcher, epoch_image_indices
 from .parallel import mesh
 from .pipeline.keys import FSK
-from .render import calculate_mse, render_img, render_rays_chunked, render_video
+from .render import (calculate_mse, plot_training_stats, render_img, render_rays_chunked,
+                     render_video)
 from .train_state import TrainState, parse_device
 from .utils.saveimage import Dim, save_img, transform_img
+
+
+# the columns of the trainStatsName CSV plotted after every validation
+# (epoch_loss.pdf, ..., epoch_loss_train_loss.pdf), the JAX trainer's five
+STAT_PLOTS = ["loss", "train_loss", "accuracy", ["loss", "train_loss", "accuracy"],
+              ["loss", "train_loss"]]
 
 
 def mesh_size(config) -> int:
@@ -156,7 +163,8 @@ def validate_batch(ts: TrainState, epoch, train_loss, model_idx=-1):
     """Full-image validation pass over the validation split: the loss of
     net ``model_idx`` on every image (its MSE where that loss cannot be
     evaluated on a whole image), the share of channels within 1e-3 of the
-    target, ``logs.txt`` and the ``trainStatsName`` CSV. Returns (mean
+    target, ``logs.txt``, the ``trainStatsName`` CSV and its five
+    ``epoch_*.pdf`` plots (``STAT_PLOTS``). Returns (mean
     loss, per-image {"images", "psnr"})."""
     c = ts.config_file
     dataset = ts.valid_dataset
@@ -199,6 +207,11 @@ def validate_batch(ts: TrainState, epoch, train_loss, model_idx=-1):
             writer.writeheader()
         writer.writerow({"epoch": f"{epoch}", "loss": f"{loss}", "accuracy": f"{accuracy}",
                          "train_loss": f"{train_loss}"})
+    for y in STAT_PLOTS:
+        try:  # as the JAX trainer, a plot that fails does not stop the run
+            plot_training_stats(ts.logDir, c.trainStatsName, "epoch", y)
+        except Exception:
+            pass
     return loss, validation_images
 
 

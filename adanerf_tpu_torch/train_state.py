@@ -403,6 +403,27 @@ class TrainState:
         if with_optimizer and os.path.exists(opt_path):
             adam_from_flat(self.opt_states[i], load_tree(opt_path))
 
+    def delete_saved_weights(self, model_idx: int = -1):
+        """Prune old checkpoints of every (selected) net: keep the newest 10
+        and every positive multiple of 50,000 epochs, and remove a removed
+        checkpoint's ``.optimizer`` with it. As in the JAX package (and the
+        reference, whose call site is disabled), the trainer never calls
+        it."""
+        for i, m in enumerate(self.models):
+            if model_idx not in (-1, i):
+                continue
+            for f in self._ckpt_candidates(self.logDir, m.name)[:-10]:
+                try:
+                    epoch = int(f.split('.weights')[0].split('_')[-1])
+                except ValueError:
+                    continue
+                if epoch % 50000 == 0 and epoch > 0:
+                    continue
+                os.remove(f)
+                opt = f.split('.weights')[0] + '.optimizer'
+                if os.path.exists(opt):
+                    os.remove(opt)
+
     def _ckpt_candidates(self, path: str, name: str, include_opt=False):
         try:
             files = sorted(os.listdir(path))

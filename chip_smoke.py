@@ -27,8 +27,16 @@ step, K1 and K2 over 4 slices of a frame, the viewer with ``--mesh 1``),
 drives the main path at other MLP widths (phase 18: K3 alone at 524,288
 rows at widths 128, 384 and 512; at 128 and 512 both nets of the dense
 then the fine ini through K3, and the fine run's export through K1 and
-K2), and prints, as its last two lines, a JSON line of per-kernel numbers
-(each kernel's ``widths`` too) and a JSON line
+K2), takes a real forward-facing capture end to end (phase 19: the JPEG
+decoder against imageio's committed pixels, ``convert_llff`` on
+``demo/llff_scene_jpeg``, ``configs/dense_training_ndc.ini`` through K3 on
+the converted capture, the committed JAX fine NDC run resumed at epoch
+6,000 through K3 for 6,000 steps and scored against JAX's own epoch-12,000
+weights by the same port code, its validation 1,000 steps in against the
+JAX package's own resume on the CPU, a traced step, the run's ``epoch_*.pdf``
+plots, its export through K1 with ``--megakernel v3`` refused), and
+prints, as its last two lines, a JSON line of per-kernel numbers (each
+kernel's ``widths`` too) and a JSON line
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, without those lines, when there is no CUDA device or any phase
 fails. Imports torch, numpy and the standard library besides the port
@@ -38,6 +46,7 @@ itself.
 from __future__ import annotations
 
 import copy
+import csv
 import json
 import math
 import os
@@ -88,6 +97,24 @@ HBM_BPS = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
 
 K2_THRESHOLDS = (None, 0.01, 1e-4)  # the export's own 0.2; lower keeps more slots; at cap
+
+# phase 19: a forward-facing capture with JPEG images (demo/llff_scene's 32
+# images at quality 95, 4:2:0), the NDC configs, and the committed JAX fine
+# NDC run (configs/fine_training_ndc.ini, fp32, 25,001 epochs) resumed at
+# its NDC_RESUME checkpoint for NDC_RESUME steps, validating every
+# NDC_VALIDATE, scored against its own checkpoint at 2 x NDC_RESUME with the
+# bars below; its validation loss NDC_VALIDATE steps in is held to the JAX
+# package's own resume on the CPU (NDC_JAX_RESUME, written by
+# tests/torch_ndc_resume_reference.py) with the same ratio bar
+LLFF_PNG = os.path.join(ROOT, "demo", "llff_scene")
+LLFF_JPEG = os.path.join(ROOT, "demo", "llff_scene_jpeg")
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "jpeg")
+LLFF_PINNED = os.path.join(ROOT, "tests", "torch_fixtures", "llff_jpeg.json")
+DENSE_NDC_INI = os.path.join(ROOT, "configs", "dense_training_ndc.ini")
+NDC_LOGS = os.path.join(ROOT, "demo", "ndclogs", "llff_scene")
+NDC_DENSE_STEPS, NDC_RESUME, NDC_VALIDATE = 8, 6000, 1000
+NDC_JAX_RESUME = os.path.join(ROOT, "tests", "torch_fixtures", "ndc_resume_jax.json")
+QUALITY_BARS = {"val_loss_ratio": 1.10, "test_psnr_db": 0.5}
 
 T0 = time.perf_counter()
 
@@ -632,16 +659,20 @@ def step_grads_vs_plain(ts, kernel, epoch):
     return max((v, k) for k, v in errs.items()), batch, targets, seen
 
 
-def profile_steps(ts, batch, targets, epoch0, n=3):
+def profile_steps(ts, batch, targets, epoch0, n=3, trace_dir=None):
     """n train steps through K3 under the profiler, device-side events only
-    (an aten op's "self" device time repeats its kernels'). Returns
+    (an aten op's "self" device time repeats its kernels'); with
+    ``trace_dir``, through ``utils/profiling.device_trace``, which also
+    writes the steps' Chrome trace there (``trace_path``). Returns
     {kernels: [(ms a step, name)] longest first, device_ms and k3_ms a
     step, wall_ms a step, k3_counts: {K3 kernel: launches a step},
     k3_launch_ms: [(K3 kernel, ms)] of every launch in order}."""
+    from adanerf_tpu_torch.utils.profiling import device_trace
     step = ts.make_train_step()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    profiler = device_trace(trace_dir) if trace_dir else torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+    with profiler as prof:
         t_prof = time.perf_counter()
         for epoch in range(epoch0, epoch0 + n):
             step(batch, targets, epoch)
@@ -658,7 +689,8 @@ def profile_steps(ts, batch, targets, epoch0, n=3):
                  if e.device_type.name == "CUDA" and "k3_" in e.name]
     return dict(kernels=kernels, device_ms=sum(ms for ms, _ in kernels),
                 k3_ms=sum(ms for ms, name in kernels if "k3_" in name), wall_ms=wall_ms,
-                k3_counts=counts, k3_launch_ms=launch_ms)
+                k3_counts=counts, k3_launch_ms=launch_ms,
+                trace_path=getattr(prof, "trace_path", None))
 
 
 def print_profile(label, prof, top):
@@ -998,7 +1030,9 @@ def export_leg(port_export, viewer, ts, trained, argv, dev):
     timed); K2 in fp32 as phase 10 holds it and in bf16 at 800x800 (bit for
     bit K1's bf16 frame, timed); and the viewer CLI on the export through
     K1 and, ``--megakernel v3``, K2, each path's launches counted from 0.
-    Returns the phase's numbers."""
+    On an NDC export, which K2 refuses as JAX's does, the viewer's
+    ``--megakernel v3`` must refuse the export instead. Returns the phase's
+    numbers."""
     from adanerf_tpu_torch.frame_times import frame_ms, time_ms
     from adanerf_tpu_torch.ops.kernels.megakernel_compact import MegakernelCompact
     from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
@@ -1030,6 +1064,7 @@ def export_leg(port_export, viewer, ts, trained, argv, dev):
                          "weights")
 
     rt32, scene = viewer.build_renderer_from_export(out, dtype_str="fp32", device=dev)
+    with_k2 = not rt32.use_ndc
     live = [load_flat(copy.deepcopy(m), w) for m, w in zip(ts.models, trained)]
     rt_live = RealtimeRenderer(live[0], live[1], ts.scene, ts.config_file, dtype=None,
                                device=dev)
@@ -1100,29 +1135,47 @@ def export_leg(port_export, viewer, ts, trained, argv, dev):
         raise SystemExit("K1 bf16 on the fine export below 40 dB against plain fp32 or a "
                          "float64 shading of its own slots")
 
-    k2_err, k2_err_k1, _, _ = check_dense(MegakernelDense(rt32), mk32, dirs400, pose, rot,
-                                          "K2 fp32 on the fine export", allowed=tie_rays,
-                                          referee=True)
-    k2 = MegakernelDense(rt16)
-    rgb_k2, cnt_k2 = k2(dirs800, pose, rot)
-    same = bool(torch.equal(rgb_k2, rgb_k1) and torch.equal(cnt_k2, cnt_k1))
-    fr2 = frame_ms(k2, dirs800, pose, rot)
-    # the dense plain path shades all S=16 slots of every ray: in the viewer's
-    # chunks of 80,000 rays, as a whole frame would not fit the card
-    k2_plain_ms = time_ms(lambda: [k2.plain(dirs800[c:c + 80_000], pose_t, rot_t)
-                                   for c in range(0, n_pix, 80_000)], 1)
-    print(f"  K2 bf16 on the fine export, 800x800: {fr2['ms']:.3f} ms/frame (front "
-          f"{fr2['front_ms']:.3f}, front+shade {fr2['front_shade_ms']:.3f}), plain dense bf16 "
-          f"{k2_plain_ms:.3f} ms (chunks of 80,000 rays); equal to K1 bf16 bit for bit: "
-          f"{same}", flush=True)
-    if not same:
-        raise SystemExit("K2 bf16 differs from K1 bf16 on the fine export")
-    del rgb_k1, cnt_k1, rgb_k2, cnt_k2
+    k2_numbers = {}
+    if with_k2:
+        k2_err, k2_err_k1, _, _ = check_dense(MegakernelDense(rt32), mk32, dirs400, pose, rot,
+                                              "K2 fp32 on the fine export", allowed=tie_rays,
+                                              referee=True)
+        k2 = MegakernelDense(rt16)
+        rgb_k2, cnt_k2 = k2(dirs800, pose, rot)
+        same = bool(torch.equal(rgb_k2, rgb_k1) and torch.equal(cnt_k2, cnt_k1))
+        fr2 = frame_ms(k2, dirs800, pose, rot)
+        # the dense plain path shades all S=16 slots of every ray: in the viewer's
+        # chunks of 80,000 rays, as a whole frame would not fit the card
+        k2_plain_ms = time_ms(lambda: [k2.plain(dirs800[c:c + 80_000], pose_t, rot_t)
+                                       for c in range(0, n_pix, 80_000)], 1)
+        print(f"  K2 bf16 on the fine export, 800x800: {fr2['ms']:.3f} ms/frame (front "
+              f"{fr2['front_ms']:.3f}, front+shade {fr2['front_shade_ms']:.3f}), plain dense "
+              f"bf16 {k2_plain_ms:.3f} ms (chunks of 80,000 rays); equal to K1 bf16 bit for "
+              f"bit: {same}", flush=True)
+        if not same:
+            raise SystemExit("K2 bf16 differs from K1 bf16 on the fine export")
+        k2_numbers = dict(k2_fp32_err=k2_err, k2_fp32_err_vs_k1=k2_err_k1, k2_ms=fr2["ms"],
+                          k2_plain_ms=k2_plain_ms)
+        del k2, rgb_k2, cnt_k2
+    else:  # K2, as the JAX make_megakernel, refuses the NDC ray transform
+        MegakernelDense.launches = 0
+        try:
+            viewer.main([out, "-s", "64", "64", "-n", "1", "--megakernel", "v3"])
+            refused = None
+        except (SystemExit, ValueError) as err:
+            refused = str(err)
+        print(f"  viewer --megakernel v3 on the export: refused: {refused!r}; "
+              f"MegakernelDense launches {MegakernelDense.launches}", flush=True)
+        if not refused or "NDC" not in refused or MegakernelDense.launches:
+            raise SystemExit("the viewer's --megakernel v3 did not refuse the NDC export")
+        k2_numbers = dict(v3_refused=refused)
+    del rgb_k1, cnt_k1
 
     # the viewer CLI on the export, each kernel's launches counted from 0
     oracle_macs, nerf_macs = rt16.oracle.macs_per_input(), rt16.nerf.macs_per_input()
     views = {}
-    for cls, extra in ((MegakernelCompact, []), (MegakernelDense, ["--megakernel", "v3"])):
+    routes = ((MegakernelCompact, []), (MegakernelDense, ["--megakernel", "v3"]))
+    for cls, extra in routes[:2 if with_k2 else 1]:
         cls.launches = 0
         st = viewer.main([out, "-s", "800", "800", "-n", "5"] + extra)
         views[cls.__name__] = (cls.launches, st)
@@ -1141,21 +1194,309 @@ def export_leg(port_export, viewer, ts, trained, argv, dev):
     bo, bb = ops / PEAK_OPS["bf16"] * 1e3, nbytes / HBM_BPS * 1e3
     bound = max(bo, bb)
     print(f"  bound (live samples): {ops / 1e12:.4f} TFLOP over the bf16 peak = {bo:.3f} ms; "
-          f"{nbytes / 1e6:.2f} MB over 3.35 TB/s = {bb:.4f} ms; K1 at {100 * bound / fr['ms']:.2f}%, "
-          f"K2 at {100 * bound / fr2['ms']:.2f}%", flush=True)
-    del rt32, rt16, mk32, mk16, k2, dirs800
+          f"{nbytes / 1e6:.2f} MB over 3.35 TB/s = {bb:.4f} ms; K1 at {100 * bound / fr['ms']:.2f}%"
+          + (f", K2 at {100 * bound / k2_numbers['k2_ms']:.2f}%" if with_k2 else ""), flush=True)
+    del rt32, rt16, mk32, mk16, dirs800
     torch.cuda.empty_cache()
+    if with_k2:
+        k2_numbers.update(k2_launches=views["MegakernelDense"][0],
+                          k2_viewer_ms=views["MegakernelDense"][1]["device_ms_per_frame"])
     return dict(export_s=export_s, load_err=load_err, k1_fp32=k1_32,
                 k1_psnr_fp32=p16, k1_psnr_fp32_same_bins=p16_same, k1_rays_same_bins=n_same,
                 k1_psnr_float64_own_slots=p16_64, k1_ms=fr["ms"], k1_front_ms=fr["front_ms"],
                 k1_front_shade_ms=fr["front_shade_ms"], k1_plain_ms=k1_plain_ms,
-                k2_fp32_err=k2_err, k2_fp32_err_vs_k1=k2_err_k1, k2_ms=fr2["ms"],
-                k2_plain_ms=k2_plain_ms, spp=spp, at_cap=at_cap, bound_ms=bound,
+                spp=spp, at_cap=at_cap, bound_ms=bound,
                 bound_by="operations" if bo >= bb else "bytes",
                 k1_launches=views["MegakernelCompact"][0],
-                k2_launches=views["MegakernelDense"][0],
-                k1_viewer_ms=views["MegakernelCompact"][1]["device_ms_per_frame"],
-                k2_viewer_ms=views["MegakernelDense"][1]["device_ms_per_frame"])
+                k1_viewer_ms=views["MegakernelCompact"][1]["device_ms_per_frame"], **k2_numbers)
+
+
+def jax_ndc_run():
+    """The committed JAX fine NDC run (threshold 0.15) in demo/ndclogs."""
+    names = [n for n in os.listdir(NDC_LOGS) if "LSfCDA_(0.15)" in n]
+    if len(names) != 1:
+        raise SystemExit(f"expected one fine NDC run in {NDC_LOGS}, found {names}")
+    return os.path.join(NDC_LOGS, names[0])
+
+
+def decode_check():
+    """Phase 19a: the port's JPEG decoder against imageio's committed
+    pixels (tests/torch_fixtures/jpeg), at most 1 level on at most 0.1% of
+    the values (the CPU tests' bar), and the host time of decoding the 32
+    images of demo/llff_scene_jpeg."""
+    from adanerf_tpu_torch.data.jpeg import read_jpeg
+    names = sorted(f for f in os.listdir(JPEG_FIXTURES) if f.endswith(".jpg"))
+    n_off, worst, n_values = 0, 0, 0
+    for name in names:
+        got = read_jpeg(os.path.join(JPEG_FIXTURES, name))
+        want = np.load(os.path.join(JPEG_FIXTURES, name[:-4] + ".npy"))
+        if got.shape != want.shape:
+            raise SystemExit(f"{name} decodes to {got.shape}, imageio to {want.shape}")
+        d = np.abs(got.astype(np.int16) - want)
+        n_off, worst, n_values = n_off + int((d > 0).sum()), max(worst, int(d.max())), \
+            n_values + d.size
+    images = sorted(os.listdir(os.path.join(LLFF_JPEG, "images")))
+    t = time.perf_counter()
+    decoded = [read_jpeg(os.path.join(LLFF_JPEG, "images", f)) for f in images]
+    decode_s = time.perf_counter() - t
+    print(f"  JPEG fixtures: {len(names)} files, {n_off} of {n_values} values differ from "
+          f"imageio's, max {worst}; demo/llff_scene_jpeg: {len(images)} images "
+          f"{decoded[0].shape} decoded in {decode_s:.3f} s (host CPU, "
+          f"{1e3 * decode_s / len(images):.1f} ms an image)", flush=True)
+    if len(names) < 6 or worst > 1 or n_off > n_values // 1000 or len(images) != 32:
+        raise SystemExit("the JPEG decoder disagrees with imageio's committed pixels")
+    return dict(fixtures=len(names), values_differing=n_off, max_diff=worst,
+                llff_images=len(images), llff_decode_s=decode_s)
+
+
+def convert_check(tmp):
+    """Phase 19b: ``python -m adanerf_tpu_torch.convert_llff`` on copies of
+    demo/llff_scene_jpeg. At -factor 1 the JSON files equal demo/llff_scene's
+    and the split images' mean PSNR against that PNG conversion equals the
+    pinned CPU reading (tests/torch_fixtures/llff_jpeg.json) within its
+    bar; at -factor 2 (the area resize) the focal length and the image size
+    halve. Returns (the numbers, the factor-1 scene)."""
+    import shutil
+    from adanerf_tpu_torch import convert_llff
+    from adanerf_tpu_torch.data.png import read_png
+    with open(LLFF_PINNED) as f:
+        pinned = json.load(f)
+    scenes, infos = {}, {}
+    for factor in (1, 2):
+        d = os.path.join(tmp, f"llff_jpeg_f{factor}")
+        shutil.copytree(LLFF_JPEG, d)
+        convert_llff.main(["-dir", d, "-factor", str(factor)])
+        scenes[factor] = d
+        with open(os.path.join(d, "dataset_info.json")) as f:
+            infos[factor] = json.load(f)
+    jsons = ["dataset_info.json", "cam_path_spiral.json", "transforms_train.json",
+             "transforms_val.json", "transforms_test.json"]
+    same_json = []
+    for n in jsons:
+        with open(os.path.join(scenes[1], n)) as a, open(os.path.join(LLFF_PNG, n)) as b:
+            same_json.append(json.load(a) == json.load(b))
+    psnrs = []
+    for split in ("train", "val", "test"):
+        for f in sorted(os.listdir(os.path.join(LLFF_PNG, split))):
+            a = read_png(os.path.join(scenes[1], split, f)).astype(np.float64) / 255
+            b = read_png(os.path.join(LLFF_PNG, split, f)).astype(np.float64) / 255
+            psnrs.append(10 * np.log10(1.0 / np.mean((a - b) ** 2)))
+    mean = float(np.mean(psnrs))
+    focal = {k: v["resolution"][0] / 2 / math.tan(v["camera_angle_x"] / 2)
+             for k, v in infos.items()}
+    print(f"  convert_llff -factor 1: JSON files equal demo/llff_scene's: "
+          f"{dict(zip(jsons, same_json))}; split images' mean PSNR against the PNG "
+          f"conversion {mean:.6f} dB over {len(psnrs)} images (pinned CPU reading "
+          f"{pinned['mean_psnr_db']:.6f}, bar {pinned['bar_db']}); -factor 2: resolution "
+          f"{infos[2]['resolution']} (from {infos[1]['resolution']}), focal {focal[2]:.4f} "
+          f"(from {focal[1]:.4f})", flush=True)
+    if not all(same_json) or len(psnrs) != pinned["images"] \
+            or abs(mean - pinned["mean_psnr_db"]) > pinned["bar_db"]:
+        raise SystemExit("the JPEG scene's conversion differs from the PNG scene's")
+    if infos[2]["resolution"] != [r // 2 for r in infos[1]["resolution"]] \
+            or abs(focal[2] - focal[1] / 2) > 1e-4 * focal[1]:
+        raise SystemExit("-factor 2 did not halve the image size and the focal length")
+    return dict(json_equal=all(same_json), mean_psnr_vs_png_db=mean, images=len(psnrs),
+                factor2_resolution=infos[2]["resolution"]), scenes[1]
+
+
+def score(ts, out_dir, epoch):
+    """The port's validation loss (``train.validate_batch``, its logs
+    written under out_dir) and test PSNRs (``evaluation.evaluate``, images
+    and psnr) of the weights in ts.models."""
+    from adanerf_tpu_torch import train
+    from adanerf_tpu_torch.evaluation.evaluate import evaluate
+    os.makedirs(out_dir, exist_ok=True)
+    log_dir = ts.logDir
+    ts.logDir = ts.outDir = out_dir
+    try:
+        loss, _ = train.validate_batch(ts, epoch, 0.0)
+        q = evaluate(ts, None, ["images", "psnr"])
+    finally:
+        ts.logDir = log_dir
+        del ts.outDir
+    return float(loss), [float(p) for p in q.psnr]
+
+
+def resume_jax_ndc_run(train, kernel, tmp, flags=("--bf16",)):
+    """Phase 19d: the committed JAX fine NDC run's config.ini and its
+    NDC_RESUME checkpoints copied under the experiment name the port
+    derives, resumed on demo/llff_scene with ``flags`` (bf16 through K3 by
+    default) to epoch 2 x NDC_RESUME, validating every NDC_VALIDATE
+    epochs; then the run's weights and JAX's committed ones at that epoch
+    scored by the same port code (``score``). K3's launches and rows are
+    counted from 0. Returns {stats, state, scores: {"port"|"jax":
+    (validation loss, test PSNRs)}, validated: {epoch: the run's
+    validation loss}, logged: the JAX run's logs.csv loss at 2 x
+    NDC_RESUME, wall_s, launches, rows, trained: the run's weights as flat
+    dicts, argv}."""
+    import shutil
+    from adanerf_tpu_torch.train_state import load_tree
+    from adanerf_tpu_torch.utils.weights import load_flat, to_flat
+    jax_run, r = jax_ndc_run(), NDC_RESUME
+    log = os.path.join(tmp, "quality")
+    run_dir = os.path.join(log, "llff_scene", os.path.basename(jax_run))
+    os.makedirs(run_dir)
+    config = shutil.copy(os.path.join(jax_run, "config.ini"), os.path.join(log, "jax_config.ini"))
+    for f in os.listdir(jax_run):
+        if f"_{r:07d}." in f:
+            shutil.copy(os.path.join(jax_run, f), run_dir)
+    argv = ["-c", config, "-data", LLFF_PNG, "-log", log, *flags, "--epochs", str(2 * r + 1),
+            "--epochsRender", "1000000", "--epochsVideo", "-1", "--no-performEvaluation",
+            "--epochsValidate", str(NDC_VALIDATE), "--verboseEvery", "1000"]
+    kernel.forward_launches = kernel.backward_launches = 0
+    kernel.forward_rows = None
+    t = time.perf_counter()
+    stats = train.main(argv)
+    wall_s = time.perf_counter() - t
+    launches, rows = (kernel.forward_launches, kernel.backward_launches), kernel.forward_rows
+    ts = stats["state"]
+    step_ms = stats["step_ms"]
+    print(f"  resumed {os.path.basename(jax_run)} ({' '.join(flags)}) at epoch {ts.epoch0} in "
+          f"{ts.logDir}: K3 launches forward {launches[0]}, backward {launches[1]} "
+          f"({len(step_ms)} steps) at {rows} rows; step median {float(np.median(step_ms)):.3f} "
+          f"ms (mean {float(np.mean(step_ms)):.3f}); {wall_s:.1f} s in all, validation "
+          f"{stats['legs_ms']['validate']} ms", flush=True)
+    if ts.logDir.rstrip("/") != run_dir or ts.epoch0 != r + 1:
+        raise SystemExit("the quality run did not resume from the copied JAX checkpoint")
+    trained = [{k: v.copy() for k, v in to_flat(m).items()} for m in ts.models]
+    scores = {"port": score(ts, os.path.join(tmp, "score_port"), 2 * r)}
+    for m in ts.models:
+        load_flat(m, load_tree(os.path.join(jax_run, f"{m.name}_{2 * r:07d}.weights")))
+    scores["jax"] = score(ts, os.path.join(tmp, "score_jax"), 2 * r)
+    for m, w in zip(ts.models, trained):
+        load_flat(m, w)
+    def losses(run):
+        with open(os.path.join(run, "logs.csv")) as f:
+            return {int(row["epoch"]): float(row["loss"]) for row in csv.DictReader(f)}
+
+    logged, validated = losses(jax_run), losses(run_dir)
+    return dict(stats=stats, state=ts, scores=scores, validated=validated,
+                logged=logged.get(2 * r), wall_s=wall_s, launches=launches, rows=rows,
+                trained=trained, argv=argv)
+
+
+def llff_leg(train, port_export, viewer, kernel, dev, tmp):
+    """Phase 19: a real forward-facing capture end to end. (a) the JPEG
+    decoder against imageio's pixels; (b) JPEG LLFF conversion; (c)
+    configs/dense_training_ndc.ini on the converted scene, NDC_DENSE_STEPS
+    steps through K3; (d) training quality: the committed JAX fine NDC run
+    resumed on demo/llff_scene in bf16 through K3 from its NDC_RESUME
+    checkpoints with its own config.ini, NDC_RESUME steps, validating
+    every NDC_VALIDATE; the port's weights and JAX's committed ones at the
+    end scored by the same port code, and the first validation held to the
+    JAX package's own resume (NDC_JAX_RESUME), both with QUALITY_BARS; 3
+    steps traced with
+    ``utils/profiling.device_trace``; (e) its export through K1 (fp32
+    ``check_slots``, bf16 >= 40 dB at 800x800, the viewer's default route)
+    with ``--megakernel v3`` refused; (f) its five ``epoch_*.pdf`` plots.
+    Returns the phase's numbers."""
+    from adanerf_tpu_torch.ops.kernels.nerf_train import BACKWARD_KERNEL_NAMES
+    from adanerf_tpu_torch.utils.pdfplot import read_plot
+    out = {"decode": decode_check()}
+    out["convert"], scene = convert_check(tmp)
+
+    # (c) the dense NDC config on the JPEG capture (its NeRF unlocked)
+    steps = NDC_DENSE_STEPS
+    argv = ["-c", DENSE_NDC_INI, "-data", scene, "-log", os.path.join(tmp, "dense"), "--bf16",
+            "--epochs", str(1 + steps), "--randomSeed", "0",
+            "--epochsLockWeightsBefore", "-1", "--epochsLockWeightsBefore", "-1",
+            "--epochsRender", "1000000", "--epochsValidate", "1000000",
+            "--epochsCheckpoint", "1000000", "--no-performEvaluation", "--verboseEvery", "2"]
+    kernel.forward_launches = kernel.backward_launches = 0
+    kernel.forward_rows = None
+    stats = train.main(argv)
+    launches, rows = (kernel.forward_launches, kernel.backward_launches), kernel.forward_rows
+    mse, k = stats["losses"][:, 1], max(1, steps // 4)
+    print(f"  dense NDC run on the JPEG capture ({stats['state'].h}x{stats['state'].w}): K3 "
+          f"launches forward {launches[0]}, backward {launches[1]} ({steps} steps) at {rows} "
+          f"rows; step {float(np.median(stats['step_ms'])):.3f} ms (median); NeRF loss mean of "
+          f"the first {k} steps {float(mse[:k].mean()):.6f}, of the last {k} "
+          f"{float(mse[-k:].mean()):.6f}", flush=True)
+    if launches != (steps, steps) or rows != K3_ROWS:
+        raise SystemExit(f"the dense NDC run launched K3 {launches} times at {rows} rows")
+    if not (np.isfinite(stats["losses"]).all() and mse[-k:].mean() < mse[:k].mean()):
+        raise SystemExit("the dense NDC run's loss did not fall")
+    out["dense"] = dict(launches=launches, rows=rows, steps=steps,
+                        step_ms_median=float(np.median(stats["step_ms"])),
+                        loss_first=float(mse[:k].mean()), loss_last=float(mse[-k:].mean()))
+    del stats
+    torch.cuda.empty_cache()
+
+    # (d) quality: resume the JAX run's checkpoint in the port, through K3
+    q = resume_jax_ndc_run(train, kernel, tmp)
+    stats, ts, scores, r = q["stats"], q["state"], q["scores"], NDC_RESUME
+    launches, rows, step_ms, trained, argv = (q["launches"], q["rows"], stats["step_ms"],
+                                              q["trained"], q["argv"])
+    if launches != (r, r) or rows != K3_FINE_ROWS or not np.isfinite(stats["losses"]).all():
+        raise SystemExit(f"the quality run launched K3 {launches} times at {rows} rows, or its "
+                         "losses are not finite")
+    ratio = scores["port"][0] / scores["jax"][0]
+    dpsnr = float(np.mean(scores["port"][1]) - np.mean(scores["jax"][1]))
+    print(f"  quality at epoch {2 * r}, scored by the port on the card: validation loss port "
+          f"{scores['port'][0]:.8f}, JAX's committed weights {scores['jax'][0]:.8f} (ratio "
+          f"{ratio:.4f}, bar {QUALITY_BARS['val_loss_ratio']}; the JAX run's logs.csv "
+          f"{q['logged']}, not gated); mean test PSNR port "
+          f"{float(np.mean(scores['port'][1])):.4f} dB, JAX's weights "
+          f"{float(np.mean(scores['jax'][1])):.4f} dB (difference {dpsnr:+.4f}, bar "
+          f"-{QUALITY_BARS['test_psnr_db']}); per image port {scores['port'][1]}, JAX "
+          f"{scores['jax'][1]}", flush=True)
+    # like with like: the JAX package's own resume of the same checkpoint on
+    # the CPU, whose rays are rotated in fp32 as the port's are (the
+    # committed run's were not: ROADMAP Queue 3, F10)
+    with open(NDC_JAX_RESUME) as f:
+        ref = json.load(f)
+    e, ref_loss = ref["fp32"]["epoch"], ref["fp32"]["val_loss"]
+    own = q["validated"].get(e, float("nan"))
+    like = own / ref_loss
+    print(f"  the run's validation loss at epoch {e} {own:.8f}; the JAX package's resume on the "
+          f"CPU ({ref['fp32']['steps']} steps, tests/torch_ndc_resume_reference.py) "
+          f"{ref_loss:.8f} (ratio {like:.4f}, bar {QUALITY_BARS['val_loss_ratio']}), at a TPU's "
+          f"default precision {ref['tpu']['val_loss']:.8f} (not gated); the run's validations "
+          f"{q['validated']}", flush=True)
+    batch, targets = ts.assemble_train_batch(ts.train_dataset, np.array([0, 1]))
+    prof = profile_steps(ts, batch, targets, 2 * r + 1, trace_dir=os.path.join(tmp, "trace"))
+    top = [name for _, name in prof["kernels"][:8]]
+    print(f"  trace of 3 steps (utils/profiling.device_trace, {prof['trace_path']}, "
+          f"{os.path.getsize(prof['trace_path'])} bytes): K3 kernels a step {prof['k3_counts']}",
+          flush=True)
+    print_profile("traced resumed step (3 steps)", prof, 8)
+    expected = {k: 1.0 for k in ("k3_fwd",) + BACKWARD_KERNEL_NAMES}
+    if prof["k3_counts"] != expected or not any("k3_" in n for n in top):
+        raise SystemExit(f"the trace's top CUDA ops hold no K3 kernel: {top}")
+    if not (ratio <= QUALITY_BARS["val_loss_ratio"] and dpsnr >= -QUALITY_BARS["test_psnr_db"]
+            and like <= QUALITY_BARS["val_loss_ratio"]):
+        raise SystemExit("the port's bf16 K3 run misses the quality bars against JAX's weights "
+                         "or against the JAX package's own resume")
+    out["quality"] = dict(
+        resumed_at=ts.epoch0, steps=len(step_ms), launches=launches, rows=rows,
+        step_ms_median=float(np.median(step_ms)), step_ms_mean=float(np.mean(step_ms)),
+        wall_s=q["wall_s"], val_loss_port=scores["port"][0], val_loss_jax=scores["jax"][0],
+        val_loss_ratio=ratio, val_loss_logged_jax=q["logged"], validated=q["validated"],
+        val_loss_jax_cpu_resume=ref_loss, val_loss_ratio_jax_cpu_resume=like,
+        test_psnr_port=scores["port"][1], test_psnr_jax=scores["jax"][1],
+        test_psnr_diff_db=dpsnr, traced_device_ms=prof["device_ms"],
+        traced_wall_ms=prof["wall_ms"], traced_k3_ms=prof["k3_ms"],
+        busy_share=prof["device_ms"] / prof["wall_ms"])
+    del batch, targets, prof
+
+    # (f) the run's training-stat plots, written at its validation
+    plots = {}
+    for name in ("epoch_loss", "epoch_train_loss", "epoch_accuracy",
+                 "epoch_loss_train_loss_accuracy", "epoch_loss_train_loss"):
+        path = os.path.join(ts.logDir, name + ".pdf")
+        items = read_plot(path) if os.path.exists(path) else []
+        plots[name] = sum(1 for it in items if it[0] == "path")
+    print(f"  the run's plots (paths drawn in each): {plots}", flush=True)
+    if not all(plots.values()):
+        raise SystemExit("the quality run's epoch_*.pdf plots are missing or do not parse")
+    out["plots"] = plots
+
+    # (e) its export, viewed through K1; v3 refused
+    out["export"] = export_leg(port_export, viewer, ts, trained, argv, dev)
+    del ts, trained, stats
+    torch.cuda.empty_cache()
+    return out
 
 
 def read_quality_csv(path):
@@ -1951,6 +2292,17 @@ def main():
     print(f"  card: {card_state()}", flush=True)
     done("18", t)
 
+    t = time.perf_counter()
+    phase(f"19 LLFF capture -> NDC training through K3 -> K1: JPEG decode, convert_llff, "
+          f"dense_training_ndc.ini {NDC_DENSE_STEPS} steps on the JPEG capture, the committed "
+          f"JAX fine NDC run resumed at {NDC_RESUME} for {NDC_RESUME} steps and scored against "
+          "JAX's weights and the JAX package's own resume, its export through K1, its plots")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_llff_") as tmp:
+        llff = llff_leg(train, port_export, viewer, NerfTrainKernel, dev, tmp)
+    torch.cuda.empty_cache()
+    print(f"  card: {card_state()}", flush=True)
+    done("19", t)
+
     def k3_widths(way):  # the kernels line's K3 numbers at each width
         out = {}
         for w, v in widths.items():
@@ -1988,6 +2340,7 @@ def main():
                       "export": exported, "evaluation": evaluation, "videos": videos,
                       "scale_out": scale_out}),
           flush=True)
+    print(json.dumps({"llff_ndc": llff}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "megakernel_compact", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_compact.cu + adanerf_tpu_torch/csrc/megakernel.cuh",
@@ -2011,6 +2364,12 @@ def main():
         "sharded_4_whole_ms": scale_out["MegakernelCompact"]["ms_whole"],
         "viewer_mesh1_launches": scale_out["viewer_mesh1_launches"],
         "viewer_mesh1_device_ms": scale_out["viewer_mesh1_ms"],
+        "llff_ndc_export_launches": llff["export"]["k1_launches"],
+        "llff_ndc_export_800_ms": llff["export"]["k1_ms"],
+        "llff_ndc_export_800_plain_ms": llff["export"]["k1_plain_ms"],
+        "llff_ndc_export_800_bound_ms": llff["export"]["bound_ms"],
+        "llff_ndc_export_max_abs_err": llff["export"]["k1_fp32"]["err_p"],
+        "llff_ndc_export_psnr_vs_plain_fp32": llff["export"]["k1_psnr_fp32"],
         "widths": frame_widths("k1")}, {
         "name": "nerf_train_forward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
@@ -2031,7 +2390,12 @@ def main():
         "gt_launches": gt["launches"][0], "gt_rows": gt["rows"],
         "gt_train_step_ms": gt["step_ms"],
         "dp_launches_per_rank": [x[0] for x in scale_out["dp_k3_launches"]],
-        "dp_rows_per_rank": scale_out["dp_k3_rows"], "widths": k3_widths("fwd")}, {
+        "dp_rows_per_rank": scale_out["dp_k3_rows"],
+        "llff_ndc_dense_launches": llff["dense"]["launches"][0],
+        "llff_ndc_dense_rows": llff["dense"]["rows"],
+        "llff_ndc_fine_launches": llff["quality"]["launches"][0],
+        "llff_ndc_fine_rows": llff["quality"]["rows"],
+        "widths": k3_widths("fwd")}, {
         "name": "nerf_train_backward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
@@ -2059,6 +2423,10 @@ def main():
         "dp_worst_leaf_rel_err": scale_out["dp_worst_leaf_rel"],
         "dp_step_ms": scale_out["dp_step_ms"],
         "dp_one_process_step_ms": scale_out["one_process_step_ms"],
+        "llff_ndc_dense_launches": llff["dense"]["launches"][1],
+        "llff_ndc_dense_rows": llff["dense"]["rows"],
+        "llff_ndc_fine_launches": llff["quality"]["launches"][1],
+        "llff_ndc_fine_rows": llff["quality"]["rows"],
         "widths": k3_widths("bwd")}, {
         "name": "megakernel_dense", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_dense.cu + adanerf_tpu_torch/csrc/megakernel.cuh",

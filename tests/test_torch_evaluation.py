@@ -6,8 +6,9 @@
   1e-6 on a seeded 96x96 pair and on a 400x400 test image of demo/mscene,
   and the two OpenCV stand-ins (``filter2d``, ``_resize_linear``) against
   cv2 itself;
-* the metrics, the parameter census (``network_description.txt``) and the
-  refusal of a JPEG reference video frame (ROADMAP item 19), before any run
+* the metrics, the parameter census (``network_description.txt``), a
+  JPEG reference video frame read as the JAX package reads it (ROADMAP item
+  19, done) and the refusal of a progressive one (item 21), before any run
   is loaded;
 * re-hydrating the committed JAX run (``load_config``), which loads its
   ``_opt`` checkpoints through ``load_specific_weights("opt")``;
@@ -44,6 +45,8 @@ from adanerf_tpu_torch.evaluation import flip as t_flip
 from adanerf_tpu_torch.evaluation import iw_ssim as t_iw
 from adanerf_tpu_torch.evaluation import metrics as t_metrics
 from adanerf_tpu_torch.utils.weights import to_flat
+
+from torch_jpeg_fixtures import encode
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "demo", "mscene")
@@ -127,17 +130,29 @@ def test_metrics_are_the_jax_packages():
 @pytest.mark.parametrize("evals,item", [(["videos"], "item 19"),
                                         (["images", "videos"], "item 19")])
 def test_unported_evaluations_are_refused(evals, item, tmp_path):
-    """What the port cannot evaluate yet, a JPEG reference video, is refused
-    by name, by the CLI before anything is loaded or written."""
+    """A JPEG reference video, refused until ``item`` was done, decodes as
+    the JAX package reads it; what the port still cannot decode, a
+    progressive frame, is refused by name (item 21, not ``item``), by the
+    CLI before anything is loaded or written."""
     scene = tmp_path / "scene"
     shutil.copytree(DATA, scene, ignore=shutil.ignore_patterns("train", "*_depth.npz"))
     (scene / "reference_video").mkdir()
-    (scene / "reference_video" / "0000.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(ValueError, match=item):
+    frame = read_png(os.path.join(DATA, "test", "0000.png"))[..., :3]
+    (scene / "reference_video" / "0000.jpg").write_bytes(encode(frame, quality=90,
+                                                                subsampling=2))
+    got = t_eval.load_reference_video(str(scene))
+    want = j_eval.load_reference_video(str(scene))
+    assert len(got) == len(want) == 1 and got[0].shape == frame.shape
+    np.testing.assert_array_equal(got[0], want[0])
+    from PIL import Image
+    Image.fromarray(frame).save(str(scene / "reference_video" / "0001.jpg"), "JPEG",
+                                progressive=True)
+    with pytest.raises(ValueError, match="progressive.*item 21") as err:
         t_eval.load_reference_video(str(scene))
+    assert item not in str(err.value)
     out = tmp_path / "out"
     out.mkdir()
-    with pytest.raises(SystemExit, match=item):
+    with pytest.raises(SystemExit, match="progressive.*item 21"):
         t_evaluate_cli.main(["-data", str(scene), "-log", RUN, "--outDir", str(out),
                              "--device", "cpu"] + [a for e in evals for a in ("--evaluations", e)])
     assert not os.listdir(out)  # refused before anything ran

@@ -120,3 +120,22 @@ def test_dense_path_matches_jax_uncompacted_renderer():
     np.testing.assert_allclose(rgb_t.numpy(), rgb_j, atol=2e-4, rtol=0)
     rgb_c, _ = rt_t.render_frame(pose, rot, dirs)
     np.testing.assert_allclose(rgb_t.numpy(), rgb_c.numpy(), atol=2e-4, rtol=0)
+
+
+def test_world_dirs_and_unit_round_as_the_kernels_and_agree_with_torch():
+    """``world_dirs`` and ``unit`` (the plain renderer's ray rotation and
+    NDC direction normalization, written as K1/K2's ray setup rounds them)
+    are ``dirs @ rotation.T`` and ``d / |d|`` to within fp32 roundings;
+    a zero direction stays finite, as the kernels' clamp keeps it."""
+    from adanerf_tpu_torch.realtime import unit, world_dirs
+    rng = np.random.default_rng(3)
+    dirs = torch.from_numpy(rng.standard_normal((4096, 3)).astype(np.float32))
+    q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+    rot = torch.from_numpy(q.astype(np.float32))
+    got = world_dirs(dirs, rot)
+    want = (dirs.double() @ rot.double().T)
+    assert float((got.double() - want).abs().max()) <= 4e-7 * float(want.abs().max())
+    u = unit(dirs)
+    np.testing.assert_allclose(u.numpy(), (dirs / torch.linalg.vector_norm(
+        dirs, dim=-1, keepdim=True)).numpy(), rtol=0, atol=3e-7)
+    assert torch.equal(unit(torch.zeros(2, 3)), torch.zeros(2, 3))

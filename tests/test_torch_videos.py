@@ -16,8 +16,9 @@ package's and OpenCV, on the CPU:
   pixel but where a float rounding puts a value on the other side of a
   level (at most 1 level, on at most 1% of the values); through both
   packages' ``evaluate``, the same files;
-* a JPEG reference frame is refused by name (ROADMAP item 19), and so are
-  JPEG images in an LLFF scene."""
+* a JPEG reference frame, and the JPEG images of an LLFF scene, read as
+  the JAX package reads them (ROADMAP item 19, done); a progressive one
+  is refused by name (item 21)."""
 
 import json
 import os
@@ -41,7 +42,10 @@ from adanerf_tpu_torch.utils.weights import from_jax_params
 
 import importlib
 
+from adanerf_tpu.data import llff as j_llff
 from scene_utils import dense_config_args, make_scene
+from test_llff import make_llff_scene
+from torch_jpeg_fixtures import encode, seeded_image
 
 j_eval = importlib.import_module("adanerf_tpu.evaluation.evaluate")
 
@@ -195,19 +199,51 @@ def test_videos_evaluation_through_evaluate_matches_jax(video_states, tmp_path):
             "_square_diff_frames", "_flip_frames"} <= set(names[t_eval])
 
 
+def _progressive(img):
+    from PIL import Image
+    import io
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", progressive=True)
+    return buf.getvalue()
+
+
 def test_jpeg_reference_frame_is_refused(tmp_path):
+    """A baseline JPEG reference frame beside a PNG one reads as the JAX
+    package reads it (imageio); a progressive one, which the port does not
+    decode, is refused by name (ROADMAP item 21; item 19 is done)."""
     ref = tmp_path / "reference_video"
     ref.mkdir()
     imageio.imwrite(str(ref / "0000.png"), np.zeros((4, 4, 3), np.uint8))
-    (ref / "0001.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(ValueError, match="0001.jpg.*JPEG decoder.*item 19"):
+    (ref / "0001.jpg").write_bytes(encode(seeded_image(31, 40, 3, seed=9), quality=90,
+                                          subsampling=2))
+    got, want = t_eval.load_reference_video(str(tmp_path)), j_eval.load_reference_video(
+        str(tmp_path))
+    assert len(got) == len(want) == 2 and got[1].shape == (31, 40, 3)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    (ref / "0002.jpg").write_bytes(_progressive(seeded_image(8, 8, 3)))
+    with pytest.raises(ValueError, match="0002.jpg.*progressive.*item 21"):
         t_eval.load_reference_video(str(tmp_path))
     assert t_eval.load_reference_video(str(tmp_path / "nowhere")) is None
 
 
 def test_jpeg_llff_images_are_refused(tmp_path):
-    (tmp_path / "images").mkdir()
-    (tmp_path / "images" / "0000.JPG").write_bytes(b"\xff\xd8\xff")
-    np.save(str(tmp_path / "poses_bounds.npy"), np.zeros((1, 17)))
-    with pytest.raises(ValueError, match="0000.JPG.*JPEG decoder.*item 19"):
-        load_llff_data(str(tmp_path), factor=None)
+    """An LLFF capture whose images are JPEG (named .JPG, as cameras name
+    them) loads as the JAX package loads it; a progressive image is refused
+    by name (ROADMAP item 21; item 19 is done)."""
+    d = make_llff_scene(str(tmp_path / "scene"))
+    for f in sorted(os.listdir(os.path.join(d, "images"))):
+        img = imageio.imread(os.path.join(d, "images", f))
+        os.remove(os.path.join(d, "images", f))
+        (tmp_path / "scene" / "images" / f.replace(".png", ".JPG")).write_bytes(
+            encode(img, quality=95, subsampling=2))
+    for factor in (None, 2):
+        got, want = load_llff_data(d, factor=factor), j_llff.load_llff_data(d, factor=factor)
+        assert got[0].shape == want[0].shape
+        assert float(np.abs(got[0] - want[0]).max()) <= 1 / 255
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_array_equal(g, w)
+    (tmp_path / "scene" / "images" / "000.JPG").write_bytes(
+        _progressive(seeded_image(32, 40, 3)))
+    with pytest.raises(ValueError, match="000.JPG.*progressive.*item 21"):
+        load_llff_data(d, factor=None)
