@@ -12,8 +12,16 @@
 // mlp_wgmma.cuh. Ray setup, the encode, the select, the sample coordinates
 // and the alpha and rgb heads are device functions that both share.
 //
-// Both MLPs are W wide (mlp_tile.cuh's MLP_WIDTH: 128, 256, 384 or 512, one
-// library per width), the views layer W / 2.
+// A library is built for one MLP width W (mlp_tile.cuh's MLP_WIDTH: 128,
+// 256, 384 or 512), the views layer W / 2. The front runs the oracle and the
+// shade the NeRF, so an oracle and a NeRF of different widths take the front
+// of the oracle's library and the shade of the NeRF's (MkParams::from_stage,
+// stages); an MLP wider than 512 takes the wide path (wide.cu) for its half.
+// Depth has no cap: a layer's bias sits at a fixed stride from the first
+// (the packer writes them in order), and the kernels read each layer's
+// weight offsets from a table on the device (MkParams::lt); a NeRF trunk's
+// skip inputs are bits of a kernel parameter, which holds 65 layers (a
+// deeper NeRF takes the wide shade).
 
 #pragma once
 
@@ -23,7 +31,6 @@
 namespace {
 
 constexpr int XS = 128;    // row stride of the encoded-input buffer
-constexpr int MAXL = 16;   // most layers per MLP
 constexpr int VW = W / 2;  // the views layer's width
 
 constexpr size_t SMEM_BYTES = sizeof(float) * (R * XS + 2 * R * W + KC * W);
@@ -35,18 +42,23 @@ extern "C" {
 // Mirrored field for field by the ctypes Structure in megakernel_compact.py.
 // rows and counter are K1's only; K2 passes null for both.
 struct MkParams {
-  long long o_w[MAXL], o_b[MAXL];     // oracle layer weight / bias offsets
-  long long n_w[MAXL], n_wx[MAXL], n_b[MAXL];  // NeRF trunk (+ skip input)
+  // the per-layer table, on the device: the oracle's weight offsets (o_w:
+  // depth0), then the NeRF trunk's (n_w, n_wx: depth1 each; n_wx, the skip
+  // input's weights, is -1 where a layer takes none)
+  const long long* lt;
+  long long o_b0, n_b0;  // layer 0's bias; layer l's is l x the MLP's width further
+  unsigned long long skip_bits;  // bit l-1: NeRF layer l takes [h, x]
   long long n_wa, n_ba, n_wf, n_bf, n_wvf, n_wvd, n_bv, n_wrgb, n_brgb;
   int B, S, D;          // rays, sample slots, oracle bins
   int in0, in1;         // padded encoded input widths (multiples of 32; of 64 for bf16)
   int fd0, fp0, fp1, fd1;  // encode frequencies: oracle dir/pos, NeRF pos/dir
-  int depth0, depth1, skip_mask;  // layers; bit i: NeRF layer i+1 takes [x, h]
+  int depth0, depth1;   // layers
   int z_mode;           // 0 raw [0,1] z, 1 log, 2 linear depth transform
   int ndc;              // shading rays in NDC space
   int norm_none;        // 1: "None" normalization, 0: InverseSqrtDistCentered
   int acc_mode;         // 0 none, 1 alpha premultiply, 2 weights premultiply
   int bf16;             // weights are bf16, activations rounded to bf16
+  int from_stage;       // 1 from the front, 2 from the shade
   int stages;           // 1 front only, 2 + shade, 3 + composite
   int shade_blocks;     // persistent grid (SMs): the shade; the bf16 front too
   float threshold, radius2, sqrt_max_depth;
@@ -58,6 +70,23 @@ struct MkParams {
 }  // extern "C"
 
 namespace {
+
+// A layer's offsets: the weights' from the table, the bias's from the
+// first bias and this library's width W (the front's MLP is the oracle,
+// the shade's the NeRF: each library runs the MLP of its width). Computed
+// from kernel parameters where they are used, the bias offsets hold no
+// register across a layer's products.
+__device__ __forceinline__ long long o_w(const MkParams& P, int l) { return P.lt[l]; }
+__device__ __forceinline__ long long o_b(const MkParams& P, int l) { return P.o_b0 + (long long)l * W; }
+__device__ __forceinline__ long long n_w(const MkParams& P, int l) { return P.lt[P.depth0 + l]; }
+__device__ __forceinline__ long long n_wx(const MkParams& P, int l) {
+  return P.lt[P.depth0 + P.depth1 + l];
+}
+__device__ __forceinline__ long long n_b(const MkParams& P, int l) { return P.n_b0 + (long long)l * W; }
+// NeRF layer l (of the trunk) takes [h, x]
+__device__ __forceinline__ bool n_skip(const MkParams& P, int l) {
+  return l > 0 && l < P.depth1 && ((P.skip_bits >> (l - 1)) & 1ull);
+}
 
 // Column `col` of the encoding [enc(c[0:3], fa) | enc(c[3:6], fb) | 0...],
 // each block laid out [x(3), sin f0 x(3), cos f0 x(3), sin f1 x(3), ...].
@@ -184,8 +213,8 @@ __device__ __forceinline__ void ray_setup(const MkParams& P, const float* __rest
   }
 }
 
-// Adaptive select of one ray's bins from its raw logits (D values), by a
-// whole warp, bin = j*32 + lane: the bins at or above the threshold, the S
+// Adaptive select of one ray's bins from its raw logits (D <= 128 values),
+// by a whole warp, bin = j*32 + lane: the bins at or above the threshold, the S
 // largest of them if more pass (ties to the lower bin), the argmax bin if
 // none does. Writes the ray's slots in ascending bin order and its count.
 // DENSE (K2): dead slots get bin 0's depth and p 0; otherwise (K1) z 0 and
@@ -195,14 +224,15 @@ __device__ __forceinline__ int select_row(const MkParams& P, const float* logits
                                           float* __restrict__ zbuf, float* __restrict__ pbuf,
                                           int* __restrict__ counts) {
   const int lane = threadIdx.x & 31;
-  const int DJ = P.D / 32, S = P.S;
+  const int S = P.S;
   float d[4];
-  bool keep[4];
+  bool keep[4], ok[4];  // ok: a bin of the oracle's
   int n_pass = 0;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    d[j] = j < DJ ? logits[j * 32 + lane] : neg_inf();
-    keep[j] = j < DJ && d[j] >= P.threshold;
+    ok[j] = j * 32 + lane < P.D;
+    d[j] = ok[j] ? logits[j * 32 + lane] : neg_inf();
+    keep[j] = ok[j] && d[j] >= P.threshold;
     n_pass += __popc(__ballot_sync(0xffffffffu, keep[j]));
   }
   if (n_pass > S) {  // keep the S largest, ties to the lower bin
@@ -213,7 +243,7 @@ __device__ __forceinline__ int select_row(const MkParams& P, const float* logits
       int bb = 1 << 30;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (j < DJ && !keep[j] && (d[j] > bv || bb == (1 << 30))) { bv = d[j]; bb = j * 32 + lane; }
+        if (ok[j] && !keep[j] && (d[j] > bv || bb == (1 << 30))) { bv = d[j]; bb = j * 32 + lane; }
       warp_argmax(bv, bb);
 #pragma unroll
       for (int j = 0; j < 4; ++j) keep[j] = keep[j] || bb == j * 32 + lane;
@@ -223,7 +253,7 @@ __device__ __forceinline__ int select_row(const MkParams& P, const float* logits
     int bb = 1 << 30;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (j < DJ && (d[j] > bv || bb == (1 << 30))) { bv = d[j]; bb = j * 32 + lane; }
+      if (ok[j] && (d[j] > bv || bb == (1 << 30))) { bv = d[j]; bb = j * 32 + lane; }
     warp_argmax(bv, bb);
 #pragma unroll
     for (int j = 0; j < 4; ++j) keep[j] = bb == j * 32 + lane;
@@ -353,15 +383,16 @@ mk_front(const MkParams P, const float* __restrict__ dirs, const float* __restri
 
   // oracle MLP: relu trunk, raw logits out (padded to 128 columns)
   const bool rb = P.bf16;
-  mlp_layer<T, W>({x, XS, P.in0, wts + P.o_w[0]}, {}, 1, bias + P.o_b[0], hA, W, true, rb, wt);
+  mlp_layer<T, W>({x, XS, P.in0, wts + o_w(P, 0)}, {}, 1, bias + o_b(P, 0), hA, W, true, rb, wt);
   float* cur = hA;
   float* nxt = hB;
   for (int l = 1; l < P.depth0 - 1; ++l) {
-    mlp_layer<T, W>({cur, W, W, wts + P.o_w[l]}, {}, 1, bias + P.o_b[l], nxt, W, true, rb, wt);
+    mlp_layer<T, W>({cur, W, W, wts + o_w(P, l)}, {}, 1, bias + o_b(P, l), nxt, W, true, rb, wt);
     float* tmp = cur; cur = nxt; nxt = tmp;
   }
   const int L = P.depth0 - 1;
-  mlp_layer<T, 128>({cur, W, W, wts + P.o_w[L]}, {}, 1, bias + P.o_b[L], nxt, 128, false, false, wt);
+  mlp_layer<T, 128>({cur, W, W, wts + o_w(P, L)}, {}, 1, bias + o_b(P, L), nxt, 128, false, false,
+                    wt);
   __syncthreads();
   const float* logits = nxt;
 
@@ -416,16 +447,17 @@ mk_shade(const MkParams P, const T* __restrict__ wts, const float* __restrict__ 
     __syncthreads();
     encode_tile(coords, x, P.in1, P.fp1, P.fd1, rb);
 
-    // NeRF trunk; layer i takes [x, h] when bit i-1 of skip_mask is set
-    mlp_layer<T, W>({x, XS, P.in1, wts + P.n_w[0]}, {}, 1, bias + P.n_b[0], hA, W, true, rb, wt);
+    // NeRF trunk; layer i takes [x, h] where n_skip
+    mlp_layer<T, W>({x, XS, P.in1, wts + n_w(P, 0)}, {}, 1, bias + n_b(P, 0), hA, W, true, rb, wt);
     float* cur = hA;
     float* nxt = hB;
     for (int l = 1; l < P.depth1; ++l) {
-      const Seg<T> sh{cur, W, W, wts + P.n_w[l]};
-      if ((P.skip_mask >> (l - 1)) & 1)
-        mlp_layer<T, W>(sh, {x, XS, P.in1, wts + P.n_wx[l]}, 2, bias + P.n_b[l], nxt, W, true, rb, wt);
+      const Seg<T> sh{cur, W, W, wts + n_w(P, l)};
+      if (n_skip(P, l))
+        mlp_layer<T, W>(sh, {x, XS, P.in1, wts + n_wx(P, l)}, 2, bias + n_b(P, l), nxt, W, true, rb,
+                        wt);
       else
-        mlp_layer<T, W>(sh, {}, 1, bias + P.n_b[l], nxt, W, true, rb, wt);
+        mlp_layer<T, W>(sh, {}, 1, bias + n_b(P, l), nxt, W, true, rb, wt);
       float* tmp = cur; cur = nxt; nxt = tmp;
     }
     // feature = h @ wf + bf (no activation) into the other buffer
@@ -536,7 +568,7 @@ __device__ __forceinline__ void tc_plan(const MkParams& P, bool front, int l, in
     return;
   }
   kc0 = l == 0 ? P.in1 / TC_KC : W / TC_KC;
-  const bool skip = l > 0 && l < P.depth1 && ((P.skip_mask >> (l - 1)) & 1);
+  const bool skip = n_skip(P, l);
   kc1 = skip || l == P.depth1 + 1 ? P.in1 / TC_KC : 0;
   n = l == P.depth1 + 1 ? VW : W;
 }
@@ -616,7 +648,7 @@ mk_front_tc(const MkParams P, const float* __restrict__ dirs, const float* __res
   extern __shared__ float4 smem4[];
   TcBlock blk;
   const int ntiles = (P.B + TC_TILE - 1) / TC_TILE;
-  if (!blk.start(smem4, P, true, wts + P.o_w[0], ntiles)) return;
+  if (!blk.start(smem4, P, true, wts + o_w(P, 0), ntiles)) return;
   const int g = blk.g(), bar = 1 + g, tl = threadIdx.x & 127, lane = tl & 31, wq = tl >> 5;
   uint8_t* x = blk.x(0);
   uint8_t* h = blk.h();
@@ -650,12 +682,12 @@ mk_front_tc(const MkParams P, const float* __restrict__ dirs, const float* __res
     wg_sync(bar);  // x is encoded; the previous tile's select is done with h
 
     // oracle MLP: relu trunk, raw logits out (padded to 128 columns)
-    tc_hidden<W, false>(blk.ring, xa, P.in0 / TC_KC, 0, 0, [](int) {}, bias + P.o_b[0], true, h,
+    tc_hidden<W, false>(blk.ring, xa, P.in0 / TC_KC, 0, 0, [](int) {}, bias + o_b(P, 0), true, h,
                         bar);
     for (int l = 1; l < P.depth0 - 1; ++l) {
       fence_async_smem();
       wg_sync(bar);
-      tc_hidden<W, true>(blk.ring, ha, W / TC_KC, 0, 0, side, bias + P.o_b[l], true, h, bar);
+      tc_hidden<W, true>(blk.ring, ha, W / TC_KC, 0, 0, side, bias + o_b(P, l), true, h, bar);
     }
     fence_async_smem();
     wg_sync(bar);
@@ -663,7 +695,7 @@ mk_front_tc(const MkParams P, const float* __restrict__ dirs, const float* __res
     tc_layer<128>(blk.ring, lg, ha, W / TC_KC, 0, 0, side);
     while (slot <= PARTS) side(0);  // a shallow oracle leaves parts over
     wg_sync(bar);
-    tc_store_f32(lg, bias + P.o_b[P.depth0 - 1], logits);
+    tc_store_f32(lg, bias + o_b(P, P.depth0 - 1), logits);
     wg_sync(bar);
 
     // adaptive select: one warp per ray
@@ -699,7 +731,7 @@ mk_shade_tc(const MkParams P, const __nv_bfloat16* __restrict__ wts,
   TcBlock blk;
   const int total = DENSE ? P.B * P.S : *counter;
   const int ntiles = (total + TC_TILE - 1) / TC_TILE;
-  if (!blk.start(smem4, P, false, wts + P.n_w[0], ntiles)) return;
+  if (!blk.start(smem4, P, false, wts + n_w(P, 0), ntiles)) return;
   const int g = blk.g(), bar = 1 + g, tl = threadIdx.x & 127, lane = tl & 31, wq = tl >> 5;
   uint8_t* h = blk.h();
   const uint32_t ha = smem_u32(h);
@@ -742,13 +774,13 @@ mk_shade_tc(const MkParams P, const __nv_bfloat16* __restrict__ wts,
     fence_async_smem();
     wg_sync(bar);  // x(b) is encoded; the previous tile's readers of h are done
 
-    // NeRF trunk; layer i takes [h, x] when bit i-1 of skip_mask is set
-    tc_hidden<W, false>(blk.ring, xa, kx, 0, 0, [](int) {}, bias + P.n_b[0], true, h, bar);
+    // NeRF trunk; layer i takes [h, x] where n_skip
+    tc_hidden<W, false>(blk.ring, xa, kx, 0, 0, [](int) {}, bias + n_b(P, 0), true, h, bar);
     for (int l = 1; l < P.depth1; ++l) {
       fence_async_smem();
       wg_sync(bar);
-      tc_hidden<W, true>(blk.ring, ha, W / TC_KC, xa, ((P.skip_mask >> (l - 1)) & 1) ? kx : 0,
-                         side, bias + P.n_b[l], true, h, bar);
+      tc_hidden<W, true>(blk.ring, ha, W / TC_KC, xa, n_skip(P, l) ? kx : 0, side, bias + n_b(P, l),
+                         true, h, bar);
     }
     if constexpr (MK_XB == 2)
       while (slot <= PARTS) side(0);  // a shallow NeRF leaves parts over
@@ -822,30 +854,37 @@ cudaError_t launch_all(const MkParams& P, const float* dirs, const float* pose,
                        int* counter, float* raw, float* rgb, cudaStream_t stream) {
   cudaError_t e;
   const T* w = static_cast<const T*>(wts);
+  const bool front = P.from_stage <= 1, shade = P.from_stage <= 2 && P.stages >= 2;
   if constexpr (sizeof(T) == sizeof(float)) {
     if ((e = cudaFuncSetAttribute(mk_front<T, DENSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)SMEM_BYTES)) != cudaSuccess) return e;
     if ((e = cudaFuncSetAttribute(mk_shade<T, DENSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)SMEM_BYTES)) != cudaSuccess) return e;
-    if (!DENSE && (e = cudaMemsetAsync(counter, 0, sizeof(int), stream)) != cudaSuccess) return e;
-    mk_front<T, DENSE><<<(P.B + R - 1) / R, NT, SMEM_BYTES, stream>>>(
-        P, dirs, pose, rot, w, bias, o_sh, d_sh, zbuf, pbuf, counts, rows, counter);
-    if ((e = cudaGetLastError()) != cudaSuccess || P.stages < 2) return e;
-    mk_shade<T, DENSE><<<P.shade_blocks, NT, SMEM_BYTES, stream>>>(P, w, bias, o_sh, d_sh, zbuf,
-                                                                   rows, counter, raw);
+    if (front) {
+      if (!DENSE && (e = cudaMemsetAsync(counter, 0, sizeof(int), stream)) != cudaSuccess) return e;
+      mk_front<T, DENSE><<<(P.B + R - 1) / R, NT, SMEM_BYTES, stream>>>(
+          P, dirs, pose, rot, w, bias, o_sh, d_sh, zbuf, pbuf, counts, rows, counter);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+    if (shade)
+      mk_shade<T, DENSE><<<P.shade_blocks, NT, SMEM_BYTES, stream>>>(P, w, bias, o_sh, d_sh, zbuf,
+                                                                     rows, counter, raw);
   } else {
     if ((e = cudaFuncSetAttribute(mk_front_tc<DENSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)TC_SMEM_BYTES)) != cudaSuccess) return e;
     if ((e = cudaFuncSetAttribute(mk_shade_tc<DENSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)TC_SMEM_BYTES)) != cudaSuccess) return e;
-    if (!DENSE && (e = cudaMemsetAsync(counter, 0, sizeof(int), stream)) != cudaSuccess) return e;
-    const int tiles = (P.B + TC_TILE - 1) / TC_TILE;
-    mk_front_tc<DENSE><<<tiles < P.shade_blocks ? tiles : P.shade_blocks, TC_THREADS,
-                         TC_SMEM_BYTES, stream>>>(P, dirs, pose, rot, w, bias, o_sh, d_sh, zbuf,
-                                                  pbuf, counts, rows, counter);
-    if ((e = cudaGetLastError()) != cudaSuccess || P.stages < 2) return e;
-    mk_shade_tc<DENSE><<<P.shade_blocks, TC_THREADS, TC_SMEM_BYTES, stream>>>(
-        P, w, bias, o_sh, d_sh, zbuf, rows, counter, raw);
+    if (front) {
+      if (!DENSE && (e = cudaMemsetAsync(counter, 0, sizeof(int), stream)) != cudaSuccess) return e;
+      const int tiles = (P.B + TC_TILE - 1) / TC_TILE;
+      mk_front_tc<DENSE><<<tiles < P.shade_blocks ? tiles : P.shade_blocks, TC_THREADS,
+                           TC_SMEM_BYTES, stream>>>(P, dirs, pose, rot, w, bias, o_sh, d_sh, zbuf,
+                                                    pbuf, counts, rows, counter);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+    if (shade)
+      mk_shade_tc<DENSE><<<P.shade_blocks, TC_THREADS, TC_SMEM_BYTES, stream>>>(
+          P, w, bias, o_sh, d_sh, zbuf, rows, counter, raw);
   }
   if ((e = cudaGetLastError()) != cudaSuccess || P.stages < 3) return e;
   mk_composite<DENSE><<<(P.B + 255) / 256, 256, 0, stream>>>(P, raw, pbuf, counts, rgb);

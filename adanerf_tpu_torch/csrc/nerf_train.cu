@@ -14,8 +14,12 @@
 // its layer's relu, summed for the bias, then rounded. x (N, n_in) ->
 // [rgb, alpha] (N, 4); the backward gives dW and db for every NeRF leaf and
 // dX. The hidden width HW is the macro K3_WIDTH, 128, 256, 384 or 512 (one
-// library per width; the views layer is HW / 2 wide, as NeRFDef's); at most
-// 16 trunk layers and 128 input columns.
+// library per width; the views layer is HW / 2 wide, as NeRFDef's), with at
+// most 128 input columns and 65 trunk layers (a layer's offsets are
+// strides from the first layer's, its skip input a bit of a kernel
+// parameter). A NeRF wider than 512, deeper, or with more input
+// columns takes the wide path (wide.cu), which ends in this library's
+// k3_dw and k3_reduce (k3_weight_grads).
 //
 // What bounds it: arithmetic (at 256, 593,408 multiply-adds a row forward,
 // about three times that backward), and in the backward the bf16 scratch
@@ -91,7 +95,6 @@ typedef __nv_bfloat16 bf16;
 #ifndef K3_WIDTH
 #define K3_WIDTH 256
 #endif
-constexpr int MAXL = 16;              // most trunk layers
 constexpr int HW = K3_WIDTH;          // hidden width: one library per width
 static_assert(HW == 128 || HW == 256 || HW == 384 || HW == 512, "K3 widths: 128 to 512 step 128");
 constexpr int VW = HW / 2;            // views layer width
@@ -154,13 +157,17 @@ extern "C" {
 // Mirrored field for field by the ctypes Structures in nerf_train.py. vec
 // offsets index the fp32 vector buffer (biases; the heads' weights, bf16
 // values), s_* the bf16 scratch (each a matrix region, tile t at s + t * F *
-// 64), bp* the columns of a consumer's row of the bias partials.
+// 64), bp* the columns of a consumer's row of the bias partials. Per
+// layer l: the trunk bias at l x HW in the vector buffer, the bias-partial
+// columns at l x HW, the scratch regions of the layer's output and of its
+// cotangent at s_h and s_g plus l x s_step; layer l takes [h, x] where bit
+// l - 1 of skip_bits is set.
 struct K3Params {
-  long long b[MAXL];
+  unsigned long long skip_bits;
   long long bf, ba, bv, brgb, wa, wrgb;
-  long long s_x, s_h[MAXL], s_feat, s_hv, s_g[MAXL], s_gfeat, s_ghv;
-  long long bp[MAXL], bp_f, bp_v, bp_rgb, bp_a, bp_wa, bp_wrgb, bp_width;
-  int N, n_in, depth, skip_mask;  // skip bit i: layer i+1 takes [h, x]
+  long long s_x, s_h, s_g, s_step, s_feat, s_hv, s_gfeat, s_ghv;
+  long long bp_f, bp_v, bp_rgb, bp_a, bp_wa, bp_wrgb, bp_width;
+  int N, n_in, depth;
   int tiles, blocks;              // 64-row tiles (even); the persistent grid
 };
 
@@ -178,8 +185,14 @@ struct DwTile {
 
 namespace {
 
+// Layer l's offsets, computed from kernel parameters where they are used,
+// so that none holds a register across the layer's products.
+__device__ __forceinline__ long long lt_b(const K3Params&, int l) { return (long long)l * HW; }
+__device__ __forceinline__ long long lt_sh(const K3Params& P, int l) { return P.s_h + l * P.s_step; }
+__device__ __forceinline__ long long lt_sg(const K3Params& P, int l) { return P.s_g + l * P.s_step; }
+__device__ __forceinline__ long long lt_bp(const K3Params&, int l) { return (long long)l * HW; }
 __device__ __forceinline__ bool takes_x(const K3Params& P, int l) {
-  return l > 0 && ((P.skip_mask >> (l - 1)) & 1);
+  return l > 0 && ((P.skip_bits >> (l - 1)) & 1ull);
 }
 
 __device__ __forceinline__ float bfr(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
@@ -581,8 +594,8 @@ __device__ __forceinline__ void forward_tile(const K3Params& P, K3Ring& ring,
         wg_sync(bar);  // every warp's wgmma has read h
       }
       uint32_t bits[WPT] = {};
-      put_act<HW, TRAIN, TRAIN>(acc, vec + P.b[l], true, h, TRAIN ? scr + P.s_h[l] + oh : nullptr,
-                                bits);
+      put_act<HW, TRAIN, TRAIN>(acc, vec + lt_b(P, l), true, h,
+                                TRAIN ? scr + lt_sh(P, l) + oh : nullptr, bits);
       if constexpr (TRAIN) put_words(masks + l * MASK_WORDS, bits);
     }
     fence_async_smem();
@@ -603,15 +616,15 @@ __device__ __forceinline__ void forward_tile(const K3Params& P, K3Ring& ring,
   } else {  // two passes a trunk and feature layer (fwd_layer)
     for (int l = 0; l < P.depth; ++l) {
       uint32_t bits[WPT] = {};
-      bf16* st = TRAIN ? scr + P.s_h[l] + oh : nullptr;
+      bf16* st = TRAIN ? scr + lt_sh(P, l) + oh : nullptr;
       if (l == 0) {
-        fwd_layer<HW, TRAIN, TRAIN, false>(ring, xa, KX, 0, 0, [](int) {}, vec + P.b[l], true, h,
-                                           bar, st, bits);
+        fwd_layer<HW, TRAIN, TRAIN, false>(ring, xa, KX, 0, 0, [](int) {}, vec + lt_b(P, l), true,
+                                           h, bar, st, bits);
       } else {
         fence_async_smem();
         wg_sync(bar);
         fwd_layer<HW, TRAIN, TRAIN, true>(ring, ha, KH, xa, takes_x(P, l) ? KX : 0, side_t,
-                                          vec + P.b[l], true, h, bar, st, bits);
+                                          vec + lt_b(P, l), true, h, bar, st, bits);
       }
       if constexpr (TRAIN) put_words(masks + l * MASK_WORDS, bits);
     }
@@ -892,8 +905,8 @@ k3_chain(const K3Params P, const float* __restrict__ gout, const bf16* __restric
       uint32_t bits[WPT];
       get_words(mk + (D - 1) * MASK_WORDS, bits);
       const float ga0 = bfr(gr[r0].w), ga1 = bfr(gr[r0 + 8].w);
-      cot_layer<HW, true>(ring, ha, KH, bits, cs, bp + P.bp[D - 1], first, h,
-                          scr + P.s_g[D - 1] + oh, bar, [&](auto c0, auto& acc) {
+      cot_layer<HW, true>(ring, ha, KH, bits, cs, bp + lt_bp(P, D - 1), first, h,
+                          scr + lt_sg(P, D - 1) + oh, bar, [&](auto c0, auto& acc) {
         constexpr int C0 = decltype(c0)::value, NP = acc_cols<decltype(acc)>;
 #pragma unroll
         for (int j = 0; j < NP / 8; ++j) {
@@ -915,8 +928,8 @@ k3_chain(const K3Params P, const float* __restrict__ gout, const bf16* __restric
       }
       uint32_t bits[WPT];
       get_words(mk + (i - 1) * MASK_WORDS, bits);
-      cot_layer<HW, true>(ring, ha, KH, bits, cs, bp + P.bp[i - 1], first, h,
-                          scr + P.s_g[i - 1] + oh, bar, nothing);
+      cot_layer<HW, true>(ring, ha, KH, bits, cs, bp + lt_bp(P, i - 1), first, h,
+                          scr + lt_sg(P, i - 1) + oh, bar, nothing);
     }
     {  // dX += g_pre_0 @ w_0^T
       float v[64];
@@ -1041,6 +1054,20 @@ __global__ void k3_reduce(const DwTile* __restrict__ tiles, int n_tiles, int S,
   gbuf[D.dst + (long long)(k - D.k_lo) * D.ldo + c] = s;
 }
 
+// k3_dw over the table's n_tiles output tiles and S slices of tps of the T
+// row tiles, then k3_reduce of its partials and of slots bias-partial rows.
+cudaError_t weight_grads(const void* tiles, int n_tiles, int S, int tps, int T, const bf16* scr,
+                         float* part, const float* bpart, int slots, int bp_width, float* gbuf,
+                         cudaStream_t s) {
+  const DwTile* tt = static_cast<const DwTile*>(tiles);
+  k3_dw<<<n_tiles * S, THREADS, DW_SMEM, s>>>(tt, n_tiles, tps, T, scr, part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  k3_reduce<<<dim3(DW_PART / 256, n_tiles + 1), 256, 0, s>>>(tt, n_tiles, S, part, bpart, slots,
+                                                             bp_width, gbuf);
+  return cudaGetLastError();
+}
+
 cudaError_t set_smem() {
   cudaError_t e = cudaFuncSetAttribute(k3_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)F_SMEM);
@@ -1087,12 +1114,22 @@ extern "C" int k3_backward(int device, const K3Params* P, const float* x, const 
   k3_chain<<<P->blocks, THREADS, C_SMEM, s>>>(*P, gout, static_cast<const bf16*>(bstream), vec,
                                               scr, mk, bpart, dx);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  const DwTile* tt = static_cast<const DwTile*>(tiles);
-  k3_dw<<<n_tiles * S, THREADS, DW_SMEM, s>>>(tt, n_tiles, tps, P->tiles, scr, part);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  k3_reduce<<<dim3(DW_PART / 256, n_tiles + 1), 256, 0, s>>>(tt, n_tiles, S, part, bpart,
-                                                             2 * P->blocks, (int)P->bp_width, gbuf);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(weight_grads(tiles, n_tiles, S, tps, P->tiles, scr, part, bpart,
+                                        2 * P->blocks, (int)P->bp_width, gbuf, s));
+}
+
+// The weight gradients of the wide path (wide.cu), whose chain leaves the
+// same scratch and one bias-partial row per 128-row tile (slots rows): k3_dw
+// and k3_reduce alone.
+extern "C" int k3_weight_grads(int device, const void* tiles, int n_tiles, int S, int tps, int T,
+                               const void* scratch, float* part, const float* bpart, int slots,
+                               int bp_width, float* gbuf, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess) e = set_smem();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(weight_grads(tiles, n_tiles, S, tps, T, static_cast<const bf16*>(scratch),
+                                        part, bpart, slots, bp_width, gbuf,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 // which 0: sizeof(K3Params), 1: sizeof(DwTile), 2: the hidden width this

@@ -6,9 +6,10 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), cached in ``adanerf_tpu_torch/_build/`` under a hash of the
 source and the flags. A library is named by its source, or by a variant of
 it, ``"<source>:<MACRO>=<value>"`` (``variant``), which compiles the source
-with ``-D<MACRO>=<value>``: the kernels' MLP width is such a macro, one
-library per width. Libraries build in parallel, one ``nvcc`` each. Nothing
-is compiled at import time.
+with ``-D<MACRO>=<value>``: the fused kernels' MLP width is such a macro,
+one library per width (the wide path, ``wide.cu``, takes its width at run
+time: one library). Libraries build in parallel, one ``nvcc`` each.
+Nothing is compiled at import time.
 """
 
 from __future__ import annotations

@@ -19,9 +19,14 @@ returns ``[rgb, alpha] (..., 4)``, and autograd reaches every NeRF leaf and
 
 The kernel's arithmetic is the TPU kernel's: each product rounds both
 operands to bf16 and sums in fp32, in the weight gradients too; biases and
-bias gradients are fp32. It takes a NeRF of width 128, 256, 384 or 512
-(``WIDTHS``; one library each, ``library``), at most 16 trunk layers and
-128 encoded input columns, and refuses any other by name.
+bias gradients are fp32. It takes every NeRF the JAX package routes to its
+TPU kernel (adanerf_tpu/train_state.py:313-314: a width that is a multiple
+of 128), of any depth and any number of encoded input columns. Widths 128,
+256, 384 and 512 with at most 128 input columns run the fused kernels
+(``WIDTHS``; one library each, ``library``); a wider NeRF or one with more
+input columns takes the wide path (``csrc/wide.cu``, ``wide.py``): its
+layers one at a time as GEMMs with fused epilogues, the activations in
+device memory, ending in the same weight-gradient GEMMs (``self.wide``).
 
 Layouts the card reads, built here (the CPU tests hold them):
   * two weight streams (``stream_plan``): every matrix the forward and the
@@ -45,19 +50,27 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from . import build
+from . import build, wide
 from .megakernel_compact import PASS, TC_KC, passes, swizzle128, unpack_chunks
 
 SOURCE = "nerf_train.cu"
-MAXL = 16    # most trunk layers (K3Params arrays)
-WIDTHS = (128, 256, 384, 512)  # hidden widths the kernel is built for, one library each
-XW = 128     # encoded input columns, padded: the kernel takes at most this many
+WIDTHS = (128, 256, 384, 512)  # hidden widths of the fused libraries, one each
+XW = 128     # encoded input columns of the fused kernels, padded (the wide path: 64-multiples)
+FUSED_DEPTH = 65  # the fused kernels' most trunk layers (K3Params::skip_bits)
 TILE_ROWS = 64   # rows of a scratch tile (the wgmma M)
 DW_SLICE_TILES = 256  # row tiles per weight-gradient partial (16,384 rows)
 DW_PART = 2 * TILE_ROWS * PASS  # floats of one partial slot
 BACKWARD_KERNEL_NAMES = ("k3_recompute", "k3_chain", "k3_dw", "k3_reduce")  # launch order
 BACKWARD_KERNELS = len(BACKWARD_KERNEL_NAMES)
-ROADMAP = "other NeRF shapes: ROADMAP Queue 2, K3"
+
+
+def libraries(width: int, n_in: int, depth: int) -> List[str]:
+    """The libraries (``build`` names) a NeRF of this shape runs on: its
+    fused library, or the wide path's and the library whose weight-gradient
+    kernels end it."""
+    if width in WIDTHS and n_in <= XW and depth <= FUSED_DEPTH:
+        return [library(width)]
+    return [wide.SOURCE, library(WIDTHS[1])]
 
 
 def library(width: int) -> str:
@@ -66,19 +79,14 @@ def library(width: int) -> str:
     return SOURCE if width == 256 else build.variant(SOURCE, "K3_WIDTH", width)
 
 
-_ll = ctypes.c_longlong * MAXL
-
-
 class K3Params(ctypes.Structure):
     """Mirror of ``struct K3Params`` in the CUDA source, field for field."""
-    _fields_ = [("b", _ll)] + \
-        [(k, ctypes.c_longlong) for k in ("bf", "ba", "bv", "brgb", "wa", "wrgb", "s_x")] + \
-        [("s_h", _ll)] + [(k, ctypes.c_longlong) for k in ("s_feat", "s_hv")] + \
-        [("s_g", _ll)] + [(k, ctypes.c_longlong) for k in ("s_gfeat", "s_ghv")] + \
-        [("bp", _ll)] + \
-        [(k, ctypes.c_longlong) for k in ("bp_f", "bp_v", "bp_rgb", "bp_a", "bp_wa", "bp_wrgb",
+    _fields_ = [("skip_bits", ctypes.c_ulonglong)] + \
+        [(k, ctypes.c_longlong) for k in ("bf", "ba", "bv", "brgb", "wa", "wrgb", "s_x", "s_h",
+                                          "s_g", "s_step", "s_feat", "s_hv", "s_gfeat", "s_ghv",
+                                          "bp_f", "bp_v", "bp_rgb", "bp_a", "bp_wa", "bp_wrgb",
                                           "bp_width")] + \
-        [(k, ctypes.c_int) for k in ("N", "n_in", "depth", "skip_mask", "tiles", "blocks")]
+        [(k, ctypes.c_int) for k in ("N", "n_in", "depth", "tiles", "blocks")]
 
 
 class DwTile(ctypes.Structure):
@@ -89,29 +97,30 @@ class DwTile(ctypes.Structure):
                                      "ldo", "m_valid", "pad")]
 
 
-def stream_plan(depth: int, skips, width: int = 256
+def stream_plan(depth: int, skips, width: int = 256, xw: int = XW
                 ) -> Tuple[List[Tuple[str, int, int]], List[Tuple[str, int, int]]]:
     """(forward, backward): [(what, K, N)] for each matrix B of the products
     ``A (64 x K) @ B (K x N)`` that the kernels walk, in the walk order of
-    ``csrc/nerf_train.cu::k3_produce``. x is padded to XW columns. A
-    product wider than 256 columns comes pass by pass (``passes``): pass
-    c0's columns of each of its matrices, named ``what@c0``."""
-    W, H = width, width // 2
+    ``csrc/nerf_train.cu::k3_produce`` (and of the wide path's GEMMs, one
+    product each). x is padded to xw columns. A product wider than 256
+    columns comes pass by pass (``passes``): pass c0's columns of each of
+    its matrices, named ``what@c0``."""
+    W, H, X = width, width // 2, xw
 
     def layer(n, *mats):  # mats: (what, K) of the product's inputs
         if n <= PASS:
             return [(what, K, n) for what, K in mats]
         return [(f"{what}@{c0}", K, np_) for c0, np_ in passes(n) for what, K in mats]
-    fwd = layer(W, ("pts.0", XW))
+    fwd = layer(W, ("pts.0", X))
     for i in range(1, depth):
-        fwd += layer(W, (f"pts.{i}", W), *([(f"pts.{i}.x", XW)] if (i - 1) in skips else []))
-    fwd += layer(W, ("feature", W)) + layer(H, ("views.f", W), ("views.x", XW))
-    bwd = layer(XW, ("views.x^T", H)) + layer(W, ("views.f^T", H)) + layer(W, ("feature^T", W))
+        fwd += layer(W, (f"pts.{i}", W), *([(f"pts.{i}.x", X)] if (i - 1) in skips else []))
+    fwd += layer(W, ("feature", W)) + layer(H, ("views.f", W), ("views.x", X))
+    bwd = layer(X, ("views.x^T", H)) + layer(W, ("views.f^T", H)) + layer(W, ("feature^T", W))
     for i in range(depth - 1, 0, -1):
         if (i - 1) in skips:
-            bwd += layer(XW, (f"pts.{i}.x^T", W))
+            bwd += layer(X, (f"pts.{i}.x^T", W))
         bwd += layer(W, (f"pts.{i}^T", W))
-    bwd += layer(XW, ("pts.0^T", W))
+    bwd += layer(X, ("pts.0^T", W))
     return fwd, bwd
 
 
@@ -180,18 +189,20 @@ class NerfTrainKernel:
     forward_rows = None
 
     def __init__(self, nerf):
-        if nerf.width not in WIDTHS:
-            raise ValueError(f"kernel needs a NeRF width in {WIDTHS}, got {nerf.width} "
-                             f"({ROADMAP})")
-        if nerf.depth > MAXL or nerf.depth < 1:
-            raise ValueError(f"kernel needs 1..{MAXL} trunk layers, got {nerf.depth} ({ROADMAP})")
+        if nerf.width % 128 or nerf.width < 128:
+            raise ValueError(f"kernel needs a NeRF width that is a multiple of 128, got "
+                             f"{nerf.width} (the JAX package routes no other to its kernel: "
+                             "train_state.py:313-314)")
+        if nerf.depth < 1:
+            raise ValueError(f"kernel needs at least one trunk layer, got {nerf.depth}")
         n_in = nerf.input_ch + nerf.input_ch_views
-        if n_in > XW:
-            raise ValueError(f"kernel takes at most {XW} input columns, got {n_in} ({ROADMAP})")
         self.nerf = nerf
         self.n_in = n_in
         self.width = W = nerf.width
-        H, ic, iv, D = W // 2, nerf.input_ch, nerf.input_ch_views, nerf.depth
+        # the fused kernels hold a tile's activations and its 128-column x on chip
+        self.wide = W not in WIDTHS or n_in > XW or nerf.depth > FUSED_DEPTH
+        self.xw = TC_KC * math.ceil(n_in / TC_KC) if self.wide else XW
+        H, ic, iv, D, X = W // 2, nerf.input_ch, nerf.input_ch_views, nerf.depth, self.xw
         self.names = [n for n, _ in nerf.named_parameters()]
         self.shapes = {n: tuple(p.shape) for n, p in nerf.named_parameters()}
 
@@ -212,14 +223,14 @@ class NerfTrainKernel:
             return w[ic:] if (i - 1) in nerf.skips else w
 
         wv = m("views.0.w")
-        wvd = _pad(wv[W:], XW, H, Z, at=(ic, 0))  # views rows at their x columns
-        mats = {"pts.0": _pad(m("pts.0.w"), XW, W, Z), "feature": m("feature.w"),
+        wvd = _pad(wv[W:], X, H, Z, at=(ic, 0))  # views rows at their x columns
+        mats = {"pts.0": _pad(m("pts.0.w"), X, W, Z), "feature": m("feature.w"),
                 "views.f": wv[:W], "views.x": wvd}
         for i in range(1, D):
             mats[f"pts.{i}"] = h_part(i)
             if (i - 1) in nerf.skips:
-                mats[f"pts.{i}.x"] = _pad(m(f"pts.{i}.w")[:ic], XW, W, Z)
-        self.plan = stream_plan(D, nerf.skips, W)
+                mats[f"pts.{i}.x"] = _pad(m(f"pts.{i}.w")[:ic], X, W, Z)
+        self.plan = stream_plan(D, nerf.skips, W, X)
         streams = []
         for plan in self.plan:
             parts = []
@@ -240,8 +251,8 @@ class NerfTrainKernel:
             a = np.asarray(a, np.int64).reshape(-1)
             vec.append(np.concatenate([a, np.full(-a.size % 4, Z, np.int64)]))
             return off
-        for i in range(D):
-            P.b[i] = put(m(f"pts.{i}.b"))
+        self.b = [put(m(f"pts.{i}.b")) for i in range(D)]
+        assert self.b == [i * W for i in range(D)]  # the fused kernels' stride
         P.bf, P.bv = put(m("feature.b")), put(m("views.0.b"))
         P.brgb, P.ba = put(m("rgb.b")), put(m("alpha.b"))
         P.wa = put(m("alpha.w"))  # the heads' weights, rounded to bf16 at packing
@@ -251,15 +262,14 @@ class NerfTrainKernel:
 
         # bias-partial columns, which are also the head of the grads buffer:
         # trunk, feature, views biases; rgb.b, alpha.b; alpha.w, rgb.w
-        for i in range(D):
-            P.bp[i] = i * W
+        self.bp = [i * W for i in range(D)]
         P.bp_f, P.bp_v = D * W, D * W + W
         P.bp_rgb = P.bp_v + H
         P.bp_a = P.bp_rgb + 3
         P.bp_wa = P.bp_a + 1
         P.bp_wrgb = P.bp_wa + W
         P.bp_width = P.bp_wrgb + 3 * H
-        self.grad_slices = {f"pts.{i}.b": P.bp[i] for i in range(D)}
+        self.grad_slices = {f"pts.{i}.b": self.bp[i] for i in range(D)}
         self.grad_slices.update({"feature.b": P.bp_f, "views.0.b": P.bp_v, "rgb.b": P.bp_rgb,
                                  "alpha.b": P.bp_a, "alpha.w": P.bp_wa, "rgb.w": P.bp_wrgb})
         at = P.bp_width
@@ -269,7 +279,8 @@ class NerfTrainKernel:
                 at += math.prod(self.shapes[n])
         self.grad_size = at
         P.n_in, P.depth = n_in, D
-        P.skip_mask = sum(1 << (i - 1) for i in range(1, D) if (i - 1) in nerf.skips)
+        self.skip = [int(i > 0 and (i - 1) in nerf.skips) for i in range(D)]
+        P.skip_bits = sum(1 << (i - 1) for i in range(1, min(D, FUSED_DEPTH)) if self.skip[i])
         self.params = P
         self._tables: Dict[Tuple[int, str], Tuple] = {}
         self._index: Dict[str, List[torch.Tensor]] = {}
@@ -317,7 +328,7 @@ class NerfTrainKernel:
         each trunk layer's output cotangent g.i (after its relu mask), and
         the feature's and views layer's, g.feat and g.hv."""
         D, W = self.nerf.depth, self.width
-        order = [("x", XW)] + [(f"h.{i}", W) for i in range(D)] + \
+        order = [("x", self.xw)] + [(f"h.{i}", W) for i in range(D)] + \
             [("feat", W), ("hv", W // 2)] + [(f"g.{i}", W) for i in range(D)] + \
             [("g.feat", W), ("g.hv", W // 2)]
         out, off, T = {}, 0, self.tiles(N)
@@ -392,10 +403,8 @@ class NerfTrainKernel:
         lay = self.scratch_layout(N)
         P.N, P.tiles = N, self.tiles(N)
         P.blocks = min(P.tiles // 2, torch.cuda.get_device_properties(device).multi_processor_count)
-        D = self.nerf.depth
-        P.s_x = lay["x"][0]
-        for i in range(D):
-            P.s_h[i], P.s_g[i] = lay[f"h.{i}"][0], lay[f"g.{i}"][0]
+        P.s_x, P.s_h, P.s_g = lay["x"][0], lay["h.0"][0], lay["g.0"][0]
+        P.s_step = P.tiles * TILE_ROWS * self.width  # from one layer's region to the next's
         P.s_feat, P.s_hv, P.s_gfeat, P.s_ghv = (lay[k][0] for k in ("feat", "hv", "g.feat", "g.hv"))
         return P
 
@@ -411,17 +420,42 @@ class NerfTrainKernel:
             self._tables[key] = (dev, len(tiles), math.ceil(T / DW_SLICE_TILES), DW_SLICE_TILES)
         return self._tables[key]
 
+    def products(self) -> Tuple[List[Tuple[int, int]], List[Tuple[int, int]]]:
+        """(forward, backward): [(chunks of 64 rows a pass, columns)] of each
+        product of the weight streams in walk order: the groups of
+        ``stream_plan``'s entries that one wide GEMM reads."""
+        D, W, X, H = self.nerf.depth, self.width, self.xw, self.width // 2
+        kw, kx, kv = W // TC_KC, X // TC_KC, H // TC_KC  # chunks of each input
+        fwd = [(kx, W)] + [(kw + kx * self.skip[i], W) for i in range(1, D)]
+        fwd += [(kw, W), (kw + kx, H)]
+        bwd = [(kv, X), (kv, W), (kw, W)]
+        for i in range(D - 1, 0, -1):
+            bwd += [(kw, X)] * self.skip[i] + [(kw, W)]
+        return fwd, bwd + [(kw, X)]
+
+    def _offsets(self, which: int) -> List[int]:
+        """Element offset of each product in the forward (0) or backward (1)
+        stream."""
+        out, at = [], 0
+        for kc, n in self.products()[which]:
+            out.append(at)
+            at += kc * TC_KC * n
+        return out
+
     def forward_kernel(self, x: torch.Tensor, packed) -> torch.Tensor:
         self._check(x)
         N = x.shape[0]
         out = torch.empty((N, 4), dtype=torch.float32, device=x.device)
-        P = self._params(N, x.device)
-        fs, _, vec = packed
-        rc = _library(self.width).k3_forward(_device_index(x), ctypes.byref(P), x.data_ptr(), fs.data_ptr(),
-                                   vec.data_ptr(), out.data_ptr(),
-                                   torch.cuda.current_stream(x.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"nerf_train forward launch failed: CUDA error {rc}")
+        if self.wide:
+            self._forward_wide(x, packed, out)
+        else:
+            P = self._params(N, x.device)
+            fs, _, vec = packed
+            rc = _library(self.width).k3_forward(
+                _device_index(x), ctypes.byref(P), x.data_ptr(), fs.data_ptr(), vec.data_ptr(),
+                out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"nerf_train forward launch failed: CUDA error {rc}")
         NerfTrainKernel.forward_launches += 1
         NerfTrainKernel.forward_rows = N
         return out
@@ -436,25 +470,122 @@ class NerfTrainKernel:
         P = self._params(N, dev)
         if scratch is None:
             scratch = self.new_scratch(N, dev)
-        slots = 2 * P.blocks
-        masks = torch.empty(P.tiles * (self.nerf.depth + 1) * 2 * self.width, dtype=torch.int32,
-                            device=dev)
-        bpart = torch.empty((slots, P.bp_width), dtype=torch.float32, device=dev)
         dx = torch.empty((N, self.n_in), dtype=torch.float32, device=dev)
         gbuf = torch.empty(self.grad_size, dtype=torch.float32, device=dev)
         table, n_tiles, S, tps = self._table(N, dev)
         part = torch.empty(n_tiles * S * DW_PART, dtype=torch.float32, device=dev)
-        fs, bs, vec = packed
-        rc = _library(self.width).k3_backward(
-            _device_index(x), ctypes.byref(P), x.data_ptr(), g.data_ptr(), fs.data_ptr(),
-            bs.data_ptr(), vec.data_ptr(), scratch.data_ptr(), masks.data_ptr(),
-            bpart.data_ptr(), dx.data_ptr(), table.data_ptr(), n_tiles, S, tps, part.data_ptr(),
-            gbuf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if self.wide:
+            bpart = torch.empty((P.tiles // 2, P.bp_width), dtype=torch.float32, device=dev)
+            self._chain_wide(x, g, packed, scratch, bpart, dx)
+            rc = _library(WIDTHS[1]).k3_weight_grads(
+                _device_index(x), table.data_ptr(), n_tiles, S, tps, P.tiles, scratch.data_ptr(),
+                part.data_ptr(), bpart.data_ptr(), P.tiles // 2, P.bp_width, gbuf.data_ptr(),
+                stream)
+        else:
+            slots = 2 * P.blocks
+            masks = torch.empty(P.tiles * (self.nerf.depth + 1) * 2 * self.width,
+                                dtype=torch.int32, device=dev)
+            bpart = torch.empty((slots, P.bp_width), dtype=torch.float32, device=dev)
+            fs, bs, vec = packed
+            rc = _library(self.width).k3_backward(
+                _device_index(x), ctypes.byref(P), x.data_ptr(), g.data_ptr(), fs.data_ptr(),
+                bs.data_ptr(), vec.data_ptr(), scratch.data_ptr(), masks.data_ptr(),
+                bpart.data_ptr(), dx.data_ptr(), table.data_ptr(), n_tiles, S, tps,
+                part.data_ptr(), gbuf.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"nerf_train backward launch failed: CUDA error {rc}")
         NerfTrainKernel.backward_launches += 1
         return dx, self.grads_from(gbuf)
 
+    # -- the wide path -------------------------------------------------------
+
+    def _forward_layers(self, x, packed, st=None):
+        """The forward's layers on the wide path, the scratch written where
+        ``st`` (the scratch) is given (the recompute). Returns the tile
+        buffer holding the views output, the other one, and (without st)
+        the alpha head's output."""
+        N, dev = x.shape[0], x.device
+        T, W, D, xw = self.tiles(N), self.width, self.nerf.depth, self.xw
+        P = self.params
+        fs, _, vec = packed
+        lay = self.scratch_layout(N)
+        fo, fp, vp = self._offsets(0), fs.data_ptr(), vec.data_ptr()
+
+        def s(name):  # a scratch matrix's address, or None
+            return None if st is None else st.data_ptr() + 2 * lay[name][0]
+        xt = torch.empty(T * TILE_ROWS * xw, dtype=torch.bfloat16, device=dev)
+        wide.rows_kernel("load_x", dev, x, N, self.n_in, xw, T, xt, s("x"))
+        h = [torch.empty(T * TILE_ROWS * W, dtype=torch.bfloat16, device=dev) for _ in range(2)]
+        a, kc = xt, xw // TC_KC
+        for l in range(D):
+            skip = self.skip[l]
+            wide.gemm(dev, a, kc, fp + 2 * fo[l], W, N, a1=xt if skip else None,
+                      kc1=xw // TC_KC if skip else 0, bias=vp + 4 * self.b[l], relu=True,
+                      out=h[l % 2], st=s(f"h.{l}"))
+            a, kc = h[l % 2], W // TC_KC
+        t, f = h[(D - 1) % 2], h[D % 2]
+        wide.gemm(dev, t, W // TC_KC, fp + 2 * fo[D], W, N, bias=vp + 4 * P.bf, out=f,
+                  st=s("feat"))
+        alpha = None
+        if st is None:  # the alpha head, from the trunk output
+            alpha = torch.empty(N, dtype=torch.float32, device=dev)
+            wide.rows_kernel("head", dev, 0, 1, 0, t, W, vp + 4 * P.wa, vp + 4 * P.ba, alpha,
+                             None, None, 0, N, None)
+        wide.gemm(dev, f, W // TC_KC, fp + 2 * fo[D + 1], W // 2, N, a1=xt, kc1=xw // TC_KC,
+                  bias=vp + 4 * P.bv, relu=True, out=t, st=s("hv"))
+        return t, f, alpha
+
+    def _forward_wide(self, x, packed, out):
+        """k3_fwd on the wide path: the layers, then the heads into out."""
+        hv, _, alpha = self._forward_layers(x, packed)
+        vp = packed[2].data_ptr()
+        wide.rows_kernel("head", x.device, 1, 1, 0, hv, self.width // 2,
+                         vp + 4 * self.params.wrgb, vp + 4 * self.params.brgb, alpha, None, None, 0,
+                         x.shape[0], out)
+
+    def _chain_wide(self, x, g, packed, scratch, bpart, dx):
+        """k3_recompute and k3_chain on the wide path: the recompute into
+        the scratch and the heads' gradients; then the cotangents from the
+        views layer down, each masked by its layer's relu (read from the
+        scratch), summed into its bias-partial columns (a row per 128-row
+        tile), rounded into the scratch and the next product's A; and dX's
+        terms."""
+        N, dev = x.shape[0], x.device
+        T, W, D, xw = self.tiles(N), self.width, self.nerf.depth, self.xw
+        H, P = W // 2, self.params
+        lay = self.scratch_layout(N)
+        bo, bp, vp = self._offsets(1), packed[1].data_ptr(), packed[2].data_ptr()
+        pb, ld = bpart.data_ptr(), P.bp_width
+
+        def s(name):
+            return scratch.data_ptr() + 2 * lay[name][0]
+        G, O, _ = self._forward_layers(x, packed, scratch)
+        wide.rows_kernel("head_grads", dev, s(f"h.{D - 1}"), s("hv"), W, N, T, g, bpart, ld,
+                         P.bp_wa, P.bp_wrgb, P.bp_rgb, P.bp_a)
+        wide.rows_kernel("ghv", dev, s("hv"), s("g.hv"), H, N, T, g, vp + 4 * P.wrgb, bpart, ld,
+                         P.bp_v, G)
+
+        def dx_term(a, kc, k, first=False):
+            wide.gemm(dev, a, kc, bp + 2 * bo[k], xw, N, f32=dx, ldf=self.n_in,
+                      f32_cols=self.n_in, f32_add=not first)
+
+        def cot(a, kc, k, n, col, out, name, mask=None, rank1=False):
+            wide.gemm(dev, a, kc, bp + 2 * bo[k], n, N, mask=mask, bp=pb + 4 * col, ldbp=ld,
+                      out=out, st=s(name), ga=g if rank1 else None,
+                      wa=vp + 4 * P.wa if rank1 else None)
+        dx_term(G, H // TC_KC, 0, first=True)                       # g_hv @ wv_x^T
+        cot(G, H // TC_KC, 1, W, P.bp_f, O, "g.feat")               # g_feat
+        cot(O, W // TC_KC, 2, W, self.bp[D - 1], G, f"g.{D - 1}",   # the trunk output's
+            mask=s(f"h.{D - 1}"), rank1=True)
+        k, cur, nxt = 3, G, O
+        for i in range(D - 1, 0, -1):
+            if self.skip[i]:
+                dx_term(cur, W // TC_KC, k)
+                k += 1
+            cot(cur, W // TC_KC, k, W, self.bp[i - 1], nxt, f"g.{i - 1}", mask=s(f"h.{i - 1}"))
+            k, cur, nxt = k + 1, nxt, cur
+        dx_term(cur, W // TC_KC, k)
 
 class _K3Function(torch.autograd.Function):
     """out = K3(x; NeRF leaves); the backward is the kernel's backward and
@@ -489,6 +620,9 @@ def _library(width: int):
         lib.k3_backward.argtypes = [ctypes.c_int, ctypes.POINTER(K3Params)] + \
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
         lib.k3_backward.restype = ctypes.c_int
+        lib.k3_weight_grads.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        lib.k3_weight_grads.restype = ctypes.c_int
         lib.k3_struct_size.argtypes = [ctypes.c_int]
         lib.k3_struct_size.restype = ctypes.c_int
         for which, cls in ((0, K3Params), (1, DwTile)):

@@ -42,8 +42,28 @@ and 512 columns, 4,096 rows, 25% to 38% of the rows differed and 4.6% to
 8.5% flipped, with dX in flipped rows up to 2.2e-1 of max |dX| (PERF.md
 §6), while the kernel's layers stayed within their float64 bound and the
 plain version with the kernel's bf16 outputs stayed within the plain
-bars on every row. ``WIDE_CAPS`` are the caps above 256; the bars on
-agreeing rows and on every leaf are the same at every width.
+bars on every row. ``WIDE_CAPS`` are the caps above 256 up to 512.
+``BIG_CAPS`` are those of a NeRF wider than 512 or deeper than the 8
+layers the other caps were read at: such a row has more units again, and
+a flip in a deep trunk carries through more layers into the leaves of the
+early ones. On an NVIDIA H100 (the card tests at the new shapes,
+tests/test_torch_kernels_cuda.py, PR 15), at 4,096 rows, 49% / 62% / 82%
+of the rows differed at 640 / 768 / 1,024 columns (85% at 1,024 and 130
+rows; 50.03% at 640 and 40,000 rows) and 10.7% / 15.7% / 28.8% flipped
+(26% at 130 rows), dX in flipped rows within 1.03e-1 of max |dX|; an
+unforced leaf 1.7e-2 / 2.3e-2 / 2.8e-2 of its max (4.9e-2 at 1,024 and 130
+rows), and 4.8e-2 at 20 x 256 (6.2% of the rows flipped); through it all
+every layer of the kernel stayed within its float64 bound, and the plain
+version with the kernel's bf16 outputs forced in within 6.5e-3 to 1.1e-2
+of every leaf and of dX, inside ``GRAD_BAR``. At 20 x 256 and 524,288
+rows (chip_smoke.py phase 20, PR 15) a differing row's output lay up to
+1.809e-2 from the plain version's, each side that far from float64 sums
+of the same roundings (the kernel 1.809e-2, the plain version 1.448e-2):
+twenty layers of bf16 roundings, the forced comparison 2.4e-7. So above
+512 columns or 8 layers a differing row is not capped in number and held
+within ``BIG_DIFFER_BAR``, at most 40% of the rows may flip, and an
+unforced leaf is held within ``BIG_LEAF_BAR``; the bars on agreeing rows,
+and the forced comparison on every leaf, are the same at every shape.
 """
 
 from typing import Callable, Dict, List, Optional, Tuple
@@ -58,14 +78,24 @@ DIFFER_SHARE = 0.25  # the most such rows, as a share of all rows
 DX_FLIP_BAR = 2e-1  # dX, of max |dX|, in rows whose relu signs differ
 FLIP_SHARE = 0.02  # the most such rows, as a share of all rows
 REPORT_LINES = 40  # relu sign differences listed in the report
-# (DIFFER_SHARE, FLIP_SHARE, DX_FLIP_BAR) for a NeRF wider than 256
+# (DIFFER_SHARE, FLIP_SHARE, DX_FLIP_BAR) for a NeRF of 384 or 512 columns
 WIDE_CAPS = (0.5, 0.12, 0.4)
+# the same, the forward bar on differing rows and the bar of a leaf against
+# the plain version's, for a NeRF wider than 512 or deeper than 8 layers
+BIG_CAPS = (1.0, 0.4, 0.4)
+BIG_DIFFER_BAR = 4e-2
+BIG_LEAF_BAR = 0.1
 
 
-def caps(width: int) -> Tuple[float, float, float]:
-    """(share of rows whose bf16 layer outputs may differ, share of rows
-    whose relu signs may differ, dX bar in those rows) at a NeRF width."""
-    return (DIFFER_SHARE, FLIP_SHARE, DX_FLIP_BAR) if width <= 256 else WIDE_CAPS
+def caps(width: int, depth: int = 8) -> Tuple[float, float, float, float, float]:
+    """(the forward bar on rows whose bf16 layer outputs differ, the share
+    of such rows, the share of rows whose relu signs differ, the dX bar in
+    those rows, the bar of a leaf against the plain version's) at a NeRF
+    width and depth."""
+    if width > 512 or depth > 8:
+        return (BIG_DIFFER_BAR,) + BIG_CAPS + (BIG_LEAF_BAR,)
+    shares = WIDE_CAPS if width > 256 else (DIFFER_SHARE, FLIP_SHARE, DX_FLIP_BAR)
+    return (FWD_DIFFER_BAR,) + shares + (GRAD_BAR,)
 
 
 def gamma(n: int) -> float:
@@ -106,7 +136,7 @@ def compare(k3, x: torch.Tensor, cot: Callable[[torch.Tensor], torch.Tensor]) ->
         grads = torch.autograd.grad(out, [xr] + leaves, g)
         return out.detach(), g.detach(), dict(zip(["x"] + names, grads))
 
-    res = {"out": {}, "grads": {}, "report": [], "width": nerf.width}
+    res = {"out": {}, "grads": {}, "report": [], "width": nerf.width, "depth": nerf.depth}
     f0, b0 = type(k3).forward_launches, type(k3).backward_launches
     res["out"]["k"], g_k, res["grads"]["k"] = run(k3)
     res["launched"] = (type(k3).forward_launches - f0, type(k3).backward_launches - b0)
@@ -221,7 +251,8 @@ def verdict(res: Dict, scale: float = 1.0, dx_abs: Optional[float] = None
     place of the relative one with its relu-sign rows."""
     out, grads = res["out"], res["grads"]
     N = out["k"].shape[0]
-    differ_share, flip_share, dx_flip_bar = caps(res.get("width", 256))
+    differ_bar, differ_share, flip_share, dx_flip_bar, leaf_bar = caps(res.get("width", 256),
+                                                                       res.get("depth", 8))
     flips, differ = res["flips"], res["differ"]
     row_err = (out["k"] - out["p"]).abs().max(1).values / scale
     agree = ~differ
@@ -240,14 +271,14 @@ def verdict(res: Dict, scale: float = 1.0, dx_abs: Optional[float] = None
         f"forward, of the output scale {scale:.4g}: {fwd_agree:.3e} on the {int(agree.sum())} "
         f"rows whose bf16 layer outputs agree (allowed {FWD_BAR}), {fwd_differ:.3e} on the "
         f"{int(differ.sum())} others ({100 * float(differ.float().mean()):.2f}% of {N}; allowed "
-        f"{FWD_DIFFER_BAR} in at most {100 * differ_share:.0f}%); with the kernel's bf16 layer "
+        f"{differ_bar} in at most {100 * differ_share:.0f}%); with the kernel's bf16 layer "
         f"outputs {fwd_f:.3e} on every row (allowed {FWD_BAR})",
-        f"grads: worst parameter leaf {worst[1]} {worst[0]:.3e} of its max (allowed {GRAD_BAR}); "
+        f"grads: worst parameter leaf {worst[1]} {worst[0]:.3e} of its max (allowed {leaf_bar}); "
         f"with the kernel's bf16 layer outputs worst leaf {worst_f[1]} {worst_f[0]:.3e}, dX "
         f"included (allowed {GRAD_BAR})"]
     ok = (res["layer_faults"] == 0 and res["deterministic"] and fwd_agree <= FWD_BAR
-          and fwd_differ <= FWD_DIFFER_BAR and float(differ.float().mean()) <= differ_share
-          and fwd_f <= FWD_BAR and worst[0] <= GRAD_BAR and worst_f[0] <= GRAD_BAR)
+          and fwd_differ <= differ_bar and float(differ.float().mean()) <= differ_share
+          and fwd_f <= FWD_BAR and worst[0] <= leaf_bar and worst_f[0] <= GRAD_BAR)
     if dx_abs is not None:
         lines.append(f"dX max abs err {errs['x'][1]:.3e} on every element (allowed {dx_abs}), "
                      f"max |dX| {float(dx_p.abs().max()):.3e}")

@@ -28,10 +28,10 @@ checkpoint. GT pretraining is not data-parallel (neither is JAX's): every
 rank runs it whole.
 
 Refused before step 0: more GPUs than the host has (JAX's ``make_mesh``
-would truncate), rays per image that do not divide over the ranks, and,
-naming its ROADMAP item, a NeRF that the JAX package would train through
-its TPU kernel but K3 does not take yet (a width above 512, more than 16
-layers) on a run that asks for K3.
+would truncate) and rays per image that do not divide over the ranks. On
+a run that asks for K3, every NeRF that the JAX package trains through its
+TPU kernel (a width that is a multiple of 128) trains through K3, at any
+depth and any number of encoded input columns.
 """
 
 from __future__ import annotations
@@ -95,28 +95,6 @@ def unsupported(config) -> list:
     if world > 1 and samples and samples % world:
         return [f"--samples {samples}: an image's rays do not split over {world} ranks"]
     return []
-
-
-def unsupported_by_k3(config) -> list:
-    """On a run that asks for K3 (a CUDA device, ``--bf16``,
-    ``--fusedTrainKernel 1``), each NeRF that the JAX package trains through
-    its TPU kernel (width a multiple of 128) but K3 does not take yet: such a
-    run is refused rather than trained on the plain path."""
-    from .ops.kernels.nerf_train import MAXL, ROADMAP, WIDTHS
-    if not (config.bf16 and config.fusedTrainKernel
-            and parse_device(config.device).type == "cuda"):
-        return []
-    out = []
-    for i, act in enumerate(config.activation):
-        width, depth = config.layerWidth[i], config.layers[i]
-        if act != "nerf" or width % 128 or width < 128:
-            continue
-        if width not in WIDTHS or depth > MAXL:
-            out.append(f"--layerWidth {width}, --layers {depth} (net {i}) with --bf16 and "
-                       f"--fusedTrainKernel 1 on CUDA: K3 takes widths {WIDTHS} and at most "
-                       f"{MAXL} layers ({ROADMAP}); --fusedTrainKernel 0 trains this net on "
-                       "the plain path")
-    return out
 
 
 class _StepClock:
@@ -438,7 +416,7 @@ def main(argv=None) -> dict:
     process's) ``run`` statistics."""
     argv = sys.argv[1:] if argv is None else list(argv)
     config = Config.init(argv=argv)
-    early = unsupported(config) + unsupported_by_k3(config)
+    early = unsupported(config)
     if early:  # refuse before loading any data
         raise SystemExit("adanerf_tpu_torch.train: refused:\n  " + "\n  ".join(early))
     launch = mesh.launcher_env()
@@ -461,9 +439,11 @@ def main(argv=None) -> dict:
         [torch.device("cuda", i) for i in range(world)]
     if dev.type == "cuda" and config.bf16 and config.fusedTrainKernel:
         from .ops.kernels import build, nerf_train
-        build.build(sorted({nerf_train.library(w) for a, w in zip(config.activation,
-                                                                   config.layerWidth)
-                            if a == "nerf" and w in nerf_train.WIDTHS}))  # before the ranks
+        build.build(sorted({lib for a, w, d, enc in zip(config.activation, config.layerWidth,
+                                                        config.layers, config.posEncArgs)
+                            if a == "nerf" and w % 128 == 0
+                            for lib in nerf_train.libraries(w, sum(
+                                6 * int(f) + 3 for f in enc.split("-")), d)}))  # before the ranks
     init = mesh.rendezvous(config.logDir)
     procs = mesh.spawn_ranks(_rank_main, (argv,), devices, init, first=1)
     watching = mesh.watch_ranks(procs)

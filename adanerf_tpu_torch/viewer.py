@@ -10,14 +10,15 @@ K1, the compacted renderer (``ops/kernels/megakernel_compact.py``); ``v3``
 runs K2, the dense-slot renderer (``ops/kernels/megakernel_dense.py``),
 which suits frames whose rays sit at the sample cap. Without
 ``--megakernel``, an export K1 takes (``megakernel_compact.refusal``, the
-predicate its wrapper raises on: adaptive, at most 16 samples, MLPs 128 to
-512 wide, the nerf encoding, an implemented normalization...) renders
-through K1, and any other (a dense run's export, a ``MaxDepth``
-normalization, a width above 512...) through the plain renderer,
+predicate its wrapper raises on: adaptive, at most 16 samples, MLPs of
+any width and depth, each its own, the nerf encoding of at most 128
+input columns, an implemented normalization...)
+renders through K1, and any other (a dense run's export, a ``MaxDepth``
+normalization...) through the plain renderer,
 ``RealtimeRenderer.render_frame``, as the JAX viewer renders it without
 ``--megakernel``; a ``--megakernel`` that the export cannot take is refused,
-as in JAX (and, for a width above 512, which the JAX kernels take, naming
-its ROADMAP item). The viewer prints which path renders and why. ``--dynamic`` is accepted
+as in JAX, naming the JAX line that refuses the same. The viewer prints
+which path renders and why. ``--dynamic`` is accepted
 for the JAX viewer's command lines and changes nothing: the plain path has
 no capacity to bucket. ``--mesh N`` shards each frame's rays over N GPUs
 (``parallel/render.py``: one kernel a GPU, no collectives); it needs a
@@ -210,8 +211,8 @@ def main(argv=None):
                         "dynamic-trip variants differ only on the TPU; K1 takes any live "
                         "count on the device); v3: K2, the dense-slot kernel, which shades "
                         "every slot and suits rays at the sample cap. Not given: K1 where "
-                        "K1 takes the export (adaptive, at most 16 samples, MLPs 128 to 512 "
-                        "wide, ...), else the plain renderer")
+                        "K1 takes the export (adaptive, at most 16 samples, the nerf "
+                        "encoding of <= 128 columns, ...), else the plain renderer")
     p.add_argument("--dynamic", action="store_true",
                    help="the JAX viewer's in-graph bucketing of its plain path; accepted, "
                         "no effect here")

@@ -4,7 +4,7 @@
   python3 chip_smoke.py
 
 Builds the CUDA kernels from the checkout, one library per source and MLP
-width (printing each kernel's
+width and the wide path's one (printing each kernel's
 registers, spills, shared memory and HGMMA count), holds each against its
 plain PyTorch version on the card (K3's backward also against itself: two
 calls must agree bit for bit), drives the port's paths (the viewer
@@ -34,13 +34,17 @@ the converted capture, the committed JAX fine NDC run resumed at epoch
 6,000 through K3 for 6,000 steps and scored against JAX's own epoch-12,000
 weights by the same port code, its validation 1,000 steps in against the
 JAX package's own resume on the CPU, a traced step, the run's ``epoch_*.pdf``
-plots, its export through K1 with ``--megakernel v3`` refused), and
-prints, as its last two lines, a JSON line of per-kernel numbers (each
-kernel's ``widths`` too) and a JSON line
+plots, its export through K1 with ``--megakernel v3`` refused), holds
+the network shapes beyond the shipped ones (phase 20: K1 and K2 on
+seeded exports of mixed, 640- and 1024-wide and 20-layer MLPs, K3 alone
+at 640, 768, 1024, 20 layers and 150 input columns, both nets 1024 wide
+through the dense and the fine ini), and prints, as its last two lines,
+a JSON line of per-kernel numbers (each kernel's ``widths`` and
+``shapes`` too) and a JSON line
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, without those lines, when there is no CUDA device or any phase
 fails. Imports torch, numpy and the standard library besides the port
-itself.
+itself (and, for phase 20's exports, ``tests/torch_wide_export.py``).
 """
 
 from __future__ import annotations
@@ -115,6 +119,28 @@ NDC_LOGS = os.path.join(ROOT, "demo", "ndclogs", "llff_scene")
 NDC_DENSE_STEPS, NDC_RESUME, NDC_VALIDATE = 8, 6000, 1000
 NDC_JAX_RESUME = os.path.join(ROOT, "tests", "torch_fixtures", "ndc_resume_jax.json")
 QUALITY_BARS = {"val_loss_ratio": 1.10, "test_psnr_db": 0.5}
+
+# phase 20: the network shapes K1, K2 and K3 take beyond the shipped ones.
+# K1/K2 on seeded exports (tests/torch_wide_export.py) of (oracle, NeRF)
+# widths (one width for both) and (oracle, NeRF) depths: mixed widths (the
+# fused front and shade of two libraries, or a fused front and a wide
+# shade), the wide path at 640 and 1024, 20 layers each (the per-layer
+# table), widths that are not a multiple of 128 (the wide path, padded to
+# 64-column blocks); K3 alone at K3_ROWS rows (width, depth, encoded NeRF input
+# columns: 640 to 1024 on the wide path, 20 layers on the fused kernels,
+# 150 columns (posEncArgs 20-4) on the wide path), each checked at its
+# last number of rows and timed at K3_ROWS (the check of a 1024-wide NeRF,
+# its plain version run three times beside the scratch and float64 layer
+# sums, does not fit the card's 80 GB at K3_ROWS: 768 wide took 76.4 GB);
+# then a dense -> fine run with both nets RUN_1024 wide through the wide path
+NEW_FRAME_SHAPES = {"128/256": ((128, 256), (8, 8)), "256/640": ((256, 640), (8, 8)),
+                    "640": (640, (8, 8)), "1024": (1024, (8, 8)), "96/200": ((96, 200), (8, 8)),
+                    "20 layers": (256, (20, 20))}
+NEW_K3_SHAPES = {"640": (640, 8, 63, K3_ROWS), "768": (768, 8, 63, K3_ROWS),
+                 "1024": (1024, 8, 63, K3_ROWS // 2), "20 layers": (256, 20, 63, K3_ROWS),
+                 "150 columns": (256, 8, 123, K3_ROWS)}
+RUN_1024 = 1024
+NEW_FRAME_SIZE = 400
 
 T0 = time.perf_counter()
 
@@ -197,17 +223,22 @@ def float64_logits(rt, pose, rot, dirs, chunk=40000):
     return torch.cat(out)
 
 
-def check_slots(k, dirs, pose, rot, label, allowed, referee=False):
+def check_slots(k, dirs, pose, rot, label, allowed, referee=False, count_ties=False):
     """A render kernel in fp32 (K1 or K2) against a float64 shading of its
     own slots (within 2e-4 on every ray) and against its plain version:
-    counts exact, and rgb within 2e-4 on every ray but at most ``allowed``,
-    each of which must keep other bins than the plain
+    counts exact (with ``count_ties``, as the other bins below: at most
+    ``allowed`` rays may keep another number of bins, each only where a
+    logit lies at a near tie, as a seeded oracle's logits do around the
+    threshold by design), and rgb within 2e-4 on every ray but at most
+    ``allowed``, each of which must keep other bins than the plain
     version, all at a near tie, where the two sides' summation orders of
     the oracle's products may keep another bin: a logit within NEAR of the
-    threshold or of the ray's S-th largest; with ``referee``, the float64
-    logits of the same inputs decide instead: a kept or dropped bin's
-    float64 logit lies within 2e of the threshold or of the float64 S-th
-    largest, e the larger of the ray's two fp32 roundings as measured
+    threshold or of the ray's S-th largest (or of its largest, where none
+    passes the threshold and the argmax bin alone is kept); with
+    ``referee``, the float64 logits of the same inputs decide instead: a
+    kept or dropped bin's float64 logit lies within 2e of the threshold or
+    of the float64 S-th largest (or largest, likewise), e the larger of
+    the ray's two fp32 roundings as measured
     against float64 (the plain version's over all bins, the kernel's over
     its own slots, whose logits its front returns): for two bins to swap
     places on one side, that side's roundings of them must together cover
@@ -236,7 +267,8 @@ def check_slots(k, dirs, pose, rot, label, allowed, referee=False):
     rays_flipped = flipped.any(1)
     err_same = float(per_ray[~rays_flipped].max()) if bool((~rays_flipped).any()) else 0.0
     top = torch.topk(logits, S + 1, dim=1).values
-    at_tie = ((logits - rt.threshold).abs() <= NEAR) | ((logits - top[:, S - 1:S]).abs() <= NEAR)
+    at_tie = ((logits - rt.threshold).abs() <= NEAR) | ((logits - top[:, S - 1:S]).abs() <= NEAR) \
+        | (((logits - top[:, :1]).abs() <= NEAR) & (top[:, :1] < rt.threshold + NEAR))
     if referee:
         l64 = float64_logits(rt, pose_t, rot_t, dirs)
         e_p = (logits.double() - l64).abs().max(dim=1).values
@@ -244,7 +276,9 @@ def check_slots(k, dirs, pose, rot, label, allowed, referee=False):
                           torch.zeros_like(p_k, dtype=torch.float64)).max(dim=1).values
         tol = 2.0 * torch.maximum(e_p, e_k)[:, None]
         top64 = torch.topk(l64, S, dim=1).values[:, S - 1:S]
-        at_tie = ((l64 - rt.threshold).abs() <= tol) | ((l64 - top64).abs() <= tol)
+        max64 = l64.max(dim=1, keepdim=True).values
+        at_tie = ((l64 - rt.threshold).abs() <= tol) | ((l64 - top64).abs() <= tol) \
+            | (((l64 - max64).abs() <= tol) & (max64 < rt.threshold + tol))
         print(f"  {label}: oracle logits against float64 sums of the same inputs: plain fp32 "
               f"within {float(e_p.max()):.3e}, the kernel's at its slots within "
               f"{float(e_k.max()):.3e}", flush=True)
@@ -274,13 +308,19 @@ def check_slots(k, dirs, pose, rot, label, allowed, referee=False):
           f"other bins at a near tie; {n_unexplained} not); rays keeping other bins than plain "
           f"{int(rays_flipped.sum())}; vs float64 of each side's own slots: kernel "
           f"{err64_k:.3e} (allowed 2e-4), plain fp32 {err64_p:.3e}", flush=True)
-    if bad_p or bad_front or not err64_k <= 2e-4 or n_unexplained or len(beyond) > allowed:
+    counted = cnt_k != cnt_p  # rays keeping another number of bins: all at near ties
+    count_bad = int((counted & (flipped & ~at_tie).any(1)).sum()) \
+        + max(0, int(counted.sum()) - allowed) if count_ties else bad_p
+    if count_ties:
+        print(f"  {label}: rays keeping another number of bins than plain {bad_p} (allowed "
+              f"{allowed}, each at a near tie; {count_bad} beyond that)", flush=True)
+    if count_bad or bad_front or not err64_k <= 2e-4 or n_unexplained or len(beyond) > allowed:
         raise SystemExit(f"{label}: the kernel disagrees with its plain version or float64")
     return dict(err_p=float(per_ray.max()), err_same=err_same, spp=spp, at_cap=at_cap,
                 n_flipped=int(rays_flipped.sum()), beyond=len(beyond), rgb=rgb_k, counts=cnt_k)
 
 
-def check_dense(k2, k1, dirs, pose, rot, label, allowed, referee=False):
+def check_dense(k2, k1, dirs, pose, rot, label, allowed, referee=False, count_ties=False):
     """K2 in fp32 through ``check_slots`` (``allowed`` rays beyond 2e-4 of
     its plain version) and against K1 on the same rays: counts exact, rgb
     within 1.5e-7, the bar tests/test_megakernel3.py holds the JAX kernels
@@ -288,7 +328,7 @@ def check_dense(k2, k1, dirs, pose, rot, label, allowed, referee=False):
     adds exact zeros and multiplies the transmittance by 1 - 0 + 1e-10 == 1
     in fp32). Returns (max err vs plain, max err vs K1, samples/px, share
     of rays at cap)."""
-    res = check_slots(k2, dirs, pose, rot, label, allowed, referee)
+    res = check_slots(k2, dirs, pose, rot, label, allowed, referee, count_ties)
     rgb1, cnt1 = k1(dirs, pose, rot)
     torch.cuda.synchronize()
     bad_1 = int((res["counts"] != cnt1).sum())
@@ -617,8 +657,8 @@ def stage_report(label, n_rows_front, n_rows_shade, oracle, nerf, mk, ms_front, 
     from adanerf_tpu_torch.ops.kernels.megakernel_compact import TC_ROWS_PER_WALK, stream_bytes
     tiles_f = math.ceil(n_rows_front / TC_ROWS_PER_WALK)
     tiles_s = math.ceil(n_rows_shade / TC_ROWS_PER_WALK)
-    l2_f = tiles_f * stream_bytes(mk.params, True, mk.width)
-    l2_s = tiles_s * stream_bytes(mk.params, False, mk.width)
+    l2_f = tiles_f * stream_bytes(mk, True)
+    l2_s = tiles_s * stream_bytes(mk, False)
     ops_f = 2.0 * n_rows_front * oracle.macs_per_input()
     ops_s = 2.0 * n_rows_shade * nerf.macs_per_input()
     ms_s = ms_shade - ms_front
@@ -712,44 +752,50 @@ def k3_bounds(rows, nerf):
     the recompute, the dX chain and dW, three times the forward's)."""
     ops_f = 2.0 * rows * nerf.macs_per_input()
     nbytes_w = sum(p.numel() for p in nerf.parameters()) * 4
+    n_in = nerf.input_ch + nerf.input_ch_views
     out = {}
-    for key, ops, nbytes in (("fwd", ops_f, rows * (90 + 4) * 4 + nbytes_w),
-                             ("bwd", 3.0 * ops_f, rows * (90 + 4 + 90) * 4 + 2 * nbytes_w)):
+    for key, ops, nbytes in (("fwd", ops_f, rows * (n_in + 4) * 4 + nbytes_w),
+                             ("bwd", 3.0 * ops_f, rows * (n_in + 4 + n_in) * 4 + 2 * nbytes_w)):
         bo, bb = ops / PEAK_OPS["bf16"] * 1e3, nbytes / HBM_BPS * 1e3
         out[key] = (max(bo, bb), "operations" if bo >= bb else "bytes",
                     ops / PEAK_OPS["fp32"] * 1e3)
     return out
 
 
-def k3_alone(width, dev):
-    """Phase 18a: K3 at K3_ROWS rows on a seeded 8 x ``width`` NeRF (x in
-    the encoding's range [-1, 1], the grads of mean((out - t)^2) with
-    seeded targets) against its plain version, with nerf_train_check's bars
-    and its caps for the width; then its times, the plain version's and
-    the bounds. Returns the numbers."""
+def k3_alone(width, dev, depth=8, input_ch=63, check_rows=K3_ROWS):
+    """Phase 18a (and 20b): K3 on a seeded ``depth`` x ``width`` NeRF of
+    ``input_ch`` + 27 encoded input columns (x in the encoding's range
+    [-1, 1], the grads of mean((out - t)^2) with seeded targets) at
+    ``check_rows`` rows against its plain version, with nerf_train_check's
+    bars and its caps for the shape; then at K3_ROWS rows its times, the
+    plain version's and the bounds. Returns the numbers."""
     from adanerf_tpu_torch.frame_times import time_ms
     from adanerf_tpu_torch.models.mlp import NeRFDef
     from adanerf_tpu_torch.ops.kernels import nerf_train_check
     from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel
-    nerf = NeRFDef(8, width, 63, 27, 4, (4,))
-    nerf.reset_parameters(torch.Generator().manual_seed(width))
+    nerf = NeRFDef(depth, width, input_ch, 27, 4, (4,))
+    seed = width if (depth, input_ch) == (8, 63) else width + depth + input_ch
+    nerf.reset_parameters(torch.Generator().manual_seed(seed))
     nerf = nerf.to(dev)
     k3 = NerfTrainKernel(nerf)
-    rng = np.random.default_rng(width)
-    x = torch.from_numpy(rng.uniform(-1, 1, (K3_ROWS, 90)).astype(np.float32)).to(dev)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(-1, 1, (K3_ROWS, input_ch + 27)).astype(np.float32)).to(dev)
     tg = torch.from_numpy(rng.standard_normal((K3_ROWS, 4)).astype(np.float32)).to(dev)
     res = nerf_train_check.compare(
-        k3, x, lambda out: torch.autograd.grad(torch.mean((out - tg) ** 2), out,
-                                               retain_graph=True)[0])
+        k3, x[:check_rows], lambda out: torch.autograd.grad(
+            torch.mean((out - tg[:check_rows]) ** 2), out, retain_graph=True)[0])
     torch.cuda.synchronize()
     errs = grad_errors(res["grads"]["p"], res["grads"]["k"])
     fwd_abs = float((res["out"]["k"] - res["out"]["p"]).abs().max())
     bwd_abs = max(v[1] for v in errs.values())
     ok, lines = nerf_train_check.verdict(res)
-    print(f"  K3 at width {width}, {K3_ROWS} rows, seeded weights and inputs, MSE:\n    "
-          + "\n    ".join(lines + res["report"][-3:]), flush=True)
+    shape = f"width {width}" + ("" if (depth, input_ch) == (8, 63) else
+                                f", {depth} layers, {input_ch + 27} input columns")
+    print(f"  K3 at {shape} ({'wide path' if k3.wide else 'fused'}), {check_rows} rows, seeded "
+          "weights and inputs, MSE:\n    " + "\n    ".join(lines + res["report"][-3:]),
+          flush=True)
     if not ok or res["launched"] != (1, 1):
-        raise SystemExit(f"K3 at width {width} disagrees with its plain version")
+        raise SystemExit(f"K3 at {shape} disagrees with its plain version")
     del res
     g = (2.0 / (K3_ROWS * 4)) * (k3.plain(x).detach() - tg)  # the MSE's cotangent
     packed = k3.pack(dict(nerf.named_parameters()), dev)
@@ -763,12 +809,13 @@ def k3_alone(width, dev):
     ms_pb = time_ms(lambda: torch.autograd.grad(out_graph, [xr] + leaves, g, retain_graph=True), 2)
     del out_graph, xr, packed, x, tg, g
     bounds = k3_bounds(K3_ROWS, nerf)
-    print(f"  K3 at width {width}: forward {ms_f:.3f} ms (bound {bounds['fwd'][0]:.3f}, "
+    print(f"  K3 at {shape}: forward {ms_f:.3f} ms (bound {bounds['fwd'][0]:.3f}, "
           f"{bounds['fwd'][1]}), backward {ms_b:.3f} ms (bound {bounds['bwd'][0]:.3f}, "
           f"{bounds['bwd'][1]}); plain forward {ms_pf:.3f} ms, plain backward {ms_pb:.3f} ms; "
           f"{nerf.macs_per_input()} multiply-adds a row forward", flush=True)
     torch.cuda.empty_cache()
-    return dict(fwd_ms=ms_f, bwd_ms=ms_b, plain_fwd_ms=ms_pf, plain_bwd_ms=ms_pb,
+    return dict(fwd_ms=ms_f, bwd_ms=ms_b, plain_fwd_ms=ms_pf, plain_bwd_ms=ms_pb, wide=k3.wide,
+                check_rows=check_rows,
                 bound_fwd_ms=bounds["fwd"][0], bound_bwd_ms=bounds["bwd"][0],
                 bound_fwd_by=bounds["fwd"][1], bound_bwd_by=bounds["bwd"][1],
                 max_abs_err_fwd=fwd_abs, max_abs_err_bwd=bwd_abs,
@@ -1209,6 +1256,89 @@ def export_leg(port_export, viewer, ts, trained, argv, dev):
                 bound_by="operations" if bo >= bb else "bytes",
                 k1_launches=views["MegakernelCompact"][0],
                 k1_viewer_ms=views["MegakernelCompact"][1]["device_ms_per_frame"], **k2_numbers)
+
+
+def frame_shape_leg(name, viewer, dev, tmp):
+    """Phase 20a: K1 and K2 on a seeded export of NEW_FRAME_SHAPES[name] at
+    NEW_FRAME_SIZE x NEW_FRAME_SIZE, an orbit pose: in fp32 K1 through
+    ``check_slots`` and K2 through ``check_dense`` (phase 9c's bars, the
+    float64 referee for near ties, at most 1 ray in 1,000 keeping other
+    bins); in bf16 K1 >= 40 dB against plain fp32 and K2 bit for bit K1's;
+    both timed (frame_ms) beside their plain versions and the bound; then
+    the viewer CLI on the export (its default route, and --megakernel v3),
+    each kernel's launches counted from 0. Returns the numbers."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_wide_export import write_wide_export
+    from adanerf_tpu_torch.frame_times import frame_ms, time_ms
+    from adanerf_tpu_torch.ops.kernels.megakernel_compact import MegakernelCompact
+    from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
+    width, depth = NEW_FRAME_SHAPES[name]
+    export = write_wide_export(os.path.join(tmp, name.replace("/", "_").replace(" ", "_")),
+                               width, 11, depth=depth)
+    rt32, scene = viewer.build_renderer_from_export(export, dtype_str="fp32", device=dev)
+    pose = np.asarray(viewer.orbit_poses(scene.view_cell_center,
+                                         0.4 * scene.view_cell_radius, 8)[1], np.float32)
+    rot = np.eye(3, dtype=np.float32)
+    pose_t, rot_t = torch.from_numpy(pose).to(dev), torch.from_numpy(rot).to(dev)
+    dirs = viewer.frame_directions(scene, NEW_FRAME_SIZE, NEW_FRAME_SIZE, dev)
+    n_pix = dirs.shape[0]
+    mk32 = MegakernelCompact(rt32)
+    route = ("front " + ("wide" if mk32.front_wide else f"fused at {mk32.widths[0]}") +
+             ", shade " + ("wide" if mk32.shade_wide else f"fused at {mk32.widths[1]}"))
+    print(f"  {name}: oracle {rt32.oracle.depth} x {rt32.oracle.width}, NeRF {rt32.nerf.depth} "
+          f"x {rt32.nerf.width}, S={rt32.max_samples}; K1/K2 route: {route}", flush=True)
+    # the seeded oracle's logits lie around the threshold (write_wide_export's
+    # logit_scale), so a logit at a near tie of it may add or drop a bin
+    k1_32 = check_slots(mk32, dirs, pose, rot, f"K1 fp32 at {name}", allowed=n_pix // 1000,
+                        referee=True, count_ties=True)
+    del k1_32["rgb"], k1_32["counts"]
+    k2_err, k2_err_k1, _, _ = check_dense(MegakernelDense(rt32), mk32, dirs, pose, rot,
+                                          f"K2 fp32 at {name}", allowed=n_pix // 1000,
+                                          referee=True, count_ties=True)
+    rt16, _ = viewer.build_renderer_from_export(export, dtype_str="bf16", device=dev)
+    k1, k2 = MegakernelCompact(rt16), MegakernelDense(rt16)
+    rgb1, cnt1 = k1(dirs, pose, rot)
+    rgb2, cnt2 = k2(dirs, pose, rot)
+    rgb_f, _ = rt32.render_frame(pose_t, rot_t, dirs)
+    p16 = psnr(rgb1, rgb_f)
+    same = bool(torch.equal(rgb2, rgb1) and torch.equal(cnt2, cnt1))
+    spp = float(cnt1.float().mean())
+    fr1, fr2 = frame_ms(k1, dirs, pose, rot), frame_ms(k2, dirs, pose, rot)
+    plain1 = time_ms(lambda: rt16.render_frame(pose_t, rot_t, dirs), 1)
+    plain2 = time_ms(lambda: [k2.plain(dirs[c:c + 40_000], pose_t, rot_t)
+                              for c in range(0, n_pix, 40_000)], 1)
+    ops = 2.0 * (n_pix * rt16.oracle.macs_per_input() + spp * n_pix * rt16.nerf.macs_per_input())
+    nbytes = n_pix * 12 + 12 + 36 + k1.weights.numel() * k1.weights.element_size() \
+        + k1.biases.numel() * 4 + n_pix * (12 + 4)
+    bo, bb = ops / PEAK_OPS["bf16"] * 1e3, nbytes / HBM_BPS * 1e3
+    bound = max(bo, bb)
+    print(f"  {name} bf16: K1 vs plain fp32 {p16:.2f} dB (allowed >= 40), K2 bit for bit K1: "
+          f"{same}; K1 {fr1['ms']:.3f} ms (front {fr1['front_ms']:.3f}), plain {plain1:.3f} ms; "
+          f"K2 {fr2['ms']:.3f} ms, plain dense {plain2:.3f} ms; samples/px {spp:.4f}; bound "
+          f"(live samples) {bound:.4f} ms ({'operations' if bo >= bb else 'bytes'})", flush=True)
+    if not (p16 >= 40.0 and same and bool(torch.isfinite(rgb1).all())):
+        raise SystemExit(f"K1/K2 bf16 at {name}: below 40 dB against plain fp32 or K2 != K1")
+    del rgb1, rgb2, cnt1, cnt2, rgb_f
+    views = {}
+    for cls, extra in ((MegakernelCompact, []), (MegakernelDense, ["--megakernel", "v3"])):
+        cls.launches = 0
+        st = viewer.main([export, "-s", str(NEW_FRAME_SIZE), str(NEW_FRAME_SIZE), "-n", "2"]
+                         + extra)
+        views[cls.__name__] = (cls.launches, st["device_ms_per_frame"])
+        print(f"  viewer {' '.join(extra) or '(default route)'} at {name}: {st['route']}; "
+              f"{cls.__name__} launches {cls.launches}, device {st['device_ms_per_frame']:.3f} "
+              f"ms a frame", flush=True)
+        if cls.launches < 1 or not torch.isfinite(st["last_frame"]).all() \
+                or not st["route"].startswith("K2" if extra else "K1"):
+            raise SystemExit(f"the viewer at {name} did not render through {cls.__name__}")
+    del rt32, rt16, mk32, k1, k2, dirs
+    torch.cuda.empty_cache()
+    return dict(route=route, k1_fp32=k1_32, k2_fp32_err=k2_err, k2_fp32_err_vs_k1=k2_err_k1,
+                k1_psnr_fp32=p16, spp=spp, k1_ms=fr1["ms"], k1_plain_ms=plain1, k2_ms=fr2["ms"],
+                k2_plain_ms=plain2, bound_ms=bound, bound_by="operations" if bo >= bb else "bytes",
+                k1_launches=views["MegakernelCompact"][0],
+                k1_viewer_ms=views["MegakernelCompact"][1],
+                k2_launches=views["MegakernelDense"][0], k2_viewer_ms=views["MegakernelDense"][1])
 
 
 def jax_ndc_run():
@@ -1776,7 +1906,7 @@ def main():
     from adanerf_tpu_torch.ops.kernels import build
     from adanerf_tpu_torch.ops.kernels import nerf_train, nerf_train_check
     from adanerf_tpu_torch.data.png import read_png
-    from adanerf_tpu_torch.ops.kernels import megakernel_dense, sass
+    from adanerf_tpu_torch.ops.kernels import megakernel_dense, sass, wide
     from adanerf_tpu_torch.ops.kernels.megakernel_compact import SOURCE, MegakernelCompact
     from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
     from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel
@@ -1803,7 +1933,7 @@ def main():
     from adanerf_tpu_torch.ops.kernels.megakernel_compact import WIDTHS, library
     frame_libs = [library(src, w) for src in (SOURCE, megakernel_dense.SOURCE) for w in WIDTHS]
     k3_libs = [nerf_train.library(w) for w in nerf_train.WIDTHS]
-    logs = build.build(frame_libs + k3_libs)
+    logs = build.build(frame_libs + k3_libs + [wide.SOURCE])
     print(f"  built {len(logs)} librar(ies) in {time.perf_counter() - t:.1f}s", flush=True)
     for src, log in logs.items():
         for name, info in ptxas_report(log):
@@ -1827,6 +1957,14 @@ def main():
                   f"{n_hgmma} HGMMA", flush=True)
             if "k3_reduce" not in name and n_hgmma == 0:
                 raise SystemExit(f"{lib}: {name} has no HGMMA instruction")
+    # the wide path (every width above 512): its GEMM of the bf16 layers
+    # multiplies on the tensor cores
+    for name, instrs in sass.kernel_sass(build.library_path(wide.SOURCE)).items():
+        n_hgmma = sass.hgmma_count(instrs)
+        print(f"  {wide.SOURCE}: {demangle(name)}: {len(instrs)} SASS instructions, "
+              f"{n_hgmma} HGMMA", flush=True)
+        if (demangle(name) == "wd_gemm" or "7wd_gemmE" in name) and n_hgmma == 0:
+            raise SystemExit(f"{wide.SOURCE}: {name} has no HGMMA instruction")
     done("2 build", t)
 
     t = time.perf_counter()
@@ -2303,6 +2441,25 @@ def main():
     print(f"  card: {card_state()}", flush=True)
     done("19", t)
 
+    t = time.perf_counter()
+    phase(f"20 the network shapes beyond the shipped ones: K1/K2 at {NEW_FRAME_SIZE}x"
+          f"{NEW_FRAME_SIZE} on seeded exports {list(NEW_FRAME_SHAPES)} (fp32 against plain "
+          f"and float64, bf16 >= 40 dB, K2 = K1, the viewer); K3 alone at {K3_ROWS} rows at "
+          f"{list(NEW_K3_SHAPES)}; both nets {RUN_1024} wide through the dense ini "
+          f"({WIDTH_DENSE_STEPS} steps) and the fine ini ({FINE_STEPS} steps)")
+    shapes = {"frames": {}, "k3": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shapes_") as tmp:
+        for name in NEW_FRAME_SHAPES:
+            shapes["frames"][name] = frame_shape_leg(name, viewer, dev, tmp)
+    for name, (w, d, ic, rows) in NEW_K3_SHAPES.items():
+        shapes["k3"][name] = k3_alone(w, dev, d, ic, rows)
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_w{RUN_1024}_") as tmp:
+        shapes["runs_1024"], ts_w, _, _ = width_runs(train, NerfTrainKernel, RUN_1024, tmp)
+        del ts_w
+    torch.cuda.empty_cache()
+    print(f"  card: {card_state()}", flush=True)
+    done("20", t)
+
     def k3_widths(way):  # the kernels line's K3 numbers at each width
         out = {}
         for w, v in widths.items():
@@ -2331,9 +2488,31 @@ def main():
                 out[str(w)]["psnr_bf16_vs_plain_fp32"] = e["k1_psnr_fp32"]
         return out
 
+    def k3_shapes(way):  # the kernels line's K3 numbers at phase 20's shapes
+        out = {name: {"path": "wide" if k["wide"] else "fused", "launches": 1,
+                      "ms": k[f"{way}_ms"], "plain_ms": k[f"plain_{way}_ms"],
+                      "bound_ms": k[f"bound_{way}_ms"], "bound_by": k[f"bound_{way}_by"],
+                      "max_abs_err": k[f"max_abs_err_{way}"], "rows": K3_ROWS,
+                      "check_rows": k["check_rows"]}
+               for name, k in shapes["k3"].items()}
+        out[f"{RUN_1024} runs"] = {r: {"launches": n["launches"][way == "bwd"], "rows": n["rows"],
+                                       "step_ms": n["step_ms"]}
+                                   for r, n in shapes["runs_1024"].items()}
+        return out
+
+    def frame_shapes(key):  # the kernels line's K1 (k1) or K2 (k2) numbers at phase 20's shapes
+        return {name: {"route": e["route"], "launches": e[f"{key}_launches"],
+                       "ms": e[f"{key}_ms"], "plain_ms": e[f"{key}_plain_ms"],
+                       "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+                       "max_abs_err": e["k1_fp32"]["err_p"] if key == "k1" else e["k2_fp32_err"],
+                       "viewer_device_ms": e[f"{key}_viewer_ms"], "samples_per_pixel": e["spp"],
+                       **({"psnr_bf16_vs_plain_fp32": e["k1_psnr_fp32"]} if key == "k1" else {})}
+                for name, e in shapes["frames"].items()}
+
     k2_main = k2_16[scene_thr]
     phase("14 kernels")
     print(json.dumps({"widths": {str(w): d for w, d in widths.items()}}), flush=True)
+    print(json.dumps({"shapes": shapes}), flush=True)
     print(json.dumps({"training_legs": {"dense_validate_ms": dense_val_ms,
                                         "fine": {k: v for k, v in fine.items()},
                                         "nerf_baseline": baseline, "gt_depth": gt},
@@ -2370,7 +2549,7 @@ def main():
         "llff_ndc_export_800_bound_ms": llff["export"]["bound_ms"],
         "llff_ndc_export_max_abs_err": llff["export"]["k1_fp32"]["err_p"],
         "llff_ndc_export_psnr_vs_plain_fp32": llff["export"]["k1_psnr_fp32"],
-        "widths": frame_widths("k1")}, {
+        "widths": frame_widths("k1"), "shapes": frame_shapes("k1")}, {
         "name": "nerf_train_forward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
@@ -2395,7 +2574,7 @@ def main():
         "llff_ndc_dense_rows": llff["dense"]["rows"],
         "llff_ndc_fine_launches": llff["quality"]["launches"][0],
         "llff_ndc_fine_rows": llff["quality"]["rows"],
-        "widths": k3_widths("fwd")}, {
+        "widths": k3_widths("fwd"), "shapes": k3_shapes("fwd")}, {
         "name": "nerf_train_backward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
@@ -2427,7 +2606,7 @@ def main():
         "llff_ndc_dense_rows": llff["dense"]["rows"],
         "llff_ndc_fine_launches": llff["quality"]["launches"][1],
         "llff_ndc_fine_rows": llff["quality"]["rows"],
-        "widths": k3_widths("bwd")}, {
+        "widths": k3_widths("bwd"), "shapes": k3_shapes("bwd")}, {
         "name": "megakernel_dense", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_dense.cu + adanerf_tpu_torch/csrc/megakernel.cuh",
         "replaces": "adanerf_tpu/ops/pallas/megakernel.py:281",
@@ -2451,7 +2630,7 @@ def main():
         "sharded_4_launches": scale_out["MegakernelDense"]["launches"],
         "sharded_4_ms": scale_out["MegakernelDense"]["ms_4_slices"],
         "sharded_4_whole_ms": scale_out["MegakernelDense"]["ms_whole"],
-        "widths": frame_widths("k2")}]}), flush=True)
+        "widths": frame_widths("k2"), "shapes": frame_shapes("k2")}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -173,6 +173,56 @@ def test_frame_kernels_match_plain_at_other_widths(tmp_path, width):
             assert torch.equal(rgb2, rgb1)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,depth", [((128, 256), (8, 8)), ((256, 640), (8, 8)),
+                                         (640, (8, 8)), (1024, (4, 4)), ((96, 200), (8, 8)),
+                                         (256, (20, 8)), (256, (8, 20))])
+def test_frame_kernels_match_plain_at_new_shapes(tmp_path, width, depth):
+    """K1 and K2 at the shapes they take now, with the bars of
+    test_frame_kernels_match_plain_at_other_widths (fp32 against its plain
+    version as chip_smoke.py's phase 20 holds it): an oracle and a NeRF of
+    different widths (the front of one library, the shade of another, or
+    of the wide path), MLPs wider than 512 or of widths that are not a
+    multiple of 128 (the wide path, csrc/wide.cu), a 20-layer oracle and a
+    20-layer NeRF (the per-layer offsets)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    export = write_wide_export(tmp_path / "export", width, 11, depth=depth)
+    for dtype in ("fp32", "bf16"):
+        rt, scene = tviewer.build_renderer_from_export(export, dtype_str=dtype, device="cuda")
+        dirs, pose, rot = _frame_inputs(scene, 16384)
+        dirs = dirs.cuda()
+        k1, k2 = MegakernelCompact(rt), MegakernelDense(rt)
+        before = (MegakernelCompact.launches, MegakernelDense.launches)
+        rgb1, cnt1 = k1(dirs, pose, rot)
+        rgb2, cnt2 = k2(dirs, pose, rot)
+        assert (MegakernelCompact.launches, MegakernelDense.launches) == \
+            (before[0] + 1, before[1] + 1)
+        rgb_p, cnt_p = k1.plain(dirs, torch.from_numpy(pose).cuda(),
+                                torch.from_numpy(rot).cuda())
+        assert torch.equal(cnt2, cnt1) and bool(torch.isfinite(rgb1).all())
+        agree = cnt1 == cnt_p
+        print(f"{width} x {depth} {dtype}: samples/px {float(cnt1.float().mean()):.3f}, counts "
+              f"differ on {int((~agree).sum())} rays, max |K1 - plain| "
+              f"{float((rgb1 - rgb_p).abs()[agree].max()):.3e}")
+        if dtype == "fp32":
+            # chip_smoke.py's check_slots (phase 20's): within 2e-4 of the
+            # plain version where both keep the same bins, and of a float64
+            # shading of its own slots on every ray; the seeded oracle's
+            # logits lie around the threshold by design (write_wide_export's
+            # logit_scale), so at most 1 ray in 1,000 may keep other bins,
+            # or another number of them, each at a near tie that the
+            # float64 logits referee
+            from chip_smoke import check_slots
+            check_slots(k1, dirs, pose, rot, f"K1 fp32 {width} x {depth}",
+                        allowed=dirs.shape[0] // 1000, referee=True, count_ties=True)
+            assert float((rgb2 - rgb1).abs().max()) <= 1.5e-7
+        else:
+            mse = float(((rgb1.clamp(0, 1) - rgb_p.clamp(0, 1)) ** 2).mean())
+            assert mse == 0 or -10 * np.log10(mse) >= 40.0
+            assert torch.equal(rgb2, rgb1)
+
+
 RAGGED = 16383  # not a multiple of the tensor-core kernels' 128-row tile
 
 
@@ -223,16 +273,17 @@ def test_bf16_dense_kernel_is_bit_identical_to_k1(threshold):
     assert torch.equal(cnt2, cnt1) and torch.equal(rgb2, rgb1)
 
 
-def k3_against_plain(rows, width=256):
-    """K3 and its plain version on the 8-layer NeRF (8x256 unless width says
-    otherwise) with seeded initial weights and inputs in the encoding's
-    range [-1, 1], both differentiated through mean((out - t)^2) with
-    targets from a numpy seed (nerf_train_check.compare)."""
-    nerf = NeRFDef(8, width, 63, 27, 4, (4,))
+def k3_against_plain(rows, width=256, depth=8, input_ch=63):
+    """K3 and its plain version on the 8-layer NeRF (8x256 unless width,
+    depth or input_ch say otherwise; its skip at layer 4) with seeded
+    initial weights and inputs in the encoding's range [-1, 1], both
+    differentiated through mean((out - t)^2) with targets from a numpy seed
+    (nerf_train_check.compare)."""
+    nerf = NeRFDef(depth, width, input_ch, 27, 4, (4,))
     nerf.reset_parameters(torch.Generator().manual_seed(rows))
     nerf = nerf.cuda()
     rng = np.random.default_rng(rows)
-    x = torch.from_numpy(rng.uniform(-1, 1, (rows, 90)).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.uniform(-1, 1, (rows, input_ch + 27)).astype(np.float32)).cuda()
     t = torch.from_numpy(rng.standard_normal((rows, 4)).astype(np.float32)).cuda()
     return nerf_train_check.compare(
         NerfTrainKernel(nerf), x,
@@ -281,6 +332,25 @@ def test_nerf_train_kernel_matches_plain_at_other_widths(width, rows):
     res = k3_against_plain(rows, width)
     ok, lines = nerf_train_check.verdict(res)
     print(f"width {width}, {rows} rows:\n  " + "\n  ".join(lines + res["report"]))
+    assert res["launched"] == (1, 1)
+    assert ok, lines
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,depth,input_ch,rows", [
+    (640, 8, 63, 4096), (768, 8, 63, 4096), (1024, 8, 63, 4096), (1024, 8, 63, 130),
+    (256, 20, 63, 4096), (256, 8, 123, 4096), (640, 8, 63, 40000)])
+def test_nerf_train_kernel_matches_plain_at_new_shapes(width, depth, input_ch, rows):
+    """The same check at the shapes K3 takes now: wider than 512 and 150
+    input columns on the wide path (csrc/wide.cu: a GEMM a layer, the
+    activations in device memory), 20 layers on the fused kernels (the
+    per-layer table), with nerf_train_check's caps for the shape."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = k3_against_plain(rows, width, depth, input_ch)
+    ok, lines = nerf_train_check.verdict(res)
+    print(f"width {width}, depth {depth}, {input_ch + 27} columns, {rows} rows:\n  "
+          + "\n  ".join(lines + res["report"]))
     assert res["launched"] == (1, 1)
     assert ok, lines
 

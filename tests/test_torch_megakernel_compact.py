@@ -76,7 +76,7 @@ def test_plain_matches_jax_kernel_interpret_at_other_widths(tmp_path, width):
     out = np.asarray(run(*prep_inputs(jnp.asarray(dirs.numpy()), jnp.asarray(pose),
                                       jnp.asarray(rot))))
     mk = MegakernelCompact(rt_t)
-    assert mk.width == width
+    assert mk.widths == (width, width)
     rgb, counts = mk(dirs, pose, rot)
     assert 1.0 <= float(counts.float().mean()) <= 8.0
     np.testing.assert_array_equal(counts.numpy(), out[:, 3].astype(int))
@@ -109,3 +109,76 @@ def test_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
     if not os.path.exists("/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.find_nvcc()
+
+
+# (oracle width, NeRF width) or one width for both, (oracle, NeRF) depths:
+# mixed widths (the fused front and shade of two libraries, or a fused
+# front and a wide shade), MLPs wider than 512 and widths that are not a
+# multiple of 128 (the wide path, padded to 64-column blocks), 20 layers
+NEW_SHAPES = {"128/256": ((128, 256), (4, 4)), "512/256": ((512, 256), (4, 4)),
+              "256/640": ((256, 640), (3, 3)), "640": (640, (3, 3)), "1024": (1024, (2, 3)),
+              "96/200": ((96, 200), (3, 3)), "oracle 20 layers": (256, (20, 4)),
+              "NeRF 20 layers": (256, (4, 20))}
+
+
+def _new_export(tmp_path, name, dtype="fp32"):
+    width, depth = NEW_SHAPES[name]
+    w0, w1 = (width, width) if isinstance(width, int) else width
+    export = write_wide_export(tmp_path / "export", width, w0 + 3 * w1 + sum(depth), depth=depth)
+    rt, scene = tviewer.build_renderer_from_export(export, 128, dtype, device="cpu")
+    assert (rt.oracle.width, rt.nerf.width, rt.oracle.depth, rt.nerf.depth) == (w0, w1) + depth
+    return export, rt, scene
+
+
+@pytest.mark.parametrize("name", list(NEW_SHAPES))
+def test_plain_matches_jax_kernel_interpret_at_new_shapes(tmp_path, name):
+    """K1's plain version against make_megakernel_compact at the shapes it
+    takes now: an oracle and a NeRF of different widths, MLPs 640 and 1024
+    wide, a 20-layer oracle and a 20-layer NeRF (counts exact, rgb within
+    2e-4), and widths that are not a multiple of 128 (96/200); the
+    wrapper takes each, on the route it names."""
+    export, rt_t, scene_t = _new_export(tmp_path, name)
+    rt_j, scene_j = jviewer.build_renderer_from_export(export, 128, "fp32")
+    assert (rt_j.oracle_def.width, rt_j.nerf_def.width) == (rt_t.oracle.width, rt_t.nerf.width)
+    dirs, pose, rot = _frame_inputs(scene_t, 128)
+    po = pack_oracle_weights(rt_j.oracle_def, rt_j.params[0], dtype=jnp.float32)
+    pn = pack_nerf_weights(rt_j.nerf_def, rt_j.params[1], dtype=jnp.float32)
+    run = make_megakernel_compact(rt_j.oracle_def, rt_j.nerf_def, scene_j, rt_j.config,
+                                  tile=64, chunk=64, interpret=True, dynamic=True)(po, pn)
+    out = np.asarray(run(*prep_inputs(jnp.asarray(dirs.numpy()), jnp.asarray(pose),
+                                      jnp.asarray(rot))))
+    mk = MegakernelCompact(rt_t)
+    assert mk.widths == (rt_t.oracle.width, rt_t.nerf.width)
+    assert (mk.front_wide, mk.shade_wide) == tuple(w not in (128, 256, 384, 512)
+                                                   for w in mk.widths)
+    rgb, counts = mk(dirs, pose, rot)
+    assert float(counts.float().mean()) >= 1.0
+    np.testing.assert_array_equal(counts.numpy(), out[:, 3].astype(int))
+    np.testing.assert_allclose(rgb.numpy(), out[:, :3], atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("name,dtype,dense", [("640", "fp32", False), ("640", "bf16", False),
+                                              ("256/640", "bf16", False), ("1024", "bf16", False),
+                                              ("96/200", "fp32", False), ("96/200", "bf16", True),
+                                              ("oracle 20 layers", "fp32", False),
+                                              ("640", "bf16", True)])
+def test_wide_path_matches_plain_version(tmp_path, monkeypatch, name, dtype, dense):
+    """The wide path's launch sequence for the front and the shade (K1's
+    live rows, or K2's every slot), each kernel replayed on the CPU
+    (tests/torch_wide_replay.py), in chunks of 256 sample rows, against the
+    plain version: counts exact; rgb within 2e-4 in fp32 (float64 sums
+    against fp32 ones), within 2e-3 in bf16, where a sum that the two sides
+    order differently may round to the other bf16 value."""
+    from adanerf_tpu_torch.ops.kernels import megakernel_compact as mc
+    from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
+    from torch_wide_replay import k1_wide_on_cpu
+    monkeypatch.setattr(mc, "CHUNK", 256)
+    _, rt, scene = _new_export(tmp_path, name, dtype)
+    dirs, pose, rot = _frame_inputs(scene, 128)
+    mk = (MegakernelDense if dense else MegakernelCompact)(rt)
+    rgb, counts = k1_wide_on_cpu(mk, dirs, pose, rot)
+    rgb_p, counts_p = mk.plain(dirs, torch.from_numpy(pose), torch.from_numpy(rot))
+    assert float(counts.float().mean()) >= 1.0
+    np.testing.assert_array_equal(counts.numpy(), counts_p.numpy())
+    np.testing.assert_allclose(rgb.numpy(), rgb_p.numpy(), atol=2e-4 if dtype == "fp32" else 2e-3,
+                               rtol=0)

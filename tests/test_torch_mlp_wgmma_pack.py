@@ -73,21 +73,21 @@ def _expected_layers(rt, P):
 @pytest.mark.parametrize("name", ["mscene", "ndc"])
 def test_bf16_stream_untiles_to_every_matrix(name):
     rt, mk = _packed(name)
-    P = mk.params
+    P, L = mk.params, mk.layers
     assert mk.weights.dtype == torch.bfloat16
     assert (P.in0, P.in1) == ({"mscene": 128, "ndc": 64}[name], 128)
     flat = mk.weights.view(torch.int16).numpy()
     want_front, want_shade = _expected_layers(rt, P)
-    for front, start, want in ((True, P.o_w[0], want_front), (False, P.n_w[0], want_shade)):
-        plan = mc.stream_plan(P, front)
+    for front, start, want in ((True, L.o_w[0], want_front), (False, L.n_w[0], want_shade)):
+        plan = mc.stream_plan(mk, front)
         assert len(plan) == len(want)
         off = start
         for l, ((kc0, kc1, n), (m0, m1)) in enumerate(zip(plan, want)):
             # the packer's offsets are where the kernel's walk finds each matrix
             if front:
-                assert off == P.o_w[l]
+                assert off == L.o_w[l]
             elif l < rt.nerf.depth:
-                assert off == P.n_w[l]
+                assert off == L.n_w[l]
             else:
                 assert off == (P.n_wf if l == rt.nerf.depth else P.n_wvf)
             for kc, m in ((kc0, m0), (kc1, m1)):
@@ -98,13 +98,13 @@ def test_bf16_stream_untiles_to_every_matrix(name):
                 if not front and l == rt.nerf.depth + 1 and m is m1:
                     assert off == P.n_wvd
                 elif not front and m is m1:
-                    assert off == P.n_wx[l]
+                    assert off == L.n_wx[l]
                 got = mc.unpack_chunks(flat, off, kc * mc.TC_KC, n)
                 np.testing.assert_array_equal(got, _bits(m))
                 off += kc * mc.TC_KC * n
-        assert (off - start) * 2 == mc.stream_bytes(P, front)
+        assert (off - start) * 2 == mc.stream_bytes(mk, front)
     # the oracle's stream runs straight into the NeRF's
-    assert P.n_w[0] == P.o_w[0] + mc.stream_bytes(P, True) // 2
+    assert L.n_w[0] == L.o_w[0] + mc.stream_bytes(mk, True) // 2
     # the heads stay row-major after the streams
     nw = mc._numpy_state(rt.nerf)
     for off, key in ((P.n_wa, "alpha.w"), (P.n_wrgb, "rgb.w")):
@@ -122,11 +122,11 @@ def test_bf16_stream_untiles_at_other_widths(tmp_path, width):
     export = write_wide_export(tmp_path / "export", width, width)
     rt, _ = tviewer.build_renderer_from_export(export, dtype_str="bf16", device="cpu")
     mk = mc.MegakernelCompact(rt)
-    P = mk.params
+    P, L = mk.params, mk.layers
     flat = mk.weights.view(torch.int16).numpy()
     want_front, want_shade = _expected_layers(rt, P)
-    for front, start, want in ((True, P.o_w[0], want_front), (False, P.n_w[0], want_shade)):
-        plan = mc.stream_plan(P, front, width)
+    for front, start, want in ((True, L.o_w[0], want_front), (False, L.n_w[0], want_shade)):
+        plan = mc.stream_plan(mk, front)
         assert len(plan) == len(want)
         off = start
         for (kc0, kc1, n), (m0, m1) in zip(plan, want):
@@ -140,8 +140,8 @@ def test_bf16_stream_untiles_at_other_widths(tmp_path, width):
                 assert np_ * mc.TC_KC * 2 <= STAGE_BYTES and (off * 2) % 1024 == 0
                 off += (kc0 + kc1) * mc.TC_KC * np_
             assert off == end
-        assert (off - start) * 2 == mc.stream_bytes(P, front, width)
-    assert P.n_w[0] == P.o_w[0] + mc.stream_bytes(P, True, width) // 2
+        assert (off - start) * 2 == mc.stream_bytes(mk, front)
+    assert L.n_w[0] == L.o_w[0] + mc.stream_bytes(mk, True) // 2
 
 
 @pytest.mark.parametrize("n_rows", [128, 256])
@@ -167,10 +167,10 @@ def test_swizzle128_is_a_bijection_on_a_chunk(n_rows):
 @pytest.mark.parametrize("name", ["mscene", "ndc"])
 def test_bf16_chunks_sit_where_the_bulk_copy_and_swizzle_need_them(name):
     _, mk = _packed(name)
-    P = mk.params
-    for front, start in ((True, P.o_w[0]), (False, P.n_w[0])):
+    P, L = mk.params, mk.layers
+    for front, start in ((True, L.o_w[0]), (False, L.n_w[0])):
         off = start * 2  # bytes
-        for kc0, kc1, n in mc.stream_plan(P, front):
+        for kc0, kc1, n in mc.stream_plan(mk, front):
             chunk = n * mc.TC_KC * 2
             # one bulk copy per chunk: 16-byte aligned source and size, at
             # most a stage; the stage it lands in is 1024-byte aligned, and
@@ -186,7 +186,7 @@ def test_bf16_chunks_sit_where_the_bulk_copy_and_swizzle_need_them(name):
 @pytest.mark.parametrize("name", ["mscene", "ndc"])
 def test_fp32_packing_stays_row_major(name):
     rt, mk = _packed(name, "fp32")
-    P = mk.params
+    P, L = mk.params, mk.layers
     assert mk.weights.dtype == torch.float32
     assert P.in0 % 32 == 0 and P.in1 % 32 == 0 and P.in1 == 96
     flat = mk.weights.numpy()
@@ -195,7 +195,7 @@ def test_fp32_packing_stays_row_major(name):
         w = ow[f"{i}.w"]
         rows = P.in0 if i == 0 else w.shape[0]
         cols = 128 if i == rt.oracle.depth - 1 else w.shape[1]
-        np.testing.assert_array_equal(flat[P.o_w[i]:P.o_w[i] + rows * cols].reshape(rows, cols),
+        np.testing.assert_array_equal(flat[L.o_w[i]:L.o_w[i] + rows * cols].reshape(rows, cols),
                                       _pad(w, rows, cols))
     # every NeRF matrix, at its own offset, in the order the bf16 stream
     # and its heads take (the FMA layer reads each by its offset)
@@ -203,9 +203,9 @@ def test_fp32_packing_stays_row_major(name):
     offs = []
     for l, (m0, m1) in enumerate(shade):
         if l < rt.nerf.depth:
-            offs.append((P.n_w[l], m0))
+            offs.append((L.n_w[l], m0))
             if m1 is not None:
-                offs.append((P.n_wx[l], m1))
+                offs.append((L.n_wx[l], m1))
         elif l == rt.nerf.depth:
             offs.append((P.n_wf, m0))
         else:

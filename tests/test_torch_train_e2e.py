@@ -79,31 +79,29 @@ def test_unported_options_are_refused_before_step_0(scene, tmp_path, extra, word
     assert not os.path.exists(tmp_path / "logs")  # refused before anything ran
 
 
-@pytest.mark.parametrize("widths,refused", [(("256", "640"), True), (("256", "1024"), True),
-                                            (("256", "512"), False), (("256", "128"), False),
-                                            (("32", "256"), False), (("256", "96"), False)])
-def test_nerf_widths_k3_does_not_take_are_refused_on_cuda(scene, tmp_path, widths, refused):
-    """With --bf16 on a CUDA device, a NeRF width that the JAX package trains
-    through its TPU kernel (a multiple of 128) but K3 does not take (above
-    512) stops the run before anything ran; K3 takes 128 to 512, and a
-    width that JAX trains on its plain path (96) is not refused by this
-    rule."""
+@pytest.mark.parametrize("widths,wide", [(("256", "640"), True), (("256", "1024"), True),
+                                         (("256", "512"), False), (("256", "128"), False),
+                                         (("32", "256"), False), (("256", "96"), None)])
+def test_nerf_widths_k3_does_not_take_are_refused_on_cuda(scene, tmp_path, widths, wide):
+    """No NeRF width is refused on CUDA any more: with --bf16, every NeRF
+    that the JAX package trains through its TPU kernel (a width that is a
+    multiple of 128) trains through K3, a width above 512 on its wide path
+    (the libraries built before the ranks start say which); one that JAX
+    trains on its plain path (96) trains plainly. Without a card the run
+    gets past every refusal to the device check."""
+    from adanerf_tpu_torch.ops.kernels import nerf_train, wide as wide_path
     args = _args(scene, str(tmp_path / "logs"))
     at = args.index("--layerWidth")
     args[at + 1], args[at + 3] = widths
     args[args.index("--device") + 1] = "cuda"
     cfg = train.Config.init(argv=args + ["--bf16"])
-    found = train.unsupported_by_k3(cfg)
-    assert bool(found) == refused
-    if refused:
-        assert f"--layerWidth {widths[1]}" in found[0] and "ROADMAP Queue 2, K3" in found[0]
-        with pytest.raises(SystemExit) as err:
+    assert train.unsupported(cfg) == []
+    if wide is not None:
+        libs = nerf_train.libraries(int(widths[1]), 90, 8)
+        assert (wide_path.SOURCE in libs) == wide
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(args + ["--bf16"])
-        assert "ROADMAP Queue 2, K3" in str(err.value)
-        assert not os.path.exists(tmp_path / "logs")
-    assert train.unsupported_by_k3(train.Config.init(argv=args + ["--bf16", "--fusedTrainKernel",
-                                                                  "0"])) == []
-    assert train.unsupported_by_k3(train.Config.init(argv=args)) == []  # fp32
 
 
 def test_render_points_beyond_the_run_are_fine():

@@ -20,13 +20,17 @@ from adanerf_tpu_torch.ops.kernels import nerf_train as nt
 from adanerf_tpu_torch.ops.kernels.megakernel_compact import swizzle128, unpack_chunks
 from test_torch_train_kernel import k3_replay
 
+# (depth, skips[, width[, input_ch]]): the fused kernels' shapes, then the
+# wide path's (wider than 512, 20 layers, 123 + 27 = 150 input columns)
 SHAPES = {"8x256": (8, (4,)), "5x256, skips 1 and 3": (5, (1, 3)),
           "4x128, skip 2": (4, (2,), 128), "3x384, skip 0": (3, (0,), 384),
-          "3x512, skip 1": (3, (1,), 512)}
+          "3x512, skip 1": (3, (1,), 512), "3x640, skip 1": (3, (1,), 640),
+          "2x1024, skip 0": (2, (0,), 1024), "20x128, skips 4 and 12": (20, (4, 12), 128),
+          "4x256, 150 columns, skip 2": (4, (2,), 256, 123)}
 
 
-def _nerf(depth, skips, seed=0, width=256):
-    nerf = NeRFDef(depth, width, 63, 27, 4, skips)
+def _nerf(depth, skips, seed=0, width=256, ic=63):
+    nerf = NeRFDef(depth, width, ic, 27, 4, skips)
     nerf.reset_parameters(torch.Generator().manual_seed(seed))
     return nerf
 
@@ -41,17 +45,18 @@ def _pad(a, rows, cols, at=(0, 0)):
     return out
 
 
-def _expected(nerf):
-    """{plan name: (K, N) matrix} as the kernels multiply by it."""
+def _expected(nerf, xw):
+    """{plan name: (K, N) matrix} as the kernels multiply by it (x padded to
+    xw columns)."""
     p = {n: v.detach().numpy() for n, v in nerf.named_parameters()}
     ic, W = nerf.input_ch, nerf.width
-    out = {"pts.0": _pad(p["pts.0.w"], 128, W), "feature": p["feature.w"],
+    out = {"pts.0": _pad(p["pts.0.w"], xw, W), "feature": p["feature.w"],
            "views.f": p["views.0.w"][:W],
-           "views.x": _pad(p["views.0.w"][W:], 128, W // 2, at=(ic, 0))}
+           "views.x": _pad(p["views.0.w"][W:], xw, W // 2, at=(ic, 0))}
     for i in range(1, nerf.depth):
         w = p[f"pts.{i}.w"]
         if (i - 1) in nerf.skips:
-            out[f"pts.{i}"], out[f"pts.{i}.x"] = w[ic:], _pad(w[:ic], 128, W)
+            out[f"pts.{i}"], out[f"pts.{i}.x"] = w[ic:], _pad(w[:ic], xw, W)
         else:
             out[f"pts.{i}"] = w
     for k in list(out):
@@ -61,13 +66,15 @@ def _expected(nerf):
 
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_weight_streams_untile_to_every_matrix(shape):
-    depth, skips, *width = SHAPES[shape]
-    nerf = _nerf(depth, skips, width=(width or [256])[0])
+    depth, skips, *rest = SHAPES[shape]
+    nerf = _nerf(depth, skips, 0, *rest)
     W = nerf.width
     k3 = nt.NerfTrainKernel(nerf)
+    assert k3.wide == (W > 512 or k3.n_in > 128)
+    assert k3.xw == (128 if not k3.wide else 64 * math.ceil(k3.n_in / 64))
     fs, bs, vec = k3.pack(dict(nerf.named_parameters()), "cpu")
     assert fs.dtype == bs.dtype == torch.bfloat16 and vec.dtype == torch.float32
-    want = _expected(nerf)
+    want = _expected(nerf, k3.xw)
     fwd, bwd = k3.plan
     # the walk the producer takes: layer 0 on x, layer i on [h, x] where it
     # takes x, feature, views; then the backward chain's transposes
@@ -96,7 +103,7 @@ def test_weight_streams_untile_to_every_matrix(shape):
     P = k3.params
     p = {n: v.detach() for n, v in nerf.named_parameters()}
     for i in range(depth):
-        torch.testing.assert_close(vec[P.b[i]:P.b[i] + W], p[f"pts.{i}.b"], rtol=0, atol=0)
+        torch.testing.assert_close(vec[k3.b[i]:k3.b[i] + W], p[f"pts.{i}.b"], rtol=0, atol=0)
     for off, name, n in ((P.bf, "feature.b", W), (P.bv, "views.0.b", W // 2),
                          (P.brgb, "rgb.b", 3), (P.ba, "alpha.b", 1)):
         assert off % 4 == 0
@@ -144,23 +151,22 @@ def _run_table(k3, N, acts):
             idx_a = torch.from_numpy(swizzle128(64)).reshape(-1)
             A = scr[d.a + t[:, None] * d.a_stride + g * 4096 + idx_a[None, :]].view(T, 64, 64)
             part = torch.einsum("tfr,tmr->fm", A.double(), B.double())
-            for r in range(64):
-                k = d.k0 + 64 * g + r
-                if d.k_lo <= k < d.k_hi:
-                    at = d.dst + (k - d.k_lo) * d.ldo
-                    gbuf[at:at + d.m_valid] = part[r, :d.m_valid]
-                    hits[at:at + d.m_valid] += 1
+            k = d.k0 + 64 * g + torch.arange(64)
+            r = torch.nonzero((k >= d.k_lo) & (k < d.k_hi)).flatten()
+            at = (d.dst + (k[r] - d.k_lo) * d.ldo)[:, None] + torch.arange(d.m_valid)[None, :]
+            gbuf[at.flatten()] = part[r, :d.m_valid].flatten()
+            hits.index_add_(0, at.flatten(), torch.ones(at.numel(), dtype=torch.int64))
     return gbuf, hits
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("N", [200, 128])
 def test_dw_table_covers_every_leaf_once(shape, N):
-    depth, skips, *width = SHAPES[shape]
-    nerf = _nerf(depth, skips, seed=N, width=(width or [256])[0])
+    depth, skips, *rest = SHAPES[shape]
+    nerf = _nerf(depth, skips, N, *rest)
     k3 = nt.NerfTrainKernel(nerf)
     rng = np.random.default_rng(N)
-    x = torch.from_numpy(rng.uniform(-1, 1, (N, 90)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(-1, 1, (N, k3.n_in)).astype(np.float32))
     g = torch.from_numpy(rng.standard_normal((N, 4)).astype(np.float32))
     with torch.no_grad():
         _, grads, acts = k3_replay(k3, nerf, x, g)
@@ -197,3 +203,23 @@ def test_dw_table_shape_at_the_train_step():
     assert sum(t.nslab for t in tiles) == 1 + 7 * 4 + 1 + 4 + 4 + 2  # 64-row slabs
     assert math.ceil(k3.tiles(N) / nt.DW_SLICE_TILES) == 32
     assert k3.scratch_layout(N)[""][0] * 2 == 5_234_491_392
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_layer_offsets_are_the_kernels_strides(shape):
+    """The fused kernels compute a trunk layer's offsets from the first
+    layer's (csrc/nerf_train.cu, lt_*): its bias and bias-partial columns
+    l widths further, its output's and its cotangent's scratch regions l
+    times K3Params::s_step further; layer l takes x where bit l - 1 of
+    K3Params::skip_bits is set."""
+    depth, skips, *rest = SHAPES[shape]
+    k3 = nt.NerfTrainKernel(_nerf(depth, skips, 0, *rest))
+    N, W = 1000, k3.width
+    lay = k3.scratch_layout(N)
+    step = k3.tiles(N) * 64 * W
+    for i in range(depth):
+        assert k3.b[i] == k3.bp[i] == i * W
+        assert lay[f"h.{i}"][0] == lay["h.0"][0] + i * step
+        assert lay[f"g.{i}"][0] == lay["g.0"][0] + i * step
+    assert k3.skip == [int(i > 0 and (i - 1) in skips) for i in range(depth)]
+    assert k3.params.skip_bits == sum(1 << s for s in skips)

@@ -195,19 +195,18 @@ def _max_depth(text):
     return out
 
 
-@pytest.mark.parametrize("case", ["MaxDepth normalization", "width 640"])
+@pytest.mark.parametrize("case", ["MaxDepth normalization", "150 encoded input columns"])
 def test_an_export_k1_refuses_renders_through_the_plain_path_as_jax_does(tmp_path, capsys, case):
     """Without --megakernel, an adaptive export of at most 16 samples that
     K1 does not take renders on the plain path, and says why, within 2e-4
-    of the JAX viewer's plain frame (fp32): a MaxDepth normalization, which
-    the kernels do not implement (nor do JAX's), and MLPs 640 wide, which
-    the JAX kernels take and the port's do not yet. With --megakernel it
-    raises: the normalization as JAX's kernel does, the width naming its
-    ROADMAP item."""
+    of the JAX viewer's plain frame (fp32): a MaxDepth normalization, and a
+    NeRF of 150 encoded input columns (posEncArgs 20-4), neither of which
+    the kernels take, nor do JAX's. With --megakernel it raises (K1 naming
+    the JAX line that refuses the same)."""
     from torch_wide_export import write_wide_export
-    if case == "width 640":
-        export = write_wide_export(tmp_path / "export", 640, 640, depth=(3, 3))
-        refusal = "width 640.*ROADMAP Queue 2, K1/K2 widths above 512"
+    if case == "150 encoded input columns":
+        export = write_wide_export(tmp_path / "export", 256, 256, depth=(3, 3), nerf_pos=20)
+        refusal = "encoded inputs wider than 128 columns.*megakernel.py:246"
     else:
         export = write_wide_export(tmp_path / "export", 256, 256, config_edit=_max_depth)
         refusal = "rayMarchNormalization.*'MaxDepth'"
@@ -232,3 +231,17 @@ def test_an_export_k1_refuses_renders_through_the_plain_path_as_jax_does(tmp_pat
         with pytest.raises(ValueError, match=refusal):
             tviewer.main([export, "-s", "8", "8", "-n", "1", "--device", "cpu",
                           "--megakernel", variant])
+
+
+@pytest.mark.parametrize("width,depth", [(640, (3, 3)), ((256, 640), (3, 3)), (1024, (2, 3)),
+                                         ((96, 200), (3, 3)), (256, (20, 20))])
+def test_wide_mixed_and_deep_exports_take_k1(tmp_path, capsys, width, depth):
+    """MLPs wider than 512, an oracle and a NeRF of different widths (also
+    not multiples of 128) and 20 layers each: the viewer's default route
+    takes K1 (here its plain version, on the CPU), as the JAX viewer's
+    --megakernel takes them."""
+    from torch_wide_export import write_wide_export
+    export = write_wide_export(tmp_path / "export", width, 7, depth=depth)
+    stats = tviewer.main([export, "-s", "8", "8", "-n", "1", "--device", "cpu"])
+    assert stats["route"].startswith("K1 (MegakernelCompact")
+    assert "rendering through K1" in capsys.readouterr().out
