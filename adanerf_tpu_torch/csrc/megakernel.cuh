@@ -12,11 +12,12 @@
 // mlp_wgmma.cuh. Ray setup, the encode, the select, the sample coordinates
 // and the alpha and rgb heads are device functions that both share.
 //
-// A library is built for one MLP width W (mlp_tile.cuh's MLP_WIDTH: 128,
-// 256, 384 or 512), the views layer W / 2. The front runs the oracle and the
-// shade the NeRF, so an oracle and a NeRF of different widths take the front
-// of the oracle's library and the shade of the NeRF's (MkParams::from_stage,
-// stages); an MLP wider than 512 takes the wide path (wide.cu) for its half.
+// A library is built for one MLP width W (mlp_tile.cuh's MLP_WIDTH: 128 or
+// 256), the views layer W / 2. The front runs the oracle and the shade the
+// NeRF, so an oracle and a NeRF of different widths take the front of the
+// oracle's library and the shade of the NeRF's (MkParams::from_stage,
+// stages); an MLP of any other width takes the wide path (wide.cu) for its
+// half, which measured faster at 384 and 512 than these kernels did there.
 // Depth has no cap: a layer's bias sits at a fixed stride from the first
 // (the packer writes them in order), and the kernels read each layer's
 // weight offsets from a table on the device (MkParams::lt); a NeRF trunk's
@@ -495,33 +496,25 @@ mk_shade(const MkParams P, const T* __restrict__ wts, const float* __restrict__ 
 // tile and does all the per-row work of its rows (ray setup or sample
 // coordinates, encode, select or heads) between its layers, under barriers
 // of its own. A layer's output is written over the tile's activations h
-// once every wgmma of the layer has completed (a 384- or 512-column layer,
-// two wgmma passes, parks its first pass in registers until then:
-// mlp_wgmma.cuh's tc_passes); the oracle's 64 x 128 fp32 logits reuse h
-// too. Shared memory, from its 1024-byte aligned base: the stage ring,
-// MK_XB x buffers and h of each consumer, then TcSmall, at most 232,448
-// bytes at every width: a 3-stage ring and two x buffers up to W = 256,
-// one x buffer at 384 and also a 2-stage ring at 512. With two x buffers
-// the shade encodes the next tile into its other x buffer while the
-// current tile's layers run, each thread pair holding its row's
-// coordinates in registers; with one it encodes a tile before its layers.
-// The front, whose x is free once layer 0 is done, encodes the next tile
-// into its one x buffer under layers 1.. at every width.
+// once every wgmma of the layer has completed; the oracle's 64 x 128 fp32
+// logits reuse h too. Shared memory, from its 1024-byte aligned base: the
+// 3-stage ring, two x buffers and h of each consumer, then TcSmall. The
+// shade encodes the next tile into its other x buffer while the current
+// tile's layers run, each thread pair holding its row's coordinates in
+// registers. The front, whose x is free once layer 0 is done, encodes the
+// next tile into its one x buffer under layers 1.. .
 
 constexpr int TC_THREADS = 384;
 constexpr int TC_TILE = 2 * TC_ROWS;           // rows per block tile
-constexpr int MK_STAGES = W <= 384 ? TC_STAGES : 2;
-constexpr int MK_XB = W <= 256 ? 2 : 1;
-using MkRing = RingN<MK_STAGES>;
 constexpr int TC_X_BYTES = TC_ROWS * 128 * 2;  // encoded input, at most 128 columns
 // activations; or 64 x 128 fp32 logits
 constexpr int TC_H_BYTES = W * 2 > 128 * 4 ? TC_ROWS * W * 2 : TC_ROWS * 128 * 4;
-constexpr int TC_OFF_X = MK_STAGES * TC_STAGE_BYTES;
-constexpr int TC_OFF_H = TC_OFF_X + 2 * MK_XB * TC_X_BYTES;
+constexpr int TC_OFF_X = TC_STAGES * TC_STAGE_BYTES;
+constexpr int TC_OFF_H = TC_OFF_X + 2 * 2 * TC_X_BYTES;
 constexpr int TC_OFF_SMALL = TC_OFF_H + 2 * TC_H_BYTES;
 
 struct TcSmall {
-  unsigned long long full[MK_STAGES], empty[MK_STAGES];
+  unsigned long long full[TC_STAGES], empty[TC_STAGES];
   float alpha[TC_TILE];
   int cnt[TC_TILE], off[TC_TILE], base[2];
 };
@@ -530,31 +523,22 @@ constexpr size_t TC_SMEM_BYTES = TC_OFF_SMALL + sizeof(TcSmall);
 static_assert(TC_SMEM_BYTES <= 232448 && SMEM_BYTES <= 232448, "a block's shared memory");
 
 // h = round_bf16(relu?(A @ W + bias)) for an N-column layer over the ring's
-// next chunks (A = [a0 | a1], kc0 + kc1 chunks a pass). IN_PLACE: A reads
-// h, so h is written once every warp's wgmmas of the layer are done, and a
-// 384- or 512-column layer parks its first pass's output in registers
-// until then.
+// next kc0 + kc1 chunks (A = [a0 | a1]). IN_PLACE: A reads h, so h is
+// written once every warp's wgmmas of the layer are done.
 template <int N, bool IN_PLACE, class Side>
-__device__ __forceinline__ void tc_hidden(MkRing& ring, uint32_t a0, int kc0, uint32_t a1,
-                                          int kc1, Side side, const float* bias, bool relu,
-                                          uint8_t* h, int bar) {
-  uint32_t park[64];  // used where N > 256
-  tc_passes<N>(ring, a0, kc0, a1, kc1, side, [&](auto c0, auto& acc) {
-    constexpr int C0 = decltype(c0)::value, NP = acc_cols<decltype(acc)>;
-    if constexpr (IN_PLACE && C0 + NP < N) {
-      tc_pack_bf16<NP>(acc, bias + C0, relu, park);
-    } else {
-      if constexpr (IN_PLACE) wg_sync(bar);  // every warp's wgmma has read h
-      tc_store_bf16<NP>(acc, bias + C0, relu, h + (C0 / 64) * TC_BLOCK_BYTES);
-      if constexpr (IN_PLACE && C0 > 0) tc_put_packed<256>(park, h);
-    }
-  });
+__device__ __forceinline__ void tc_hidden(Ring& ring, uint32_t a0, int kc0, uint32_t a1, int kc1,
+                                          Side side, const float* bias, bool relu, uint8_t* h,
+                                          int bar) {
+  float acc[N / 2];
+  tc_layer<N>(ring, acc, a0, kc0, a1, kc1, side);
+  if constexpr (IN_PLACE) wg_sync(bar);  // every warp's wgmma has read h
+  tc_store_bf16<N>(acc, bias, relu, h);
 }
 
 // Weight layer l of a kernel's stream: kc0 chunks multiply the first input
 // (the encoded x for layer 0, else the tile's activations h), kc1 chunks the
 // encoded input x (a NeRF skip layer, the views layer), and n output
-// columns (a layer wider than 256 comes pass by pass: tc_passes). The front
+// columns. The front
 // walks the oracle (depth0 layers, the last 128 wide); the shade walks the
 // NeRF trunk (depth1 layers), the feature layer and the views layer (VW
 // wide). megakernel_compact.py packs the stream in this order (stream_plan
@@ -578,7 +562,7 @@ __device__ __forceinline__ int tc_layers(const MkParams& P, bool front) {
 }
 
 // The producer: one thread walks the stream once per tile the block owns,
-// keeping up to MK_STAGES chunks in flight.
+// keeping up to TC_STAGES chunks in flight.
 __device__ void tc_produce(const MkParams& P, bool front, const __nv_bfloat16* stream,
                            int ntiles, uint32_t full, uint32_t empty, uint32_t buf) {
   int stage = 0;
@@ -588,14 +572,12 @@ __device__ void tc_produce(const MkParams& P, bool front, const __nv_bfloat16* s
     for (int l = 0; l < tc_layers(P, front); ++l) {
       int kc0, kc1, n;
       tc_plan(P, front, l, kc0, kc1, n);
-      for (int c0 = 0; c0 < n; c0 += 256) {
-        const uint32_t bytes = (n - c0 < 256 ? n - c0 : 256) * TC_KC * 2;
-        for (int c = 0; c < kc0 + kc1; ++c) {
-          mbar_wait(empty + 8 * stage, phase ^ 1);
-          bulk_load(buf + stage * TC_STAGE_BYTES, src, bytes, full + 8 * stage);
-          src += bytes;
-          if (++stage == MK_STAGES) { stage = 0; phase ^= 1; }
-        }
+      const uint32_t bytes = n * TC_KC * 2;
+      for (int c = 0; c < kc0 + kc1; ++c) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        bulk_load(buf + stage * TC_STAGE_BYTES, src, bytes, full + 8 * stage);
+        src += bytes;
+        if (++stage == TC_STAGES) { stage = 0; phase ^= 1; }
       }
     }
   }
@@ -607,16 +589,16 @@ __device__ void tc_produce(const MkParams& P, bool front, const __nv_bfloat16* s
 struct TcBlock {
   uint8_t* sm;
   TcSmall* small;
-  MkRing ring;
+  Ring ring;
 
   __device__ __forceinline__ bool start(float4* smem4, const MkParams& P, bool front,
                                         const __nv_bfloat16* stream, int ntiles) {
     sm = reinterpret_cast<uint8_t*>(smem4);
     if (smem_u32(sm) & 1023) __trap();  // the swizzle needs 1024-byte aligned tiles
     small = reinterpret_cast<TcSmall*>(sm + TC_OFF_SMALL);
-    ring = MkRing{smem_u32(small->full), smem_u32(small->empty), smem_u32(sm), 0, 0};
+    ring = Ring{smem_u32(small->full), smem_u32(small->empty), smem_u32(sm), 0, 0};
     if (threadIdx.x == 0) {
-      for (int i = 0; i < MK_STAGES; ++i) {
+      for (int i = 0; i < TC_STAGES; ++i) {
         mbar_init(ring.full + 8 * i, 1);
         mbar_init(ring.empty + 8 * i, TC_CONSUMER_WARPS);
       }
@@ -633,7 +615,7 @@ struct TcBlock {
   }
   __device__ __forceinline__ int g() const { return (threadIdx.x >> 7) - 1; }
   __device__ __forceinline__ uint8_t* x(int b) const {
-    return sm + TC_OFF_X + (MK_XB * g() + (MK_XB == 2 ? b : 0)) * TC_X_BYTES;
+    return sm + TC_OFF_X + (2 * g() + b) * TC_X_BYTES;
   }
   __device__ __forceinline__ uint8_t* h() const { return sm + TC_OFF_H + g() * TC_H_BYTES; }
 };
@@ -755,21 +737,17 @@ mk_shade_tc(const MkParams P, const __nv_bfloat16* __restrict__ wts,
       encode_row_bf16(cr, xn, tl / 2, P.in1, P.fp1, P.fd1, tl & 1, slot - 1, PARTS);
     }
   };
-  if (MK_XB == 2 && blockIdx.x < ntiles)
+  if (blockIdx.x < ntiles)
     for (int slot = 0; slot <= PARTS; ++slot) prep(blockIdx.x, blk.x(0), slot);
 
   int b = 0;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, b ^= 1) {
     const int j0 = tile * TC_TILE + g * TC_ROWS, next = tile + gridDim.x;
     const uint32_t xa = smem_u32(blk.x(b));
-    if constexpr (MK_XB == 1)  // the previous tile's views layer is done with x
-      for (int slot = 0; slot <= PARTS; ++slot) prep(tile, blk.x(0), slot);
     int slot = 0;
     auto side = [&](int) {
-      if constexpr (MK_XB == 2) {
-        if (next < ntiles) prep(next, blk.x(b ^ 1), slot);
-        ++slot;
-      }
+      if (next < ntiles) prep(next, blk.x(b ^ 1), slot);
+      ++slot;
     };
     fence_async_smem();
     wg_sync(bar);  // x(b) is encoded; the previous tile's readers of h are done
@@ -782,15 +760,14 @@ mk_shade_tc(const MkParams P, const __nv_bfloat16* __restrict__ wts,
       tc_hidden<W, true>(blk.ring, ha, W / TC_KC, xa, n_skip(P, l) ? kx : 0, side, bias + n_b(P, l),
                          true, h, bar);
     }
-    if constexpr (MK_XB == 2)
-      while (slot <= PARTS) side(0);  // a shallow NeRF leaves parts over
+    while (slot <= PARTS) side(0);  // a shallow NeRF leaves parts over
     fence_async_smem();
     wg_sync(bar);
     // feature = h @ wf + bf (no activation); the alpha head reads the trunk
     // output while the feature layer's wgmmas run, its share of a warp's
     // rows under each of the layer's CF chunks, before the epilogue
     // overwrites h
-    constexpr int CF = (W / TC_KC) * ((W + 255) / 256), RQ = TC_ROWS / 4;
+    constexpr int CF = W / TC_KC, RQ = TC_ROWS / 4;
     tc_hidden<W, true>(blk.ring, ha, W / TC_KC, 0, 0, [&](int c) {
       for (int r = RQ * c / CF; r < RQ * (c + 1) / CF; ++r) {
         const int row = wq * RQ + r;

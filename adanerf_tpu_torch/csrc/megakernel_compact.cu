@@ -38,15 +38,11 @@
 // x 8-column register tile with fp32 FMAs. They are the exact reference.
 //
 // Widths: the numbers above are the 8x256 MLPs of the shipped configs. The
-// library is built once per MLP width (MLP_WIDTH: 128, 256, 384, 512; the
-// views layer half of it); the front runs in the library of the oracle's
-// width and the shade in the NeRF's (MkParams::from_stage, stages), and an
-// MLP wider than 512 takes the wide path (wide.cu) for its half. At 384 and 512 a
-// layer's wgmma runs in two passes of at most 256 columns (the first
-// pass's output parked in registers until the second has read h), each
-// consumer has one x buffer (the shade encodes a tile before its layers),
-// a 512-wide block a 2-stage ring, and the fp32 kernels 32-row tiles, so
-// every block fits its shared memory (megakernel.cuh).
+// library is built once per MLP width (MLP_WIDTH: 128 or 256; the views
+// layer half of it); the front runs in the library of the oracle's width
+// and the shade in the NeRF's (MkParams::from_stage, stages), and an MLP
+// of any other width takes the wide path (wide.cu) for its half (at 384
+// and 512 it measured faster than two wgmma passes a layer here).
 //
 // The kernels live in megakernel.cuh, shared with K2 (megakernel_dense.cu),
 // and are instantiated here with DENSE = false. Three launches on the

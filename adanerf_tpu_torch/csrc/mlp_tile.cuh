@@ -4,9 +4,7 @@
 // KC-row chunks while every thread accumulates an RW-row x 4 NV-column
 // register tile with fp32 FMAs. Included by megakernel.cuh: the fp32
 // kernels of K1 and K2. The MLPs' hidden width W is the macro MLP_WIDTH
-// (128, 256, 384 or 512; one library per width): at 384 and 512 a block
-// owns 32 rows, so that its two fp32 activation buffers fit in shared
-// memory.
+// (128 or 256; one library per width).
 
 #pragma once
 
@@ -20,8 +18,8 @@ namespace {
 #define MLP_WIDTH 256
 #endif
 constexpr int W = MLP_WIDTH;         // hidden width of the MLPs
-static_assert(W == 128 || W == 256 || W == 384 || W == 512, "MLP widths: 128 to 512 step 128");
-constexpr int R = W <= 256 ? 64 : 32;  // rows (rays or samples) per block tile
+static_assert(W == 128 || W == 256, "MLP widths of the fused libraries: 128 and 256");
+constexpr int R = 64;      // rows (rays or samples) per block tile
 constexpr int NT = 256;    // threads per block: 8 warps x RW rows each
 constexpr int RW = R / 8;  // rows per warp
 constexpr int KC = 32;     // weight rows staged in shared memory per chunk

@@ -5,9 +5,10 @@
 // that brings each layer's weights, chunk after chunk, by bulk async copy
 // into a ring of shared-memory stages guarded by mbarriers.
 //
-// A layer's N output columns are at most 256 a wgmma; a wider layer (384,
-// 512) runs in passes over the same A operand (tc_passes), the weight
-// chunks of a pass at most 256 columns, the unit of the stage ring.
+// A layer's N output columns are at most 256, one wgmma (the fused
+// libraries' widths, 128 and 256; wider layers run on the wide path,
+// wide.cu, which reads its weight streams pass by pass, 256 columns a
+// pass).
 //
 // A block runs one producer warpgroup (one thread issues the copies) and
 // two consumer warpgroups. Each consumer owns a 64-row tile (the wgmma M)
@@ -29,7 +30,6 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 namespace {
 
@@ -96,6 +96,23 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 // Barrier over one consumer warpgroup (ids 1 and 2; 0 is __syncthreads).
 __device__ __forceinline__ void wg_sync(int id) {
   asm volatile("bar.sync %0, 128;" :: "r"(id) : "memory");
+}
+
+// A copy of v the compiler cannot see through: the addresses an epilogue
+// derives from it are computed where they are used, rather than shared by
+// every inlined epilogue and kept live (spilled) across the kernel.
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+template <class T>
+__device__ __forceinline__ T* opaque(T* v) {
+  asm volatile("" : "+l"(v));
+  return v;
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" :: "r"(addr), "r"(v) : "memory");
 }
 
 // Generic-proxy writes to shared memory become visible to wgmma.
@@ -318,33 +335,6 @@ __device__ __forceinline__ void tc_layer(Rg& ring, float (&acc)[N / 2], uint32_t
   tc_layer<N>(ring, acc, a0, kc0, a1, kc1, [](int) {});
 }
 
-// A layer of N output columns, N = k x 64 up to 512. wgmma takes N up to
-// 256, so a wider layer (384, 512) runs in passes over the same A operand:
-// pass p takes columns [256 p, min(N, 256 p + 256)) and is one tc_layer
-// over the ring's next kc0 + kc1 chunks (the packers write a layer's chunks
-// pass by pass), then epi(c0, acc): c0 a std::integral_constant of the
-// pass's first column, acc its accumulator (64 x the pass's width). side(c)
-// runs under the layer's chunk c, counted over all passes. Each pass's
-// accumulator lives only in its pass; an epilogue that must not yet write
-// over A (a layer computed in place) parks the pass's packed output in
-// registers (tc_pack_bf16, tc_put_packed) until the last pass is done.
-template <int N, int C0 = 0, class Rg, class Side, class Epi>
-__device__ __forceinline__ void tc_passes(Rg& ring, uint32_t a0, int kc0, uint32_t a1, int kc1,
-                                          Side side, Epi epi) {
-  constexpr int NP = N - C0 < 256 ? N - C0 : 256;
-  {
-    float acc[NP / 2];
-    const int base = (C0 / 256) * (kc0 + kc1);
-    tc_layer<NP>(ring, acc, a0, kc0, a1, kc1, [&](int c) { side(base + c); });
-    epi(std::integral_constant<int, C0>{}, acc);
-  }
-  if constexpr (C0 + 256 < N) tc_passes<N, C0 + 256>(ring, a0, kc0, a1, kc1, side, epi);
-}
-
-// Columns of a pass's accumulator (the type of its epilogue's acc argument).
-template <class Acc>
-constexpr int acc_cols = 2 * static_cast<int>(std::extent<std::remove_reference_t<Acc>>::value);
-
 // Accumulator element e of this thread: row and column in the 64 x N tile.
 // Thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and
 // columns 8 j + 2 (t % 4) (+ 1) for j < N / 8.
@@ -366,39 +356,6 @@ __device__ __forceinline__ void tc_store_bf16(const float (&acc)[N / 2], const f
       *reinterpret_cast<__nv_bfloat162*>(out + sw128(r0 + 8 * i, c)) = __floats2bfloat162_rn(v0, v1);
     }
   }
-}
-
-// The values tc_store_bf16 would write, packed (two bf16 a register) into
-// pk[2 j + i] for the element pair (row r0 + 8 i, columns 8 j + 2 p, + 1),
-// to be written later by tc_put_packed.
-template <int N>
-__device__ __forceinline__ void tc_pack_bf16(const float (&acc)[N / 2], const float* bias,
-                                             bool relu, uint32_t (&pk)[N / 4]) {
-  const int l = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    const int c = j * 8 + 2 * (l & 3);
-    const float2 b = *reinterpret_cast<const float2*>(bias + c);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float v0 = acc[j * 4 + 2 * i] + b.x, v1 = acc[j * 4 + 2 * i + 1] + b.y;
-      if (relu) { v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); }
-      const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
-      pk[2 * j + i] = static_cast<uint32_t>(__bfloat16_as_ushort(v.x)) |
-                      (static_cast<uint32_t>(__bfloat16_as_ushort(v.y)) << 16);
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void tc_put_packed(const uint32_t (&pk)[N / 4], uint8_t* out) {
-  const int t = threadIdx.x & 127, l = t & 31;
-  const int r0 = (t >> 5) * 16 + (l >> 2);
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<uint32_t*>(out + sw128(r0 + 8 * i, j * 8 + 2 * (l & 3))) = pk[2 * j + i];
 }
 
 // out (64 x 128 fp32, row-major) = acc + bias: the oracle's raw logits.

@@ -13,13 +13,14 @@
 // gradients are fp32 sums of unrounded values, and a cotangent is masked by
 // its layer's relu, summed for the bias, then rounded. x (N, n_in) ->
 // [rgb, alpha] (N, 4); the backward gives dW and db for every NeRF leaf and
-// dX. The hidden width HW is the macro K3_WIDTH, 128, 256, 384 or 512 (one
-// library per width; the views layer is HW / 2 wide, as NeRFDef's), with at
-// most 128 input columns and 65 trunk layers (a layer's offsets are
-// strides from the first layer's, its skip input a bit of a kernel
-// parameter). A NeRF wider than 512, deeper, or with more input
-// columns takes the wide path (wide.cu), which ends in this library's
-// k3_dw and k3_reduce (k3_weight_grads).
+// dX. The hidden width HW is the macro K3_WIDTH, 128 or 256 (one library
+// per width; the views layer is HW / 2 wide, as NeRFDef's), with at most
+// 128 input columns and 65 trunk layers (a layer's offsets are strides
+// from the first layer's, its skip input a bit of a kernel parameter). A
+// NeRF of another width, deeper, or with more input columns takes the wide
+// path (wide.cu), which ends in this library's k3_dw and k3_reduce
+// (k3_weight_grads); at 384 and 512 the wide path measured faster than
+// these kernels did there.
 //
 // What bounds it: arithmetic (at 256, 593,408 multiply-adds a row forward,
 // about three times that backward), and in the backward the bf16 scratch
@@ -57,26 +58,15 @@
 //                partials over the consumers, in a fixed order: no float
 //                atomics, so two backward calls give the same bits.
 //
-// Widths above 256. wgmma's N is at most 256, so every product of 384 or
-// 512 columns runs as two passes over the same A operand
-// (mlp_wgmma.cuh::tc_passes), each with its own epilogue. A layer is
-// computed in place (its output overwrites h, its input), so the first
-// pass's bf16 output waits in 64 registers a thread (put_act's PK; a
-// cotangent's in put_cot) until the second pass has read h; the scratch,
-// the relu signs and the bias partials of each pass are written at once.
 // Shared memory, of the 232,448 bytes a block may take (a stage is 32 KB,
 // an x buffer 16 KB, h 64 x HW bf16 per consumer):
 //   width   k3_fwd / k3_recompute                    k3_chain
 //   128     3 stages + 4 x + 2 h (16 KB) = 196,608   3 stages + 2 h = 131,072
 //   256     3 stages + 4 x + 2 h (32 KB) = 229,376   3 stages + 2 h = 163,840
-//   384     3 stages + 2 x + 2 h (48 KB) = 229,376   3 stages + 2 h = 196,608
-//   512     2 stages + 2 x + 2 h (64 KB) = 229,376   2 stages + 2 h = 196,608
 // plus the small part (barriers, the alpha outputs and cotangents, and in
-// the chain the column sums, 32 x HW bytes). At 384 and 512 each consumer
-// has one x buffer: the next tile's x loads after the views layer instead
-// of under the trunk; at 512 the ring keeps two chunks in flight. The
-// weight-gradient GEMMs take output tiles of at most 256 columns (a wider
-// gradient is two tiles), so k3_dw is the same at every width.
+// the chain the column sums, 32 x HW bytes). The weight-gradient GEMMs
+// take output tiles of at most 256 columns (a wider gradient, the wide
+// path's, is two tiles).
 //
 // The scratch layout (mirrored by nerf_train.py's tile_rows): a matrix of N
 // rows and F features is stored per 64-row tile as F / 64 blocks of 64
@@ -96,7 +86,7 @@ typedef __nv_bfloat16 bf16;
 #define K3_WIDTH 256
 #endif
 constexpr int HW = K3_WIDTH;          // hidden width: one library per width
-static_assert(HW == 128 || HW == 256 || HW == 384 || HW == 512, "K3 widths: 128 to 512 step 128");
+static_assert(HW == 128 || HW == 256, "K3 widths of the fused libraries: 128 and 256");
 constexpr int VW = HW / 2;            // views layer width
 constexpr int XW = 128;               // x columns, padded: two 64-column blocks
 constexpr int KH = HW / TC_KC, KV = VW / TC_KC, KX = XW / TC_KC;  // chunks per A operand
@@ -106,34 +96,27 @@ constexpr int BLK = 64 * 64;          // elements of one 64-feature x 64-row scr
 constexpr int WPT = HW / 64;          // relu-sign words of a thread per layer of a tile
 constexpr int MASK_WORDS = 128 * WPT; // relu-sign words of one layer of one 64-row tile
 constexpr int NA = (HW + 255) / 256;  // alpha.w gradient column pairs per thread
-// the shared-memory layout that fits 232,448 bytes at each width: a 3-stage
-// weight ring and two x buffers per consumer up to 256, one x buffer (the
-// next tile's x loads after the views layer, not under the trunk) at 384,
-// and a 2-stage ring at 512
-constexpr int NSTAGE = HW <= 384 ? TC_STAGES : 2;
-constexpr int XB = HW <= 256 ? 2 : 1;
-using K3Ring = RingN<NSTAGE>;
 
 constexpr int X_BYTES = TC_ROWS * XW * 2;
 constexpr int H_BYTES = TC_ROWS * HW * 2;
 
-// k3_fwd and k3_recompute: stages, XB x buffers and h per consumer, then
+// k3_fwd and k3_recompute: stages, two x buffers and h per consumer, then
 // the small part
-constexpr int F_OFF_X = NSTAGE * TC_STAGE_BYTES;
-constexpr int F_OFF_H = F_OFF_X + 2 * XB * X_BYTES;
+constexpr int F_OFF_X = TC_STAGES * TC_STAGE_BYTES;
+constexpr int F_OFF_H = F_OFF_X + 2 * 2 * X_BYTES;
 constexpr int F_OFF_SMALL = F_OFF_H + 2 * H_BYTES;
 struct FwdSmall {
-  unsigned long long full[NSTAGE], empty[NSTAGE];
+  unsigned long long full[TC_STAGES], empty[TC_STAGES];
   float alpha[TILE];            // k3_fwd: the alpha head's output
   float4 gout[2][TC_ROWS];      // k3_recompute: each consumer's output cotangents
 };
 constexpr size_t F_SMEM = F_OFF_SMALL + sizeof(FwdSmall);
 
 // k3_chain: stages and h per consumer, then the small part
-constexpr int C_OFF_H = NSTAGE * TC_STAGE_BYTES;
+constexpr int C_OFF_H = TC_STAGES * TC_STAGE_BYTES;
 constexpr int C_OFF_SMALL = C_OFF_H + 2 * H_BYTES;
 struct ChainSmall {
-  unsigned long long full[NSTAGE], empty[NSTAGE];
+  unsigned long long full[TC_STAGES], empty[TC_STAGES];
   float cs[2][4][HW];           // per consumer: each warp's column sums
   float4 gout[2][TC_ROWS];      // per consumer: the tile's output cotangents
 };
@@ -257,29 +240,25 @@ __device__ __forceinline__ bool split_roles(uint8_t* sm, unsigned long long* ful
 }
 
 // The producer of k3_fwd, k3_recompute and k3_chain: per block tile, a
-// weight stream in the order the consumers' tc_passes calls take it. The
+// weight stream in the order the consumers' layers take it. The
 // forward stream: trunk layer 0 on x, layer l on [h, x] where takes_x,
 // feature, views on [feature, x]. The backward stream: wv_d^T, wv_f^T,
 // wf^T, then from the trunk's last layer down wx_i^T where layer i takes x
-// and w_i^T, then w_0^T's x columns. A layer wider than 256 comes pass by
-// pass (tc_passes), each pass's chunks of every input. nerf_train.py::
-// stream_plan mirrors this walk.
+// and w_i^T, then w_0^T's x columns. nerf_train.py::stream_plan mirrors
+// this walk.
 __device__ void k3_produce(const K3Params& P, const bf16* stream, bool backward, int ntiles,
                            uint32_t full, uint32_t empty, uint32_t buf) {
   int stage = 0;
   uint32_t phase = 0;
   const char* src = nullptr;
-  auto walk = [&](int chunks, int n) {
+  auto layer = [&](int chunks, int n) {
     const uint32_t bytes = n * TC_KC * 2;
     for (int c = 0; c < chunks; ++c) {
       mbar_wait(empty + 8 * stage, phase ^ 1);
       bulk_load(buf + stage * TC_STAGE_BYTES, src, bytes, full + 8 * stage);
       src += bytes;
-      if (++stage == NSTAGE) { stage = 0; phase ^= 1; }
+      if (++stage == TC_STAGES) { stage = 0; phase ^= 1; }
     }
-  };
-  auto layer = [&](int chunks, int n) {
-    for (int c0 = 0; c0 < n; c0 += 256) walk(chunks, n - c0 < 256 ? n - c0 : 256);
   };
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     src = reinterpret_cast<const char*>(stream);
@@ -325,38 +304,18 @@ __device__ __forceinline__ void load_x(const K3Params& P, const float* __restric
   }
 }
 
-// A copy of v the compiler cannot see through: the addresses an epilogue
-// derives from it are computed where they are used, rather than shared by
-// every inlined epilogue and kept live (spilled) across the kernel.
-__device__ __forceinline__ uint32_t opaque(uint32_t v) {
-  asm volatile("" : "+r"(v));
-  return v;
-}
-template <class T>
-__device__ __forceinline__ T* opaque(T* v) {
-  asm volatile("" : "+l"(v));
-  return v;
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;" :: "r"(addr), "r"(v) : "memory");
-}
-
 // A forward layer's epilogue, shared by k3_fwd and the recompute:
 // h (64-row bf16 tile) = round_bf16(relu?(acc + bias)) (no bias where
 // bias is null: a cotangent's store). With TRAIN, also the rounded values
 // into the layer's scratch block st (transposed), and with BITS, bit e of
 // bits[e / 32] set where accumulator element e came out > 0 after
-// rounding: the relu signs the backward masks with. PK parks the values
-// for h in park[2 j + i] (tc_put_packed's order) instead of writing them:
-// the first pass of a layer computed in place.
-template <int N, bool TRAIN, bool BITS, bool PK = false>
+// rounding: the relu signs the backward masks with.
+template <int N, bool TRAIN, bool BITS>
 __device__ __forceinline__ void put_act(const float (&acc)[N / 2], const float* bias, bool relu,
-                                        uint8_t* h, bf16* st, uint32_t (&bits)[N / 64],
-                                        uint32_t* park = nullptr) {
+                                        uint8_t* h, bf16* st, uint32_t (&bits)[N / 64]) {
   const int t = threadIdx.x & 127, l = t & 31, w = t >> 5, q = l >> 2, p = l & 3;
   // element (row r0 + 8 i, column 8 j + 2 p) of h: sw128 with r0 % 8 == q
-  const uint32_t hb = PK ? 0u : opaque(smem_u32(h)) + (w * 16 + q) * 128 + 4 * p;
+  const uint32_t hb = opaque(smem_u32(h)) + (w * 16 + q) * 128 + 4 * p;
   // its transpose (feature 8 j + q, rows 16 w + 8 i + 2 p, + 1) in st:
   // tile_off, which is j * 512 past the element of j = 0
   bf16* sb[2];
@@ -376,8 +335,7 @@ __device__ __forceinline__ void put_act(const float (&acc)[N / 2], const float* 
       if (relu) { v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); }
       const __nv_bfloat162 pk = __floats2bfloat162_rn(v0, v1);
       const uint32_t u = as_u32(pk), lo = u & 0xffffu, hi = u >> 16;
-      if constexpr (PK) park[2 * j + i] = u;
-      else st_shared(hb + i * 8 * 128 + col, u);
+      st_shared(hb + i * 8 * 128 + col, u);
       if constexpr (TRAIN) {
         if constexpr (BITS) {
           const int e = (j & 7) * 4 + 2 * i;
@@ -426,39 +384,6 @@ __device__ __forceinline__ void get_words(const uint32_t* p, uint32_t (&w)[NW]) 
   }
 }
 
-// The words of bits from word K on, as the array a pass's epilogue takes.
-template <int NW, int K, int M>
-__device__ __forceinline__ uint32_t (&words_at(uint32_t (&bits)[M]))[NW] {
-  static_assert(K + NW <= M, "relu-sign words");
-  return *reinterpret_cast<uint32_t (*)[NW]>(bits + K);
-}
-
-// A forward layer of N columns over the ring's next chunks (A = [a0 | a1],
-// kc0 + kc1 chunks a pass) through put_act into h, its scratch block st
-// and its relu signs bits. IN_PLACE: A reads h (every layer but the
-// first), so h is written only once every warp's wgmmas of the layer are
-// done, and a 384- or 512-column layer parks its first pass's output in
-// registers until then.
-template <int N, bool TRAIN, bool BITS, bool IN_PLACE, class Side>
-__device__ __forceinline__ void fwd_layer(K3Ring& ring, uint32_t a0, int kc0, uint32_t a1,
-                                          int kc1, Side side, const float* bias, bool relu,
-                                          uint8_t* h, int bar, bf16* st,
-                                          uint32_t (&bits)[N / 64]) {
-  uint32_t park[64];  // used where N > 256
-  tc_passes<N>(ring, a0, kc0, a1, kc1, side, [&](auto c0, auto& acc) {
-    constexpr int C0 = decltype(c0)::value, NP = acc_cols<decltype(acc)>;
-    uint32_t (&pb)[NP / 64] = words_at<NP / 64, C0 / 64>(bits);
-    bf16* sp = TRAIN ? st + C0 * 64 : nullptr;
-    if constexpr (IN_PLACE && C0 + NP < N) {
-      put_act<NP, TRAIN, BITS, true>(acc, bias + C0, relu, h, sp, pb, park);
-    } else {
-      if constexpr (IN_PLACE) wg_sync(bar);  // every warp's wgmma has read h
-      put_act<NP, TRAIN, BITS>(acc, bias + C0, relu, h + (C0 / 64) * TC_BLOCK_BYTES, sp, pb);
-      if constexpr (IN_PLACE && C0 > 0) tc_put_packed<256>(park, h);
-    }
-  });
-}
-
 // The column sums of a 64 x N accumulator over this warp's 16 rows into
 // cs[warp][column]: per 4 column groups, a lane's two rows are added, then
 // lanes 16, 8 and 4 apart swap halves of what they hold and add, so each
@@ -493,14 +418,11 @@ __device__ __forceinline__ void col_sums(const float (&acc)[N / 2], float* cs) {
 // masked by the layer's relu signs (MASK), summed over the tile's rows into
 // this consumer's bias partial bp (first: its first tile), rounded to bf16
 // and written in place as the next product's A operand (h) and into the
-// scratch block st. Returns with h ready for wgmma. PK parks the values for
-// h instead (the first pass of a wider product); FLUSH also writes the
-// parked pass to hp (the second pass).
-template <int N, bool MASK, bool PK = false, bool FLUSH = false>
+// scratch block st. Returns with h ready for wgmma.
+template <int N, bool MASK>
 __device__ __forceinline__ void put_cot(float (&acc)[N / 2], const uint32_t (&bits)[N / 64],
                                         float* cs, float* bp, bool first, uint8_t* h, bf16* st,
-                                        int bar, uint32_t* park = nullptr,
-                                        uint8_t* hp = nullptr) {
+                                        int bar) {
   if constexpr (MASK) {
 #pragma unroll
     for (int e = 0; e < N / 2; ++e)
@@ -515,32 +437,21 @@ __device__ __forceinline__ void put_cot(float (&acc)[N / 2], const uint32_t (&bi
     bp[c] = first ? s : bp[c] + s;
   }
   uint32_t none[N / 64];
-  put_act<N, true, false, PK>(acc, nullptr, false, h, st, none, park);
-  if constexpr (FLUSH) {
-    uint32_t (&pk)[64] = *reinterpret_cast<uint32_t (*)[64]>(park);
-    tc_put_packed<256>(pk, hp);
-  }
+  put_act<N, true, false>(acc, nullptr, false, h, st, none);
   fence_async_smem();
   wg_sync(bar);
 }
 
-// A product of the chain with N output columns (A: h, kc chunks a pass) made
-// a cotangent: pre(c0, acc) adds what the pass takes besides the product,
-// then put_cot with the pass's relu signs, bias partial columns and scratch
-// columns; a 384- or 512-column product parks its first pass in registers.
+// A product of the chain with N output columns (A: h, kc chunks) made a
+// cotangent: pre(acc) adds what the product takes besides, then put_cot.
 template <int N, bool MASK, class Pre>
-__device__ __forceinline__ void cot_layer(K3Ring& ring, uint32_t ha, int kc,
+__device__ __forceinline__ void cot_layer(Ring& ring, uint32_t ha, int kc,
                                           uint32_t (&bits)[N / 64], float* cs, float* bp,
                                           bool first, uint8_t* h, bf16* st, int bar, Pre pre) {
-  uint32_t park[64];  // used where N > 256
-  tc_passes<N>(ring, ha, kc, 0, 0, [](int) {}, [&](auto c0, auto& acc) {
-    constexpr int C0 = decltype(c0)::value, NP = acc_cols<decltype(acc)>;
-    pre(c0, acc);
-    uint32_t (&pb)[NP / 64] = words_at<NP / 64, C0 / 64>(bits);
-    put_cot<NP, MASK, (C0 + NP < N), (C0 > 0)>(acc, pb, cs, bp + C0, first,
-                                               h + (C0 / 64) * TC_BLOCK_BYTES, st + C0 * 64, bar,
-                                               park, h);
-  });
+  float acc[N / 2];
+  tc_layer<N>(ring, acc, ha, kc, 0, 0);
+  pre(acc);
+  put_cot<N, MASK>(acc, bits, cs, bp, first, h, st, bar);
 }
 
 // dx rows of this consumer's tile (fp32, n_in columns) = (first ? 0 : dx) +
@@ -572,79 +483,51 @@ __device__ __forceinline__ void dx_add(const K3Params& P, const float (&acc)[64]
 // scratch block of tile ti (scr), the trunk's relu signs to masks (layer l
 // at l * MASK_WORDS) and the views layer's to hvbits.
 template <bool TRAIN, class SideT, class SideF>
-__device__ __forceinline__ void forward_tile(const K3Params& P, K3Ring& ring,
+__device__ __forceinline__ void forward_tile(const K3Params& P, Ring& ring,
                                              const float* __restrict__ vec, uint32_t xa,
                                              uint8_t* h, int bar, bf16* scr, long long ti,
                                              uint32_t* masks, uint32_t (&hvbits)[VW / 64],
                                              SideT side_t, SideF side_f) {
   const uint32_t ha = smem_u32(h);
   const long long oh = ti * HW * 64, ov = ti * VW * 64;
-  if constexpr (HW <= 256) {
-    // one pass a layer, every value that is not the accumulator dead while
-    // the wgmmas run: the consumers are compiled to 168 registers (the
-    // launch bound), and an accumulator of 128 leaves little room
-    float acc[HW / 2];
-    for (int l = 0; l < P.depth; ++l) {
-      if (l == 0) {
-        tc_layer<HW>(ring, acc, xa, KX, 0, 0);
-      } else {
-        fence_async_smem();
-        wg_sync(bar);
-        tc_layer<HW>(ring, acc, ha, KH, xa, takes_x(P, l) ? KX : 0, side_t);
-        wg_sync(bar);  // every warp's wgmma has read h
-      }
-      uint32_t bits[WPT] = {};
-      put_act<HW, TRAIN, TRAIN>(acc, vec + lt_b(P, l), true, h,
-                                TRAIN ? scr + lt_sh(P, l) + oh : nullptr, bits);
-      if constexpr (TRAIN) put_words(masks + l * MASK_WORDS, bits);
+  // one pass a layer, every value that is not the accumulator dead while
+  // the wgmmas run: the consumers are compiled to 168 registers (the
+  // launch bound), and an accumulator of 128 leaves little room
+  float acc[HW / 2];
+  for (int l = 0; l < P.depth; ++l) {
+    if (l == 0) {
+      tc_layer<HW>(ring, acc, xa, KX, 0, 0);
+    } else {
+      fence_async_smem();
+      wg_sync(bar);
+      tc_layer<HW>(ring, acc, ha, KH, xa, takes_x(P, l) ? KX : 0, side_t);
+      wg_sync(bar);  // every warp's wgmma has read h
     }
-    fence_async_smem();
-    wg_sync(bar);
-    // feature = h @ wf + bf, no activation
-    tc_layer<HW>(ring, acc, ha, KH, 0, 0, side_f);
-    wg_sync(bar);
-    uint32_t none[WPT];
-    put_act<HW, TRAIN, false>(acc, vec + P.bf, false, h, TRAIN ? scr + P.s_feat + oh : nullptr,
-                              none);
-    fence_async_smem();
-    wg_sync(bar);
-    // views = relu([feature, x] @ wv + bv), VW wide
-    float v[VW / 2];
-    tc_layer<VW>(ring, v, ha, KH, xa, KX);
-    wg_sync(bar);
-    put_act<VW, TRAIN, TRAIN>(v, vec + P.bv, true, h, TRAIN ? scr + P.s_hv + ov : nullptr, hvbits);
-  } else {  // two passes a trunk and feature layer (fwd_layer)
-    for (int l = 0; l < P.depth; ++l) {
-      uint32_t bits[WPT] = {};
-      bf16* st = TRAIN ? scr + lt_sh(P, l) + oh : nullptr;
-      if (l == 0) {
-        fwd_layer<HW, TRAIN, TRAIN, false>(ring, xa, KX, 0, 0, [](int) {}, vec + lt_b(P, l), true,
-                                           h, bar, st, bits);
-      } else {
-        fence_async_smem();
-        wg_sync(bar);
-        fwd_layer<HW, TRAIN, TRAIN, true>(ring, ha, KH, xa, takes_x(P, l) ? KX : 0, side_t,
-                                          vec + lt_b(P, l), true, h, bar, st, bits);
-      }
-      if constexpr (TRAIN) put_words(masks + l * MASK_WORDS, bits);
-    }
-    fence_async_smem();
-    wg_sync(bar);
-    // feature = h @ wf + bf, no activation
-    uint32_t none[WPT];
-    fwd_layer<HW, TRAIN, false, true>(ring, ha, KH, 0, 0, side_f, vec + P.bf, false, h, bar,
-                                      TRAIN ? scr + P.s_feat + oh : nullptr, none);
-    fence_async_smem();
-    wg_sync(bar);
-    // views = relu([feature, x] @ wv + bv), VW wide
-    fwd_layer<VW, TRAIN, TRAIN, true>(ring, ha, KH, xa, KX, [](int) {}, vec + P.bv, true, h, bar,
-                                      TRAIN ? scr + P.s_hv + ov : nullptr, hvbits);
+    uint32_t bits[WPT] = {};
+    put_act<HW, TRAIN, TRAIN>(acc, vec + lt_b(P, l), true, h,
+                              TRAIN ? scr + lt_sh(P, l) + oh : nullptr, bits);
+    if constexpr (TRAIN) put_words(masks + l * MASK_WORDS, bits);
   }
+  fence_async_smem();
+  wg_sync(bar);
+  // feature = h @ wf + bf, no activation
+  tc_layer<HW>(ring, acc, ha, KH, 0, 0, side_f);
+  wg_sync(bar);
+  uint32_t none[WPT];
+  put_act<HW, TRAIN, false>(acc, vec + P.bf, false, h, TRAIN ? scr + P.s_feat + oh : nullptr,
+                            none);
+  fence_async_smem();
+  wg_sync(bar);
+  // views = relu([feature, x] @ wv + bv), VW wide
+  float v[VW / 2];
+  tc_layer<VW>(ring, v, ha, KH, xa, KX);
+  wg_sync(bar);
+  put_act<VW, TRAIN, TRAIN>(v, vec + P.bv, true, h, TRAIN ? scr + P.s_hv + ov : nullptr, hvbits);
 }
 
-// The feature layer's chunks: KH a pass. side_f(c) takes chunk c's share
+// The feature layer's chunks: KH. side_f(c) takes chunk c's share
 // [share<R>(c), share<R>(c + 1)) of R rows.
-constexpr int CF = KH * ((HW + 255) / 256);
+constexpr int CF = KH;
 template <int R>
 __device__ __forceinline__ int share(int c) {
   if constexpr (R % CF == 0) return (R / CF) * c;
@@ -670,14 +553,14 @@ __device__ __forceinline__ void forward_pass(const K3Params& P, const float* __r
   uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
   FwdSmall* small = reinterpret_cast<FwdSmall*>(sm + F_OFF_SMALL);
   const int ntiles = P.tiles / 2;
-  K3Ring ring{smem_u32(small->full), smem_u32(small->empty), smem_u32(sm), 0, 0};
-  if (!split_roles(sm, small->full, small->empty, NSTAGE, [&] {
+  Ring ring{smem_u32(small->full), smem_u32(small->empty), smem_u32(sm), 0, 0};
+  if (!split_roles(sm, small->full, small->empty, TC_STAGES, [&] {
         k3_produce(P, fstream, false, ntiles, ring.full, ring.empty, ring.buf);
       }))
     return;
   const int g = threadIdx.x >> 7, bar = 1 + g, tl = threadIdx.x & 127;
   const int lane = tl & 31, wq = tl >> 5;
-  uint8_t* xb[2] = {sm + F_OFF_X + XB * g * X_BYTES, sm + F_OFF_X + (XB * g + XB - 1) * X_BYTES};
+  uint8_t* xb[2] = {sm + F_OFF_X + 2 * g * X_BYTES, sm + F_OFF_X + (2 * g + 1) * X_BYTES};
   uint8_t* h = sm + F_OFF_H + g * H_BYTES;
   float* alpha_s = small->alpha + g * TC_ROWS;
   float4* gr = small->gout[g];
@@ -694,21 +577,17 @@ __device__ __forceinline__ void forward_pass(const K3Params& P, const float* __r
     return TRAIN ? scr + P.s_x + (long long)(2 * tile + g) * XW * 64 : nullptr;
   };
 
-  if (XB == 2 && blockIdx.x < ntiles)
+  if (blockIdx.x < ntiles)
     load_x(P, x, xb[0], x_tile(blockIdx.x), blockIdx.x * TILE + g * TC_ROWS, 0, 8);
   int b = 0;
   bool first = true;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, b ^= 1) {
     const int row0 = tile * TILE + g * TC_ROWS, next = tile + gridDim.x;
-    if constexpr (XB == 1)  // the previous tile's views layer is done with x
-      load_x(P, x, xb[0], x_tile(tile), row0, 0, 8);
     int part = 0;  // the next tile's x, an 8-row part under each trunk chunk
     auto side_t = [&](int) {
-      if constexpr (XB == 2) {
-        if (part < 8 && next < ntiles)
-          load_x(P, x, xb[b ^ 1], x_tile(next), next * TILE + g * TC_ROWS, part, part + 1);
-        ++part;
-      }
+      if (part < 8 && next < ntiles)
+        load_x(P, x, xb[b ^ 1], x_tile(next), next * TILE + g * TC_ROWS, part, part + 1);
+      ++part;
     };
     // under the feature layer's wgmmas, chunk c: the alpha head (its share
     // of a warp's 16 rows) or alpha.w's gradient (of the 64 rows), from the
@@ -747,8 +626,7 @@ __device__ __forceinline__ void forward_pass(const K3Params& P, const float* __r
                          : nullptr;
     forward_tile<TRAIN>(P, ring, vec, smem_u32(xb[b]), h, bar, scr, 2 * tile + g, mk, hvb, side_t,
                         side_f);
-    if constexpr (XB == 2)
-      while (part < 8) side_t(0);  // a shallow trunk leaves parts over
+    while (part < 8) side_t(0);  // a shallow trunk leaves parts over
     wg_sync(bar);  // h holds the views output
     if constexpr (TRAIN) {
       put_words(mk + P.depth * MASK_WORDS, hvb);
@@ -844,8 +722,8 @@ k3_chain(const K3Params P, const float* __restrict__ gout, const bf16* __restric
   uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
   ChainSmall* small = reinterpret_cast<ChainSmall*>(sm + C_OFF_SMALL);
   const int ntiles = P.tiles / 2;
-  K3Ring ring{smem_u32(small->full), smem_u32(small->empty), smem_u32(sm), 0, 0};
-  if (!split_roles(sm, small->full, small->empty, NSTAGE, [&] {
+  Ring ring{smem_u32(small->full), smem_u32(small->empty), smem_u32(sm), 0, 0};
+  if (!split_roles(sm, small->full, small->empty, TC_STAGES, [&] {
         k3_produce(P, bstream, true, ntiles, ring.full, ring.empty, ring.buf);
       }))
     return;
@@ -895,7 +773,7 @@ k3_chain(const K3Params P, const float* __restrict__ gout, const bf16* __restric
       tc_layer<128>(ring, v, ha, KV, 0, 0);
       dx_add(P, v, dx, row0, true);
     }
-    auto nothing = [](auto, auto&) {};
+    auto nothing = [](auto&) {};
     {  // g_feat = g_hv @ wv_f^T (the feature layer has no relu)
       uint32_t none[WPT];
       cot_layer<HW, false>(ring, ha, KV, none, cs, bp + P.bp_f, first, h, scr + P.s_gfeat + oh,
@@ -906,11 +784,10 @@ k3_chain(const K3Params P, const float* __restrict__ gout, const bf16* __restric
       get_words(mk + (D - 1) * MASK_WORDS, bits);
       const float ga0 = bfr(gr[r0].w), ga1 = bfr(gr[r0 + 8].w);
       cot_layer<HW, true>(ring, ha, KH, bits, cs, bp + lt_bp(P, D - 1), first, h,
-                          scr + lt_sg(P, D - 1) + oh, bar, [&](auto c0, auto& acc) {
-        constexpr int C0 = decltype(c0)::value, NP = acc_cols<decltype(acc)>;
+                          scr + lt_sg(P, D - 1) + oh, bar, [&](auto& acc) {
 #pragma unroll
-        for (int j = 0; j < NP / 8; ++j) {
-          const float2 wa = *reinterpret_cast<const float2*>(vec + P.wa + C0 + 8 * j + 2 * p);
+        for (int j = 0; j < HW / 8; ++j) {
+          const float2 wa = *reinterpret_cast<const float2*>(vec + P.wa + 8 * j + 2 * p);
           acc[j * 4 + 0] = fmaf(ga0, wa.x, acc[j * 4 + 0]);
           acc[j * 4 + 1] = fmaf(ga0, wa.y, acc[j * 4 + 1]);
           acc[j * 4 + 2] = fmaf(ga1, wa.x, acc[j * 4 + 2]);

@@ -1,10 +1,11 @@
 // The wide path of K1, K2 and K3 for Hopper (sm_90a): the MLP layers one at
 // a time, each a hand-written GEMM with a fused epilogue, the activations
-// between layers in device memory. It takes the network shapes that the
-// fused kernels (megakernel.cuh, nerf_train.cu) do not hold on chip: an MLP
-// wider than 512 (any multiple of 128; the width is a run-time argument, so
-// this one library serves every width), and K3's NeRF with more than 128
-// encoded input columns. Depth has no cap here either.
+// between layers in device memory. It takes every network shape that the
+// fused kernels (megakernel.cuh, nerf_train.cu, at 128 and 256 columns) do
+// not: an MLP of 384 columns and up (any multiple of 64; the width is a
+// run-time argument, so this one library serves every width), and K3's
+// NeRF with more than 128 encoded input columns. Depth has no cap here
+// either.
 //
 // Replaces, at those shapes, what the fused kernels replace:
 // adanerf_tpu/ops/pallas/megakernel3.py::make_megakernel_compact (K1),
@@ -14,31 +15,51 @@
 // kernels below layer by layer; their plain versions are the same as the
 // fused kernels'.
 //
-// Why the fused design cannot hold these shapes: each consumer warpgroup of
-// the fused kernels keeps its 64 rows of activations (64 x W bf16) in
-// shared memory, 80 KB at W = 640, and two consumers plus the weight ring
-// exceed the 232,448 bytes of a block. What bounds the wide path: a W x W
-// layer over R rows does 2 R W^2 operations and moves 4 R W bytes of bf16
-// activations in and out, W / 2 operations a byte, above the H100's ridge
-// of ~295 from W = 640 up. So the layers stay bound by arithmetic with
-// their activations off chip, and each runs as one GEMM.
+// Why not fused: each consumer warpgroup of the fused kernels keeps its 64
+// rows of activations (64 x W bf16) in shared memory, and above 256
+// columns a layer needs two wgmma passes whose first parks in registers
+// and spills; at 640 the tile no longer fits a block. What bounds the wide
+// path: a W x W layer over R rows does 2 R W^2 operations and moves 4 R W
+// bytes of bf16 activations in and out, W / 2 operations a byte, near the
+// H100's ridge of ~295 at 512 and above it from 640 up. So the layers are
+// bound by arithmetic or close to it with their activations off chip, and
+// each runs as one GEMM.
 //
-// wd_gemm, the GEMM of the bf16 layers: C = epi([A0 | A1] @ B) for 128 rows
-// x at most 256 columns a block (grid: row tiles x passes of 256 columns).
-// One producer thread brings, chunk after chunk of K = 64, both consumers'
-// 64 x 64 A blocks and the B chunk (the packed weight stream's chunk of the
-// pass, <= 256 x 64) by bulk async copies into a 4-stage ring; two consumer
-// warpgroups run m64nNk16 wgmma on them (bf16 operands, fp32 sums). The
-// activations in device memory are in the tile layout of mlp_wgmma.cuh (a
-// 64-row tile of F columns = F / 64 swizzled 64 x 64 blocks), so that a
-// block lands ready for wgmma by one linear copy. The epilogue adds, in this
-// order, K3's rank-1 alpha term, the bias, the relu and K3's relu mask, sums
-// columns for K3's bias partials (deterministic: a fixed butterfly and a
-// fixed order over the warps, one partial row per 128-row tile), then
-// stores fp32 (logits, dX), bf16 in the tile layout (the next layer's A) and
-// bf16 transposed into K3's scratch (movmatrix, as nerf_train.cu's put_act).
-// The arithmetic is the fused kernels': bf16 operands, fp32 sums and
-// biases, each stored activation rounded to bf16.
+// wd_gemm, the GEMM of the bf16 layers: C = epi([A0 | A1] @ B), a tile of
+// 128 rows x 128 columns (64 where a pass of the weight stream ends on a
+// half) at a time. What bounds it: the tensor cores, fed from L2 (a tile's
+// k step brings 32 KB for 2.1 MFLOP, 64 operations a byte). The grid is
+// persistent, one block an SM (288 threads: two consumer warpgroups and a
+// producer warp, 168 registers a thread; a producer warpgroup handing its
+// registers to the consumers by setmaxnreg leaves ptxas at 168 too, and
+// measured slower at three of gemm_ablation.py's four shapes): each block walks the
+// tiles blockIdx.x, + gridDim.x, ... of the launch, their count read on the
+// device (rows_of: K1's live count), so a fixed grid covers any count with
+// no empty blocks. One producer thread runs ahead through the block's tiles
+// chunk after chunk of K = 64, bringing both 64 x 64 A blocks of the tile's
+// rows and the tile's 128 x 64 share of the B chunk (the packed weight
+// stream's chunk of the pass, whose rows are the output columns) by bulk
+// async copies into a 5-stage ring, and after a tile's chunks its relu mask
+// (K3's backward). Two consumer warpgroups take the block's tiles in turns
+// (ping-pong, their mainloops ordered by a barrier pair): each owns a whole
+// tile, runs two m64n128k16 wgmmas a k step (one for each 64-row half;
+// bf16 operands, fp32 sums) and then its epilogue, which runs under the
+// other warpgroup's wgmmas. The activations in device memory are in the
+// tile layout of mlp_wgmma.cuh (a 64-row tile of F columns = F / 64
+// swizzled 64 x 64 blocks), so that a block lands ready for wgmma by one
+// linear copy. The epilogue adds, in this order, K3's rank-1 alpha term,
+// the bias, the relu and K3's relu mask (from shared memory, 8 x 8 at a
+// time, transposed by movmatrix), sums columns for K3's bias partials
+// (deterministic: a fixed butterfly and a fixed order over the tile's eight
+// 16-row groups, one partial row per 128-row tile), stores fp32 (logits,
+// dX) from registers, and stages bf16 in the tile layout (the next layer's
+// A) and transposed into K3's scratch (movmatrix, as nerf_train.cu's
+// put_act) through shared memory, 64 x 64 a time in two alternating
+// halves, written back by bulk async stores. The arithmetic is the fused
+// kernels': bf16 operands, fp32 sums and biases, each stored activation
+// rounded to bf16, the k chunks in stream order; the warpgroup's index is
+// broadcast from lane 0, so that the compiler sees its branches as uniform
+// and issues the wgmmas unserialized.
 //
 // wd_gemm_f32, the fp32 layers of K1 and K2 (the exact reference): a plain
 // FMA GEMM, 64 x 64 outputs a block, each row's sums in the fused fp32
@@ -58,13 +79,18 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int WD_THREADS = 384;                               // two consumers, the producer
-constexpr int WD_STAGES = 4;
-constexpr int WD_A_BYTES = TC_ROWS * TC_KC * 2;               // one 64 x 64 A block
-constexpr int WD_STAGE_BYTES = 2 * WD_A_BYTES + 256 * TC_KC * 2;
-constexpr int WD_OFF_CS = WD_STAGES * WD_STAGE_BYTES;         // column sums: 8 warps x 256
-constexpr int WD_OFF_BAR = WD_OFF_CS + 8 * 256 * 4;
-constexpr size_t WD_SMEM = WD_OFF_BAR + 2 * WD_STAGES * 8;
+constexpr int WD_THREADS = 288;  // two consumer warpgroups and the producer's warp
+constexpr int WD_TM = 2 * TC_ROWS;  // rows of a tile: two 64-row tiles of the layout
+constexpr int WD_TN = 128;          // columns of a tile
+constexpr int WD_STAGES = 5;
+constexpr int WD_A_BYTES = TC_ROWS * TC_KC * 2;                 // one 64 x 64 A block
+constexpr int WD_STAGE_BYTES = 2 * WD_A_BYTES + WD_TN * TC_KC * 2;
+constexpr int WD_EPI_BYTES = 2 * WD_TM * WD_TN;  // a consumer's epilogue buffer: 128 x 128 bf16
+constexpr int WD_OFF_EPI = WD_STAGES * WD_STAGE_BYTES;
+constexpr int WD_OFF_BAR = WD_OFF_EPI + 2 * WD_EPI_BYTES;
+// barriers: full and empty a stage, order a consumer, and a consumer's
+// epilogue buffer's mask arrived (efull) and free again (efree)
+constexpr size_t WD_SMEM = WD_OFF_BAR + (2 * WD_STAGES + 6) * 8;
 static_assert(WD_SMEM <= 232448, "a block's shared memory");
 
 __device__ __forceinline__ float bfr(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
@@ -98,6 +124,29 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
                "[%0], [%1], %2, [%3];"
                :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// One bulk async store of `bytes` (a multiple of 16) from shared memory to
+// global memory, in the issuing thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of the issuing thread's bulk groups have yet to
+// read their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(N) : "memory");
+}
+
+// Waits until the issuing thread's bulk groups are complete.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // Rows a launch covers: rows, or where count is given (K1's live count on
@@ -169,155 +218,289 @@ struct WdF32 {
 
 namespace {
 
-template <int NP>
-__device__ __forceinline__ void wd_consume(const WdGemm& G, int M, int bt, int c0, uint32_t buf,
-                                           uint32_t fb, uint32_t eb, float* cs) {
-  const int g = threadIdx.x >> 7, tl = threadIdx.x & 127, lane = tl & 31, w = tl >> 5;
+// The block's k-th tile, consumer g's (k % 2 == g), the launch's tile
+// blockIdx.x + k gridDim.x of nct column tiles a 128-row tile: rows 128 bt..
+// (the 64-row tiles 2 bt and 2 bt + 1), columns col0.. (nt of them: 128, or
+// 64 where a pass ends, whose other 64 columns the wgmmas compute from
+// stale stage bytes and the epilogue leaves), its chunks at the ring
+// positions k kc.. (every tile has kc chunks); the order barrier ob + 8 g
+// lets it start. One code path for every tile: no wgmma sits in a branch.
+// epi is the warpgroup's epilogue buffer (32 KB): the producer's copy of
+// the tile's relu mask (K3's scratch layout, each 64-row half at 16 KB)
+// where there is one, signalled on efull; then the column sums of the bias
+// partials; then two 16 KB halves in turn, each a staged 64 x 64 block of
+// out and of st; released on efree where a mask comes. The shared-memory
+// addresses are derived here from the base, through opaque, so that none
+// stays live (and spills) across the consumer's loop over its tiles.
+__device__ __forceinline__ void wd_tile(const WdGemm& G, int g, int k, int M, int nct) {
+  extern __shared__ float4 smem4[];
+  constexpr int NT = WD_TN;
+  const int t = blockIdx.x + k * gridDim.x, bt = t / nct, col0 = (t - bt * nct) * WD_TN;
+  const int nt = G.n - col0 < WD_TN ? G.n - col0 : WD_TN, kc = G.kc0 + G.kc1, it = k >> 1;
+  const uint32_t buf = opaque(smem_u32(smem4)), fb = buf + WD_OFF_BAR;
+  const uint32_t eb = fb + 8 * WD_STAGES, ob = eb + 8 * WD_STAGES;
+  const uint32_t efull = ob + 16 + 8 * g, efree = ob + 32 + 8 * g;
+  uint8_t* epi = reinterpret_cast<uint8_t*>(smem4) + WD_OFF_EPI + g * WD_EPI_BYTES;
+  const uint32_t pos = static_cast<uint32_t>(k) * kc;
+  const int tl = threadIdx.x & 127, lane = tl & 31, w = tl >> 5;
   const int q = lane >> 2, p = lane & 3;
-  const int kc = G.kc0 + G.kc1;
-  float acc[NP / 2];
-  int stage = 0, prev = -1;
-  uint32_t phase = 0;
+  float acc[2][NT / 2];
+  int stage = pos % WD_STAGES;
+  uint32_t phase = (pos / WD_STAGES) & 1;
+  // the other consumer's tile before this one has seen all its chunks
+  // arrive: every ring position before pos is filled, so the parity of
+  // pos's stage names pos's chunk and no earlier one
+  mbar_wait(ob + 8 * g, (it + 1 - g) & 1);
+  // the tile's chunks, the first peeled off so that no wgmma, commit or
+  // wait sits in a branch: chunk c's wgmmas run while chunk c - 1's stage
+  // is released
   wgmma_fence();
-  for (int c = 0; c < kc; ++c) {
+  int prev = stage;
+  {
     mbar_wait(fb + 8 * stage, phase);
     const uint32_t st = buf + stage * WD_STAGE_BYTES;
-    const uint64_t da = sw128_desc(st + g * WD_A_BYTES), db = sw128_desc(st + 2 * WD_A_BYTES);
+    const uint64_t da0 = sw128_desc(st), da1 = sw128_desc(st + WD_A_BYTES);
+    const uint64_t db = sw128_desc(st + 2 * WD_A_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < TC_KC / 16; ++kk)
-      wgmma_k16<NP>(acc, da + 2 * kk, db + 2 * kk, c > 0 || kk > 0);
-    wgmma_commit();
-    if (prev >= 0) {
-      wgmma_wait<1>();
-      if (lane == 0) mbar_arrive(eb + 8 * prev);
+    for (int kk = 0; kk < TC_KC / 16; ++kk) {
+      wgmma_k16<NT>(acc[0], da0 + 2 * kk, db + 2 * kk, kk > 0);
+      wgmma_k16<NT>(acc[1], da1 + 2 * kk, db + 2 * kk, kk > 0);
     }
+    wgmma_commit();
+    if (++stage == WD_STAGES) { stage = 0; phase ^= 1; }
+  }
+  for (int c = 1; c < kc; ++c) {
+    mbar_wait(fb + 8 * stage, phase);
+    const uint32_t st = buf + stage * WD_STAGE_BYTES;
+    const uint64_t da0 = sw128_desc(st), da1 = sw128_desc(st + WD_A_BYTES);
+    const uint64_t db = sw128_desc(st + 2 * WD_A_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < TC_KC / 16; ++kk) {
+      wgmma_k16<NT>(acc[0], da0 + 2 * kk, db + 2 * kk, 1);
+      wgmma_k16<NT>(acc[1], da1 + 2 * kk, db + 2 * kk, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (lane == 0) mbar_arrive(eb + 8 * prev);
     prev = stage;
     if (++stage == WD_STAGES) { stage = 0; phase ^= 1; }
   }
+  if (tl == 0) mbar_arrive(ob + 8 * (1 - g));  // the other consumer's next tile may start
   wgmma_wait<0>();
-  fence_acc(acc);
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
   if (lane == 0) mbar_arrive(eb + 8 * prev);
 
-  // accumulator element j * 4 + 2 i + e: row rt + 8 i of the 64-row tile
-  // ti, column c0 + 8 j + 2 p + e
-  const int ti = 2 * bt + g, rt = w * 16 + q;
+  // accumulator element acc[m][j * 4 + 2 i + e]: row rt + 8 i of the
+  // 64-row tile 2 bt + m, column col0 + 8 j + 2 p + e
+  const int rt = w * 16 + q;
+  if (G.mask != nullptr) mbar_wait(efull, it & 1);
+  float gr[2][2];  // the rows' bf16(ga[row][3]), where the alpha term applies (row < M)
+  bool ga[2][2];
 #pragma unroll
-  for (int j = 0; j < NP / 8; ++j)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int r = rt + 8 * i, col = c0 + 8 * j + 2 * p + e, row = ti * TC_ROWS + r;
-        float v = acc[j * 4 + 2 * i + e];
-        if (G.ga != nullptr && row < M) v = fmaf(bfr(G.ga[(size_t)row * 4 + 3]), G.wa[col], v);
-        if (G.bias != nullptr) v += G.bias[col];
-        if (G.relu) v = fmaxf(v, 0.f);
-        if (G.mask != nullptr &&
-            __bfloat16_as_ushort(G.mask[(size_t)ti * G.n * 64 + tile_off(col, r)]) == 0)
-          v = 0.f;
-        acc[j * 4 + 2 * i + e] = v;
-      }
-  if (G.bp != nullptr) {  // column sums of the block's 128 rows
-#pragma unroll
-    for (int j = 0; j < NP / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float s = acc[j * 4 + e] + acc[j * 4 + 2 + e];
-        s += __shfl_xor_sync(0xffffffffu, s, 4);
-        s += __shfl_xor_sync(0xffffffffu, s, 8);
-        s += __shfl_xor_sync(0xffffffffu, s, 16);
-        if (q == 0) cs[(4 * g + w) * 256 + 8 * j + 2 * p + e] = s;
-      }
-    asm volatile("bar.sync 3, 256;" ::: "memory");  // both consumers' sums are in
-    for (int c = threadIdx.x; c < NP; c += 256) {
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) s += cs[k * 256 + c];
-      G.bp[(size_t)bt * G.ldbp + c0 + c] = s;
+    for (int i = 0; i < 2; ++i) {
+      const int row = (2 * bt + m) * TC_ROWS + rt + 8 * i;
+      ga[m][i] = G.ga != nullptr && row < M;
+      gr[m][i] = ga[m][i] ? bfr(G.ga[(size_t)row * 4 + 3]) : 0.f;
     }
-  }
-  if (G.f32 != nullptr) {
 #pragma unroll
-    for (int j = 0; j < NP / 8; ++j)
+  for (int j = 0; j < NT / 8; ++j) {
+    if (8 * j >= nt) continue;
+    const int c = col0 + 8 * j + 2 * p;
+    float b[2] = {0.f, 0.f}, wa[2] = {0.f, 0.f};
+    if (G.bias != nullptr) { b[0] = __ldg(G.bias + c); b[1] = __ldg(G.bias + c + 1); }
+    if (G.ga != nullptr) { wa[0] = __ldg(G.wa + c); wa[1] = __ldg(G.wa + c + 1); }
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int row = ti * TC_ROWS + rt + 8 * i, col = c0 + 8 * j + 2 * p + e;
-          if (row < M && col < G.f32_cols) {
-            float* d = G.f32 + (size_t)row * G.ldf + col;
-            const float v = acc[j * 4 + 2 * i + e];
-            *d = G.f32_add ? *d + v : v;
-          }
-        }
-  }
-  if (G.out != nullptr || G.st != nullptr) {
-    uint8_t* ob = reinterpret_cast<uint8_t*>(G.out) + (size_t)ti * G.n * 128;
-    const size_t so = (size_t)ti * G.n * 64 + (size_t)c0 * 64;
-#pragma unroll
-    for (int j = 0; j < NP / 8; ++j)
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const uint32_t u =
-            as_u32(__floats2bfloat162_rn(acc[j * 4 + 2 * i], acc[j * 4 + 2 * i + 1]));
-        if (G.out != nullptr)
-          *reinterpret_cast<uint32_t*>(ob + sw128(rt + 8 * i, c0 + 8 * j + 2 * p)) = u;
-        if (G.st != nullptr)  // (feature 8 j + q, rows 16 w + 8 i + 2 p, + 1): tile_off
-          *reinterpret_cast<uint32_t*>(G.st + so + j * 512 + q * 64 +
-                                       ((((2 * w + i) ^ q) & 7) << 3) + 2 * p) = transpose8x8(u);
+        uint32_t mk = 0xffffffffu;  // the mask at (row, c, c + 1), transposed from K3's scratch
+        if (G.mask != nullptr)
+          mk = transpose8x8(*reinterpret_cast<const uint32_t*>(
+              epi + 2 * (m * 8192 + j * 512 + q * 64 + ((((2 * w + i) ^ q) & 7) << 3) + 2 * p)));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = acc[m][j * 4 + 2 * i + e];
+          if (ga[m][i]) v = fmaf(gr[m][i], wa[e], v);
+          if (G.bias != nullptr) v += b[e];
+          if (G.relu) v = fmaxf(v, 0.f);
+          if (((mk >> (16 * e)) & 0xffffu) == 0) v = 0.f;
+          acc[m][j * 4 + 2 * i + e] = v;
+        }
       }
   }
+  wg_sync(1 + g);  // the mask is read: epi holds the column sums, then the staged stores
+  if (G.bp != nullptr) {  // column sums of the tile's 128 rows, 16-row group by group
+    float* cs = reinterpret_cast<float*>(epi);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float s = acc[m][j * 4 + e] + acc[m][j * 4 + 2 + e];
+          s += __shfl_xor_sync(0xffffffffu, s, 4);
+          s += __shfl_xor_sync(0xffffffffu, s, 8);
+          s += __shfl_xor_sync(0xffffffffu, s, 16);
+          if (q == 0) cs[(4 * m + w) * WD_TN + 8 * j + 2 * p + e] = s;
+        }
+    wg_sync(1 + g);  // the warpgroup's sums are in
+    if (tl < nt) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s += cs[k * WD_TN + tl];
+      G.bp[(size_t)bt * G.ldbp + col0 + tl] = s;
+    }
+    wg_sync(1 + g);  // cs is free again
+  }
+  if (G.f32 != nullptr) {  // row-major, columns < f32_cols, rows < M
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = (2 * bt + m) * TC_ROWS + rt + 8 * i;
+        if (row >= M) continue;
+        float* d = G.f32 + (size_t)row * G.ldf + col0 + 2 * p;
+        const int left = G.f32_cols - col0 - 2 * p;  // the row's columns from d on
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (8 * j + e < left) {
+              const float v = acc[m][j * 4 + 2 * i + e];
+              d[8 * j + e] = G.f32_add ? d[8 * j + e] + v : v;
+            }
+      }
+  }
+  if (G.out != nullptr || G.st != nullptr) {
+    // 64 x 64 at a time: the block of out in the tile layout and of st in
+    // the scratch layout, each 8 KB and contiguous in device memory, staged
+    // in one half of epi as they lie there, then stored by one thread while
+    // the warpgroup stages the next block in the other half
+    int u = 0;  // blocks staged so far
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int jb = 0; jb < NT / 64; ++jb) {
+        if (64 * jb >= nt) continue;
+        const uint32_t sb = opaque(smem_u32(epi)) + (u & 1) * 2 * TC_BLOCK_BYTES;
+        if (u >= 2) {
+          if (tl == 0) bulk_wait_read<1>();  // the block before last has left this half
+          wg_sync(1 + g);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // (row rt + 8 i, column 8 jj + 2 p) of out's block: sw128, row % 8 == q;
+          // (feature 8 jj + q, rows 16 w + 8 i + 2 p, + 1) of st's: tile_off
+          const uint32_t ob = sb + (rt + 8 * i) * 128 + 4 * p;
+          const uint32_t tb = sb + TC_BLOCK_BYTES + 2 * (q * 64 + ((((2 * w + i) ^ q) & 7) << 3) + 2 * p);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = 8 * jb + jj;
+            const uint32_t v =
+                as_u32(__floats2bfloat162_rn(acc[m][j * 4 + 2 * i], acc[m][j * 4 + 2 * i + 1]));
+            if (G.out != nullptr) st_shared(ob + ((jj ^ q) << 4), v);
+            if (G.st != nullptr) st_shared(tb + jj * 1024, transpose8x8(v));
+          }
+        }
+        fence_async_smem();
+        wg_sync(1 + g);
+        if (tl == 0) {
+          const size_t ti = 2 * bt + m, cb = col0 + 64 * jb;
+          if (G.out != nullptr)
+            bulk_store(reinterpret_cast<uint8_t*>(G.out) + (ti * G.n + cb) * 128, sb,
+                       TC_BLOCK_BYTES);
+          if (G.st != nullptr)
+            bulk_store(G.st + (ti * G.n + cb) * 64, sb + TC_BLOCK_BYTES, TC_BLOCK_BYTES);
+          bulk_commit();
+        }
+        ++u;
+      }
+  }
+  // epi is free once the stores have read it: for the next tile's mask,
+  // and the next tile's first staged blocks
+  fence_async_smem();  // this tile's writes to epi come before the next mask's copy
+  if (tl == 0) {
+    bulk_wait_read<0>();
+    if (G.mask != nullptr) mbar_arrive(efree);
+  }
+  wg_sync(1 + g);
 }
 
 __global__ void __launch_bounds__(WD_THREADS, 1) wd_gemm(const WdGemm G) {
   extern __shared__ float4 smem4[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
-  const int M = rows_of(G.count, G.base, G.rows), bt = blockIdx.x;
-  if (bt * 2 * TC_ROWS >= M) return;  // past the rows: the whole block
-  const int c0 = blockIdx.y * 256, np = G.n - c0 < 256 ? G.n - c0 : 256;
+  const int M = rows_of(G.count, G.base, G.rows);
+  const int nct = (G.n + WD_TN - 1) / WD_TN, tiles = (M + WD_TM - 1) / WD_TM * nct;
   const int kc = G.kc0 + G.kc1;
-  float* cs = reinterpret_cast<float*>(sm + WD_OFF_CS);
-  unsigned long long* full = reinterpret_cast<unsigned long long*>(sm + WD_OFF_BAR);
-  unsigned long long* empty = full + WD_STAGES;
-  const uint32_t buf = smem_u32(sm), fb = smem_u32(full), eb = smem_u32(empty);
+  const uint32_t buf = smem_u32(sm), fb = smem_u32(sm + WD_OFF_BAR);
+  const uint32_t eb = fb + 8 * WD_STAGES, ob = eb + 8 * WD_STAGES, efb = ob + 16, erb = efb + 16;
   if (buf & 1023) __trap();  // the swizzle needs 1024-byte aligned stages
   if (threadIdx.x == 0) {
     for (int i = 0; i < WD_STAGES; ++i) {
       mbar_init(fb + 8 * i, 1);
-      mbar_init(eb + 8 * i, TC_CONSUMER_WARPS);
+      mbar_init(eb + 8 * i, 4);  // the warps of the warpgroup that read the stage
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(ob + 8 * i, 1);   // consumer i may start its next tile
+      mbar_init(efb + 8 * i, 1);  // consumer i's mask is in
+      mbar_init(erb + 8 * i, 1);  // consumer i's epilogue buffer is free
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x >= 2 * 128) {  // the producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+  // the warpgroup's index, broadcast from lane 0 so that the compiler sees
+  // every branch on it as uniform across the warp (a wgmma behind a branch
+  // it takes for divergent is serialized)
+  const int g = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
+  if (g == 2) {  // the producer warp
     if (threadIdx.x == 2 * 128) {
-      // earlier passes are 256 wide: pass c0 / 256 starts c0 kc 64 elements in
-      const bf16* wp = G.w + (size_t)c0 * kc * TC_KC;
       int stage = 0;
       uint32_t phase = 0;
-      for (int c = 0; c < kc; ++c) {
-        mbar_wait(eb + 8 * stage, phase ^ 1);
-        const uint32_t dst = buf + stage * WD_STAGE_BYTES, bar = fb + 8 * stage;
-        const bool first = c < G.kc0;
-        const int kb = first ? G.kc0 : G.kc1;  // blocks a tile of this operand
-        const bf16* a = (first ? G.a0 : G.a1) + ((size_t)(2 * bt) * kb + (first ? c : c - G.kc0)) * 4096;
-        mbar_expect(bar, 2 * WD_A_BYTES + np * TC_KC * 2);
-        bulk_copy(dst, a, WD_A_BYTES, bar);
-        bulk_copy(dst + WD_A_BYTES, a + (size_t)kb * 4096, WD_A_BYTES, bar);
-        bulk_copy(dst + 2 * WD_A_BYTES, wp + (size_t)c * np * TC_KC, np * TC_KC * 2, bar);
-        if (++stage == WD_STAGES) { stage = 0; phase ^= 1; }
+      for (int t = blockIdx.x, k = 0; t < tiles; t += gridDim.x, ++k) {
+        const int bt = t / nct, col0 = (t - bt * nct) * WD_TN, c0 = col0 & ~255;
+        const int np = G.n - c0 < 256 ? G.n - c0 : 256, nt = G.n - col0 < WD_TN ? G.n - col0 : WD_TN;
+        // earlier passes are 256 wide: pass c0 / 256 starts c0 kc 64 elements
+        // in; the tile's columns are rows col0 - c0.. of each of its chunks
+        const bf16* wp = G.w + (size_t)c0 * kc * TC_KC + (size_t)(col0 - c0) * TC_KC;
+        for (int c = 0; c < kc; ++c) {
+          mbar_wait(eb + 8 * stage, phase ^ 1);
+          const uint32_t dst = buf + stage * WD_STAGE_BYTES, bar = fb + 8 * stage;
+          const bool first = c < G.kc0;
+          const int kb = first ? G.kc0 : G.kc1;  // blocks a tile of this operand
+          const bf16* a =
+              (first ? G.a0 : G.a1) + ((size_t)(2 * bt) * kb + (first ? c : c - G.kc0)) * 4096;
+          mbar_expect(bar, 2 * WD_A_BYTES + nt * TC_KC * 2);
+          bulk_copy(dst, a, WD_A_BYTES, bar);
+          bulk_copy(dst + WD_A_BYTES, a + (size_t)kb * 4096, WD_A_BYTES, bar);
+          bulk_copy(dst + 2 * WD_A_BYTES, wp + (size_t)c * np * TC_KC, nt * TC_KC * 2, bar);
+          if (++stage == WD_STAGES) { stage = 0; phase ^= 1; }
+        }
+        if (G.mask != nullptr) {
+          // the tile's relu mask into its consumer's epilogue buffer, once
+          // that consumer's tile before has done with it (parity 1 of a
+          // fresh barrier for its first)
+          const int cg = k & 1;
+          const uint32_t ebuf = buf + WD_OFF_EPI + cg * WD_EPI_BYTES, bar = efb + 8 * cg;
+          mbar_wait(erb + 8 * cg, ((k >> 1) & 1) ^ 1);
+          mbar_expect(bar, 2 * nt * 128);
+          for (int m = 0; m < 2; ++m)
+            bulk_copy(ebuf + m * 2 * TC_BLOCK_BYTES, G.mask + ((size_t)(2 * bt + m) * G.n + col0) * 64,
+                      nt * 128, bar);
+        }
       }
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
-  switch (np) {
-    case 256: wd_consume<256>(G, M, bt, c0, buf, fb, eb, cs); break;
-    case 192: wd_consume<192>(G, M, bt, c0, buf, fb, eb, cs); break;
-    case 128: wd_consume<128>(G, M, bt, c0, buf, fb, eb, cs); break;
-    default: wd_consume<64>(G, M, bt, c0, buf, fb, eb, cs); break;
-  }
+  // the block's k-th tile is consumer k % 2's; its chunks sit at ring
+  // positions k kc.. (every tile has kc chunks). The two take their
+  // mainloops in turns: tile k's starts once tile k - 1 has all its chunks
+  // (the order barriers; consumer 0's first tile waits on none, parity 1
+  // of a fresh barrier)
+  for (int k = g; blockIdx.x + k * gridDim.x < tiles; k += 2) wd_tile(G, g, k, M, nct);
+  if ((threadIdx.x & 127) == 0) bulk_wait_all();  // the stores are out before the block ends
 }
 
 __global__ void __launch_bounds__(256) wd_gemm_f32(const WdF32 G) {
@@ -595,11 +778,15 @@ extern "C" {
 
 int wd_gemm_launch(int device, const WdGemm* G, void* stream) {
   cudaError_t e = cudaSetDevice(device);
+  int sms = 0;
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(wd_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WD_SMEM);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((G->rows + 2 * TC_ROWS - 1) / (2 * TC_ROWS), (G->n + 255) / 256);
-  wd_gemm<<<grid, WD_THREADS, WD_SMEM, as_stream(stream)>>>(*G);
+  // the most tiles the launch can have (the device count may cut them)
+  const long long tiles = (long long)((G->rows + WD_TM - 1) / WD_TM) * ((G->n + WD_TN - 1) / WD_TN);
+  if (tiles == 0) return 0;
+  wd_gemm<<<tiles < sms ? (int)tiles : sms, WD_THREADS, WD_SMEM, as_stream(stream)>>>(*G);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,10 +12,11 @@ it renders a batch of rays to ``(rgb (B, 3), counts (B,))``:
     renderer's own PyTorch path (``adanerf_tpu_torch/realtime.py``).
 
 The front runs the oracle and the shade the NeRF, each in the fused
-library of its MLP's width (128, 256, 384 or 512: ``WIDTHS``, one library
-each, ``library``), so the two MLPs may differ in width; an MLP of any
-other width (above 512, or not a multiple of 128) takes the wide path for
-its half (``csrc/wide.cu``, ``wide.py``: its layers one at a time, the
+library of its MLP's width (128 or 256: ``WIDTHS``, one library each,
+``library``), so the two MLPs may differ in width; an MLP of any other
+width (384 and up, where the wide path measured faster than the fused
+kernels, or not a multiple of 128) takes the wide path for its half
+(``csrc/wide.cu``, ``wide.py``: its layers one at a time, the
 activations in device memory, each width padded with zeros to a multiple
 of 64). Depth has no cap: the kernels read each layer's offsets
 from a table on the device. ``refusal`` says why K1 does not take an
@@ -46,7 +47,7 @@ import torch
 from . import build, wide
 
 SOURCE = "megakernel_compact.cu"
-WIDTHS = (128, 256, 384, 512)  # MLP widths of the fused libraries, one library each
+WIDTHS = (128, 256)  # MLP widths of the fused libraries, one library each
 FUSED_DEPTH = 65  # the fused shade's most NeRF layers (MkParams::skip_bits)
 ALIGN = 64   # element alignment of each packed matrix
 CHUNK = 1 << 18  # sample rows of one wide shade pass (its activation buffers)
@@ -512,17 +513,24 @@ class MegakernelCompact:
         wide.rows_kernel("select", dev, P, int(self.DENSE), logits, zbuf, pbuf, counts, rows,
                          counter)
 
+    def _live_rows(self, counter, total):
+        """The sample rows the wide shade covers: K1's live count, read once
+        a frame (one synchronising read), so that it launches the chunks of
+        the live rows only; K2 shades every slot, total."""
+        return total if self.DENSE else int(counter.item())
+
     def _shade_wide(self, P, dev, bufs, stages):
         """The shade on the wide path, CHUNK sample rows at a time (K1: the
-        live rows, their count read on the device; K2: all B * S): encode,
-        the trunk, the feature layer, the alpha head, the views layer and
-        the rgb head layer by layer; then the composite."""
+        live rows; K2: all B * S): encode, the trunk, the feature layer, the
+        alpha head, the views layer and the rgb head layer by layer; then
+        the composite. The kernels bound their rows by the count on the
+        device as well."""
         o_sh, d_sh, zbuf, pbuf, counts, rows, counter, raw, rgb = bufs
         L, (_, W, H) = self.layers, self.padded
         bf, kx = bool(P.bf16), P.in1 // TC_KC
         adt = torch.bfloat16 if bf else torch.float32
-        total = P.B * P.S
-        C = min(CHUNK, wide.pad_rows(total))
+        total = self._live_rows(counter, P.B * P.S)
+        C = min(CHUNK, wide.pad_rows(max(total, 1)))
         x = torch.empty(C * P.in1, dtype=adt, device=dev)
         h = [torch.empty(C * W, dtype=adt, device=dev) for _ in range(2)]
         alpha = torch.empty(C, dtype=torch.float32, device=dev)

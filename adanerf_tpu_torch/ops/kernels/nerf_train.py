@@ -21,10 +21,11 @@ The kernel's arithmetic is the TPU kernel's: each product rounds both
 operands to bf16 and sums in fp32, in the weight gradients too; biases and
 bias gradients are fp32. It takes every NeRF the JAX package routes to its
 TPU kernel (adanerf_tpu/train_state.py:313-314: a width that is a multiple
-of 128), of any depth and any number of encoded input columns. Widths 128,
-256, 384 and 512 with at most 128 input columns run the fused kernels
-(``WIDTHS``; one library each, ``library``); a wider NeRF or one with more
-input columns takes the wide path (``csrc/wide.cu``, ``wide.py``): its
+of 128), of any depth and any number of encoded input columns. Widths 128
+and 256 with at most 128 input columns run the fused kernels (``WIDTHS``;
+one library each, ``library``); a wider NeRF (384 and up, where the wide
+path measured faster than the fused kernels) or one with more input
+columns takes the wide path (``csrc/wide.cu``, ``wide.py``): its
 layers one at a time as GEMMs with fused epilogues, the activations in
 device memory, ending in the same weight-gradient GEMMs (``self.wide``).
 
@@ -54,7 +55,7 @@ from . import build, wide
 from .megakernel_compact import PASS, TC_KC, passes, swizzle128, unpack_chunks
 
 SOURCE = "nerf_train.cu"
-WIDTHS = (128, 256, 384, 512)  # hidden widths of the fused libraries, one each
+WIDTHS = (128, 256)  # hidden widths of the fused libraries, one each
 XW = 128     # encoded input columns of the fused kernels, padded (the wide path: 64-multiples)
 FUSED_DEPTH = 65  # the fused kernels' most trunk layers (K3Params::skip_bits)
 TILE_ROWS = 64   # rows of a scratch tile (the wgmma M)

@@ -1,10 +1,12 @@
 """The wide path of the frame kernels (K1, K2) and of K3: the bindings of
 ``csrc/wide.cu``, one library for every width.
 
-The fused kernels hold a tile's activations in shared memory, which bounds
-them to MLPs of at most 512 columns (and K3 to 128 encoded input columns).
-The wide path runs the layers one at a time, each a hand-written GEMM with
-a fused epilogue (``gemm``: wgmma on bf16; ``gemm_f32``: fp32 FMAs), the
+The fused kernels hold a tile's activations in shared memory; they take
+MLPs of 128 and 256 columns (and K3 at most 128 encoded input columns).
+The wide path takes every other shape, 384 and 512 columns too, where it
+measured faster than the fused kernels' two wgmma passes a layer. It runs
+the layers one at a time, each a hand-written GEMM with a fused epilogue
+(``gemm``: a persistent wgmma GEMM on bf16; ``gemm_f32``: fp32 FMAs), the
 activations between layers in device memory, and the per-row work in small
 kernels of its own (``rows_kernel``). ``megakernel_compact.py`` and
 ``nerf_train.py`` launch them layer by layer where a network's shape asks
@@ -25,7 +27,8 @@ import torch
 from . import build
 
 SOURCE = "wide.cu"
-ROWS = 128  # rows of a GEMM block: activation buffers hold a multiple of it
+ROWS = 128  # rows of a GEMM tile: activation buffers hold a multiple of it
+gemm_launches = 0  # wd_gemm launches in this process (gemm)
 
 
 class WdGemm(ctypes.Structure):
@@ -103,9 +106,11 @@ def gemm(dev, a0, kc0, w, n, rows, a1=None, kc1=0, bias=None, relu=False, out=No
     ``[a0 | a1] @ w`` over ``rows`` rows (or the device count past base, at
     most rows), n columns; see ``struct WdGemm`` for each argument. Tensors
     or device addresses."""
+    global gemm_launches
     G = WdGemm(*(_ptr(t) for t in (a0, a1, w, bias, out, st, f32, mask, bp, ga, wa, count)),
                kc0, kc1, n, rows, base, int(relu), ldf, f32_cols, int(f32_add), ldbp)
     _check(_lib().wd_gemm_launch(_index(dev), ctypes.byref(G), _stream(dev)), "wd_gemm")
+    gemm_launches += 1
 
 
 def gemm_f32(dev, a0, k0, w0, n, rows, bias, relu=False, out=None, a1=None, k1=0, w1=None,

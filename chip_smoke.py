@@ -35,16 +35,19 @@ the converted capture, the committed JAX fine NDC run resumed at epoch
 weights by the same port code, its validation 1,000 steps in against the
 JAX package's own resume on the CPU, a traced step, the run's ``epoch_*.pdf``
 plots, its export through K1 with ``--megakernel v3`` refused), holds
-the network shapes beyond the shipped ones (phase 20: K1 and K2 on
-seeded exports of mixed, 640- and 1024-wide and 20-layer MLPs, K3 alone
-at 640, 768, 1024, 20 layers and 150 input columns, both nets 1024 wide
-through the dense and the fine ini), and prints, as its last two lines,
+the network shapes beyond the shipped ones (phase 20: the wide path's
+layer GEMM ``wd_gemm`` alone against float64 and timed at 524,288 rows
+beside torch.addmm, K1 and K2 on seeded exports of mixed, 640- and
+1024-wide and 20-layer MLPs, K3 alone at 640, 768, 1024, 20 layers and
+150 input columns, both nets 1024 wide through the dense and the fine
+ini, wd_gemm's launches counted there), and prints, as its last two lines,
 a JSON line of per-kernel numbers (each kernel's ``widths`` and
 ``shapes`` too) and a JSON line
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, without those lines, when there is no CUDA device or any phase
 fails. Imports torch, numpy and the standard library besides the port
-itself (and, for phase 20's exports, ``tests/torch_wide_export.py``).
+itself (and, for phase 20, ``tests/torch_wide_export.py`` and
+``tests/torch_wide_gemm_check.py`` with the replay's layout helpers).
 """
 
 from __future__ import annotations
@@ -80,9 +83,10 @@ K3_BASELINE_ROWS = (2 * 2048 * 64, 2 * 2048 * (64 + 128))
 K3_GT_ROWS = 2 * 2048 * 16  # gt_depth_training.ini's NeRF: 16 samples a ray
 BASELINE_STEPS, GT_PRETRAIN, GT_STEPS = 20, 10, 20
 DP_STEPS = 3  # phase 17's data-parallel steps
-# phase 18: the main path at other MLP widths (both nets --layerWidth W):
-# K3 alone at K3_ROWS rows at each of K3_WIDTHS, the dense -> fine -> export
-# -> viewer path at each of MAIN_WIDTHS
+# phase 18: the main path at other MLP widths (both nets --layerWidth W; 128
+# on the fused kernels, 384 and 512 on the wide path): K3 alone at K3_ROWS
+# rows at each of K3_WIDTHS, the dense -> fine -> export -> viewer path at
+# each of MAIN_WIDTHS
 K3_WIDTHS, MAIN_WIDTHS = (128, 384, 512), (128, 512)
 WIDTH_DENSE_STEPS = 8
 # the JAX package's fine run committed in the repo (S=8, threshold 0.2, fp32),
@@ -141,6 +145,8 @@ NEW_K3_SHAPES = {"640": (640, 8, 63, K3_ROWS), "768": (768, 8, 63, K3_ROWS),
                  "150 columns": (256, 8, 123, K3_ROWS)}
 RUN_1024 = 1024
 NEW_FRAME_SIZE = 400
+# phase 20's wd_gemm shape in the kernels line (frame_times.GEMM_SHAPES has them all)
+GEMM_HEADLINE = "1024"
 
 T0 = time.perf_counter()
 
@@ -636,13 +642,19 @@ def demangle(name):
 
 
 def ptxas_report(log):
-    """[(kernel, "N registers, ... spill ...")] from an nvcc -Xptxas -v log."""
-    out, name, info = [], None, []
+    """[(kernel, "N registers, ... spill ...")] from an nvcc -Xptxas -v log,
+    with ptxas's performance warnings on the kernel (a wgmma it
+    serializes, C7520) appended."""
+    out, name, info, warn = [], None, [], {}
     for line in log.splitlines():
+        if "Potential Performance Loss" in line and "'" in line:
+            warn.setdefault(line.split("'")[-2], []).append(
+                line.split("Potential Performance Loss:", 1)[1].split(" in the function")[0].strip())
         if "Compiling entry function" in line:
             if name:
                 out.append((name, "; ".join(info)))
-            name, info = demangle(line.split("'")[1]), []
+            mangled = line.split("'")[1]
+            name, info = demangle(mangled), list(warn.get(mangled, []))
         elif name and ("spill" in line or "Used" in line):
             info.append(line.split(":", 1)[-1].strip())
     if name:
@@ -1256,6 +1268,33 @@ def export_leg(port_export, viewer, ts, trained, argv, dev):
                 bound_by="operations" if bo >= bb else "bytes",
                 k1_launches=views["MegakernelCompact"][0],
                 k1_viewer_ms=views["MegakernelCompact"][1]["device_ms_per_frame"], **k2_numbers)
+
+
+def wd_gemm_leg(dev):
+    """Phase 20 (first): the wide path's layer GEMM alone. Each case of
+    ``tests/torch_wide_gemm_check.py`` (ragged rows, a device count, n of
+    64 to 640, a second input, every epilogue part) against float64 sums
+    of the same bf16 inputs, within one bf16 step plus an fp32 sum's bound
+    on every element, two calls bit for bit equal; then at GEMM_ROWS rows
+    on frame_times.GEMM_SHAPES its ms, TFLOP/s, the bound, the plain
+    version's ms and torch.addmm's (the yardstick). Returns the numbers."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_wide_gemm_check import WIDE_GEMM_CASES, wide_gemm_case
+    from adanerf_tpu_torch.frame_times import gemm_times
+    from adanerf_tpu_torch.ops.kernels import wide
+    check, worst = {}, 0.0
+    for name in WIDE_GEMM_CASES:
+        _, same, err, max_abs = wide_gemm_case(name, dev, wide.gemm)
+        torch.cuda.synchronize()
+        check[name] = {"bit_for_bit": same, "max_abs_err": max_abs, "excess_over_bar": err}
+        print(f"  wd_gemm {name}: max abs errors {max_abs}; two calls bit for bit: {same}",
+              flush=True)
+        if not same or not err or any(e > 0 for e in err.values()):
+            raise SystemExit(f"wd_gemm {name}: outside its float64 bar or not deterministic: {err}")
+        worst = max([worst] + list(max_abs.values()))
+    times = gemm_times(dev)  # prints each shape's numbers
+    torch.cuda.empty_cache()
+    return dict(check=check, max_abs_err=worst, times=times)
 
 
 def frame_shape_leg(name, viewer, dev, tmp):
@@ -1938,6 +1977,9 @@ def main():
     for src, log in logs.items():
         for name, info in ptxas_report(log):
             print(f"  {src}: {name}: {info}", flush=True)
+            if src == wide.SOURCE and name == "wd_gemm":
+                print(f"  wd_gemm (persistent: one block an SM) registers and spills: {info}",
+                      flush=True)
     for src in frame_libs:
         lib = build.library_path(src)
         smem = build.load(src).mk_smem_bytes
@@ -2442,20 +2484,28 @@ def main():
     done("19", t)
 
     t = time.perf_counter()
-    phase(f"20 the network shapes beyond the shipped ones: K1/K2 at {NEW_FRAME_SIZE}x"
+    phase(f"20 the network shapes beyond the shipped ones: wd_gemm alone (float64 check, "
+          f"times at {K3_ROWS} rows beside torch.addmm); K1/K2 at {NEW_FRAME_SIZE}x"
           f"{NEW_FRAME_SIZE} on seeded exports {list(NEW_FRAME_SHAPES)} (fp32 against plain "
           f"and float64, bf16 >= 40 dB, K2 = K1, the viewer); K3 alone at {K3_ROWS} rows at "
           f"{list(NEW_K3_SHAPES)}; both nets {RUN_1024} wide through the dense ini "
           f"({WIDTH_DENSE_STEPS} steps) and the fine ini ({FINE_STEPS} steps)")
     shapes = {"frames": {}, "k3": {}}
+    gemm = wd_gemm_leg(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_shapes_") as tmp:
         for name in NEW_FRAME_SHAPES:
             shapes["frames"][name] = frame_shape_leg(name, viewer, dev, tmp)
     for name, (w, d, ic, rows) in NEW_K3_SHAPES.items():
         shapes["k3"][name] = k3_alone(w, dev, d, ic, rows)
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_w{RUN_1024}_") as tmp:
+        wide.gemm_launches = 0
         shapes["runs_1024"], ts_w, _, _ = width_runs(train, NerfTrainKernel, RUN_1024, tmp)
+        gemm["launches"] = wide.gemm_launches
         del ts_w
+    print(f"  wd_gemm launches in the {RUN_1024}-wide dense and fine runs: {gemm['launches']}",
+          flush=True)
+    if gemm["launches"] < 1:
+        raise SystemExit(f"the {RUN_1024}-wide runs did not go through wd_gemm")
     torch.cuda.empty_cache()
     print(f"  card: {card_state()}", flush=True)
     done("20", t)
@@ -2630,7 +2680,19 @@ def main():
         "sharded_4_launches": scale_out["MegakernelDense"]["launches"],
         "sharded_4_ms": scale_out["MegakernelDense"]["ms_4_slices"],
         "sharded_4_whole_ms": scale_out["MegakernelDense"]["ms_whole"],
-        "widths": frame_widths("k2"), "shapes": frame_shapes("k2")}]}), flush=True)
+        "widths": frame_widths("k2"), "shapes": frame_shapes("k2")}, {
+        "name": "wd_gemm", "route": "cuda", "source": "adanerf_tpu_torch/csrc/wide.cu",
+        "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",
+        "also_replaces": ["adanerf_tpu/ops/pallas/megakernel3.py:227",
+                          "adanerf_tpu/ops/pallas/megakernel.py:281"],
+        "launches": gemm["launches"], "max_abs_err": gemm["max_abs_err"],
+        "ms": gemm["times"][GEMM_HEADLINE]["ms"],
+        "plain_ms": gemm["times"][GEMM_HEADLINE]["plain_ms"],
+        "bound_ms": gemm["times"][GEMM_HEADLINE]["bound_ms"],
+        "bound_by": gemm["times"][GEMM_HEADLINE]["bound_by"],
+        "library_ms": gemm["times"][GEMM_HEADLINE]["library_ms"],
+        "tflops": gemm["times"][GEMM_HEADLINE]["tflops"], "shape": GEMM_HEADLINE,
+        "shapes": gemm["times"], "check": gemm["check"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

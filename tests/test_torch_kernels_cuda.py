@@ -20,6 +20,7 @@ from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
 from adanerf_tpu_torch.ops.kernels import nerf_train_check
 from adanerf_tpu_torch.ops.kernels.nerf_train import NerfTrainKernel
 from torch_wide_export import write_wide_export
+from torch_wide_gemm_check import WIDE_GEMM_CASES, wide_gemm_case
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXPORTS = {"mscene": os.path.join(ROOT, "demo", "trained_mscene_export"),
@@ -139,7 +140,8 @@ def test_dense_kernel_matches_plain_and_k1(threshold):
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [128, 384, 512])
 def test_frame_kernels_match_plain_at_other_widths(tmp_path, width):
-    """K1 and K2 at the other MLP widths, on a seeded export of 8-layer MLPs
+    """K1 and K2 at the other MLP widths (128 on the fused kernels, 384 and
+    512 on the wide path), on a seeded export of 8-layer MLPs
     (tests/torch_wide_export.py): in fp32 K1 against its plain version
     (test_cuda_kernel_matches_plain's bars) and K2 against K1 (counts
     exact, rgb within 1.5e-7); in bf16 K1 against its plain version at 40
@@ -152,6 +154,7 @@ def test_frame_kernels_match_plain_at_other_widths(tmp_path, width):
         dirs, pose, rot = _frame_inputs(scene, 16384)
         dirs = dirs.cuda()
         k1, k2 = MegakernelCompact(rt), MegakernelDense(rt)
+        assert (k1.front_wide, k1.shade_wide) == (width > 256,) * 2
         before = (MegakernelCompact.launches, MegakernelDense.launches)
         rgb1, cnt1 = k1(dirs, pose, rot)
         rgb2, cnt2 = k2(dirs, pose, rot)
@@ -319,9 +322,8 @@ def test_nerf_train_kernel_matches_plain(rows):
 @pytest.mark.parametrize("width,rows", [(128, 4096), (128, 130), (384, 4096), (384, 40000),
                                         (512, 4096), (512, 40000)])
 def test_nerf_train_kernel_matches_plain_at_other_widths(width, rows):
-    """The same check at K3's other widths: 128 (a 64-wide views layer),
-    384 and 512 (every product wider than 256 columns in two wgmma passes,
-    one x buffer, and at 512 a 2-stage weight ring), with
+    """The same check at K3's other widths: 128 (a 64-wide views layer, on
+    the fused kernels), 384 and 512 (on the wide path, csrc/wide.cu), with
     nerf_train_check's caps for the width. At 384 and 512 a leaf's bar
     needs thousands of rows: at 130 rows the few rows whose relu signs
     differ (6 to 11) move views.0.w's gradient by 7e-2 to 9e-2 of its max,
@@ -353,6 +355,27 @@ def test_nerf_train_kernel_matches_plain_at_new_shapes(width, depth, input_ch, r
           + "\n  ".join(lines + res["report"]))
     assert res["launched"] == (1, 1)
     assert ok, lines
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE_GEMM_CASES))
+def test_wide_gemm_matches_float64(name):
+    """wd_gemm (csrc/wide.cu, the layer GEMM of K1/K2/K3's wide path) alone
+    on each epilogue it runs: every element of every output within one
+    bf16 step plus an fp32 sum's bound of float64 sums of the same bf16
+    inputs (wide_gemm_case), at ragged row counts (130; 40,000 over the
+    persistent grid; a device count past base; a count of 0, which writes
+    nothing), at n of 64, 192, 256 and 640 (a pass of 128 columns last),
+    with a second input (kc1), and two calls bit for bit equal."""
+    _need_card()
+    from adanerf_tpu_torch.ops.kernels import wide
+    before = wide.gemm_launches
+    _, same, err, max_abs = wide_gemm_case(name, torch.device("cuda"), wide.gemm)
+    torch.cuda.synchronize()
+    print(f"{name}: max abs errors {max_abs}, excess over the bars {err}")
+    assert wide.gemm_launches == before + 2
+    assert same
+    assert err and all(e <= 0 for e in err.values()), err
 
 
 @pytest.mark.cuda

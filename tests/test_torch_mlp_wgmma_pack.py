@@ -114,14 +114,17 @@ def test_bf16_stream_untiles_to_every_matrix(name):
 
 @pytest.mark.parametrize("width", [128, 384, 512])
 def test_bf16_stream_untiles_at_other_widths(tmp_path, width):
-    """At the other widths K1 and K2 take: walking each layer pass by pass
-    (a layer wider than 256 columns is two wgmma passes, each pass's chunks
-    of every input in turn: megakernel_compact.unpack_layer) un-tiles every
+    """At the other widths K1 and K2 take (128 on the fused kernels, 384
+    and 512 on the wide path, whose GEMMs read the same stream): walking
+    each layer pass by pass (a layer wider than 256 columns comes in
+    passes of 256, each pass's chunks of every input in turn:
+    megakernel_compact.unpack_layer) un-tiles every
     matrix bit for bit; every chunk is one bulk copy of at most a stage,
     1024-byte aligned; the oracle's stream runs into the NeRF's."""
     export = write_wide_export(tmp_path / "export", width, width)
     rt, _ = tviewer.build_renderer_from_export(export, dtype_str="bf16", device="cpu")
     mk = mc.MegakernelCompact(rt)
+    assert (mk.front_wide, mk.shade_wide) == (width > 256,) * 2
     P, L = mk.params, mk.layers
     flat = mk.weights.view(torch.int16).numpy()
     want_front, want_shade = _expected_layers(rt, P)

@@ -80,12 +80,12 @@ def test_unported_options_are_refused_before_step_0(scene, tmp_path, extra, word
 
 
 @pytest.mark.parametrize("widths,wide", [(("256", "640"), True), (("256", "1024"), True),
-                                         (("256", "512"), False), (("256", "128"), False),
+                                         (("256", "512"), True), (("256", "128"), False),
                                          (("32", "256"), False), (("256", "96"), None)])
 def test_nerf_widths_k3_does_not_take_are_refused_on_cuda(scene, tmp_path, widths, wide):
     """No NeRF width is refused on CUDA any more: with --bf16, every NeRF
     that the JAX package trains through its TPU kernel (a width that is a
-    multiple of 128) trains through K3, a width above 512 on its wide path
+    multiple of 128) trains through K3, a width above 256 on its wide path
     (the libraries built before the ranks start say which); one that JAX
     trains on its plain path (96) trains plainly. Without a card the run
     gets past every refusal to the device check."""

@@ -189,11 +189,13 @@ def test_cpu_tensor_takes_the_plain_version():
                                                (512, 3, (1,))])
 def test_cuda_kernel_arithmetic_matches_jax_kernel_at_other_widths(width, depth, skips):
     """The same replay at the other widths K3 takes: 128 (views layer 64
-    wide), and 384 and 512, whose products wider than 256 columns the
-    kernels run in two passes (the streams carry them pass by pass)."""
+    wide, on the fused kernels), and 384 and 512, whose products wider than
+    256 columns the streams carry pass by pass, as the wide path's GEMMs
+    read them (csrc/wide.cu)."""
     jdef, params, tdef, x, g = _setup(depth, width, skips, 200, width)
     out_ref, grads_ref = _jax_kernel_grads(jdef, params, x, g)
     k3 = NerfTrainKernel(tdef)
+    assert k3.wide == (width > 256)
     assert any("@256" in what for what, _, _ in k3.plan[0]) == (width > 256)
     with torch.no_grad():
         out, grads, _ = k3_replay(k3, tdef, torch.from_numpy(x), torch.from_numpy(g))
@@ -233,7 +235,7 @@ def test_train_step_routes_every_nerf_jax_routes(shape, routed):
     assert (fns is not None) == routed
     if routed:
         assert fns[0] is None and isinstance(fns[1], NerfTrainKernel)
-        assert fns[1].wide == (shape[1] > 512 or shape[2] + shape[3] > 128)
+        assert fns[1].wide == (shape[1] > 256 or shape[2] + shape[3] > 128)
 
 
 # the shapes only the wide path takes: (width, depth, skips, input_ch)
