@@ -4,8 +4,10 @@ Counterpart of ``adanerf_tpu/data/dataset.py``. A scene directory holds
 ``dataset_info.json`` (view cell, resolution, fov, depth ranges),
 ``transforms_{train,val,test}.json`` (poses) and per-frame ``*.png`` (+
 optional ``*_depth.npz``, or with ``--useNerfDepthMap`` an exported NeRF's
-``*_QuantizedWeights_lo_nSD.raw``). A split that fits the host's memory
-budget is loaded whole as numpy arrays, a larger one streams through a
+``*_QuantizedWeights_lo_nSD.raw``). ``CameraViewCellDataset`` and
+``MultipleViewCellCameraDataset`` are a video path's poses without
+images. A split that fits the host's memory budget is loaded whole as
+numpy arrays, a larger one streams through a
 bounded LRU store (``data/streaming.py``, ``load_dataset_split``); the
 train step gathers its rays from either (pixel index convention ``y + h *
 x``). PNGs are decoded by ``data/png.py``. With ``--samplePlacementDir`` a
@@ -266,6 +268,66 @@ class ViewCellDataset:
         d = load_tensor_dict(file_name, ("OutputDepthMap", "InputDepthRange"))
         raw = self.transform_depth_image(d["OutputDepthMap"], do_not_transform=True)
         return np.asarray(self.depth_transform.from_world(raw, d["InputDepthRange"]))
+
+    def load_nogt_weights(self, file_name: str) -> np.ndarray:
+        """TermiNeRF's quantized per-ray weights: a ``.trch.npy`` export
+        through numpy, the reference's ``.trch`` torch container through
+        ``torch.load(weights_only=True)`` (a tensor, nothing else)."""
+        if file_name.endswith(".npy"):
+            return np.load(file_name)
+        import torch
+        return torch.load(file_name, map_location="cpu", weights_only=True).numpy()
+
+
+class CameraViewCellDataset:
+    """A video path's poses without images (``--camType`` and its options,
+    ``data/camera.py``): ``vid_<i>`` names, the frame's ray directions."""
+
+    def __init__(self, config, dataset_info: DatasetInfo):
+        from .camera import camera_path_transforms
+        self.info = dataset_info
+        self.w, self.h = dataset_info.w, dataset_info.h
+        transforms = camera_path_transforms(config, dataset_info)
+        self.num_items = len(transforms)
+        self.poses = transforms[:, :3, 3].astype(np.float32)
+        self.rotations = transforms[:, :3, :3].astype(np.float32)
+        self.directions = generate_ray_directions(
+            self.w, self.h, dataset_info.view.fov,
+            dataset_info.view.focal).reshape(-1, 3).astype(np.float32)
+        self.color_images = None
+        self.depth_images = None
+        self.image_filenames = [f"vid_{i:05d}" for i in range(self.num_items)]
+
+    def __len__(self):
+        return self.num_items
+
+
+class MultipleViewCellCameraDataset(CameraViewCellDataset):
+    """A camera path across several view cells: for each pose, the cells
+    that hold it (a pose inside the unit cube of a cell's
+    ``view_cell_matrix_world``), with each cell's radius and its centre's
+    distance; a pose in no cell raises ValueError."""
+    ConstantIndex = "indices"
+    ConstantRadius = "radius"
+    ConstantDistance = "distance"
+
+    def __init__(self, config, dataset_info: DatasetInfo, view_cells_data):
+        super().__init__(config, dataset_info)
+        self.pose_to_view_cells = []
+        for pose in self.poses:
+            cells = {self.ConstantIndex: [], self.ConstantRadius: [], self.ConstantDistance: []}
+            for vc in view_cells_data:
+                center = np.array(vc["view_cell_orientation"], np.float32)[:3, 3]
+                m_world = np.array(vc["view_cell_matrix_world"], np.float32)
+                local = np.linalg.inv(m_world) @ np.append(pose, 1.0)
+                if np.all(np.abs(local[:3]) <= 1.0):
+                    cells[self.ConstantIndex].append(vc["view_cell_name"])
+                    cells[self.ConstantRadius].append(
+                        float(np.linalg.norm(np.array(vc["view_cell_size"]) / 2.0)))
+                    cells[self.ConstantDistance].append(float(np.linalg.norm(center - pose)))
+            if not cells[self.ConstantIndex]:
+                raise ValueError("could not find view cell for pose")
+            self.pose_to_view_cells.append(cells)
 
 
 def load_dataset_split(config, dataset_info, set_name, num_samples=2048,

@@ -3,17 +3,21 @@
 decodes with libjpeg-turbo); the machine that runs the port on the GPU has
 neither.
 
-Formats: baseline and extended sequential Huffman DCT (SOF0, SOF1), 8-bit
-samples, 1 component (greyscale, returned (h, w) uint8) or 3 (YCbCr, or
-RGB under an Adobe transform 0 or 'R', 'G', 'B' component ids; returned
-(h, w, 3) uint8), sampling factors 1 or 2 against the largest (4:4:4,
+Formats: baseline, extended sequential and progressive Huffman DCT (SOF0,
+SOF1, SOF2), 8-bit samples, 1 component (greyscale, returned (h, w)
+uint8) or 3 (YCbCr, or RGB under an Adobe transform 0 or 'R', 'G', 'B'
+component ids; returned (h, w, 3) uint8), sampling factors 1 or 2 against the largest (4:4:4,
 4:2:2, 4:2:0, 4:4:0), interleaved or one scan per component, restart
-intervals (DRI), 8- or 16-bit quantization tables. APPn and COM segments
-are skipped, EXIF included; as imageio, no EXIF orientation is applied.
-Progressive, lossless, hierarchical and arithmetic-coded files and 12-bit
+intervals (DRI), 8- or 16-bit quantization tables. A progressive file's
+scans (spectral selection, successive approximation: DC first and
+refinement, AC first and refinement with their end-of-band runs and
+correction bits, restart intervals inside any of them) build up each
+block's coefficients, which then decode as a sequential file's. APPn and
+COM segments are skipped, EXIF included; as imageio, no EXIF orientation
+is applied. Lossless, hierarchical and arithmetic-coded files and 12-bit
 samples raise a ``ValueError`` that names the format (the JAX package reads
-progressive files: ROADMAP Queue 1, item 21), and so does a file that ends
-inside its entropy-coded data (PIL refuses a truncated file too).
+them through imageio: ROADMAP Queue 1, item 23), and so does a file that
+ends inside its entropy-coded data (PIL refuses a truncated file too).
 
 The pixels are libjpeg-turbo's under its defaults: the integer "islow"
 inverse DCT (``jidctint.c``), fancy (triangle) upsampling of 2x chroma
@@ -26,8 +30,10 @@ interval's unstuffed bytes through 64-bit windows (one per byte offset,
 built in numpy a chunk at a time) and a 65,536-entry lookahead table per
 Huffman table, which gives for the next 16 bits the code's length, the
 AC run and, where code and value bits fit in the 16, the decoded
-coefficient, so most coefficients cost one table lookup. Dequantization,
-the IDCT, upsampling and colour conversion run in numpy over all blocks.
+coefficient, so most coefficients cost one table lookup; a progressive
+scan reads the same tables through ``_Bits``, and a DC refinement scan,
+one bit a block, is read in numpy. Dequantization, the IDCT, upsampling
+and colour conversion run in numpy over all blocks.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from array import array
 
 import numpy as np
 
-_ITEM = "ROADMAP Queue 1, item 21"
+_ITEM = "ROADMAP Queue 1, item 23"
 # zigzag position k -> natural (row-major) index of the 8x8 block
 _ZIGZAG = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
@@ -47,8 +53,9 @@ _ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 _NATURAL = np.argsort(_ZIGZAG)  # natural index -> zigzag position
+_FRAMES = (0xC0, 0xC1, 0xC2)  # baseline, extended sequential, progressive
 _REFUSED = {
-    0xC2: "progressive DCT (SOF2)", 0xC3: "lossless (SOF3)",
+    0xC3: "lossless (SOF3)",
     0xC5: "differential sequential DCT (SOF5, hierarchical)",
     0xC6: "differential progressive DCT (SOF6, hierarchical)",
     0xC7: "differential lossless (SOF7, hierarchical)",
@@ -75,9 +82,9 @@ def read_jpeg(path: str) -> np.ndarray:
 
 
 def _refuse(name, what):
-    raise ValueError(f"{name}: unsupported JPEG format: {what}. The port decodes baseline and "
-                     f"extended sequential Huffman JPEG with 8-bit samples; the JAX package "
-                     f"reads this file through imageio ({_ITEM})")
+    raise ValueError(f"{name}: unsupported JPEG format: {what}. The port decodes baseline, "
+                     f"extended sequential and progressive Huffman JPEG with 8-bit samples; "
+                     f"the JAX package reads this file through imageio ({_ITEM})")
 
 
 @functools.lru_cache(maxsize=64)
@@ -347,6 +354,7 @@ class _Frame:
                       for h, v in zip(self.hs, self.vs)] if allocate else None
         self.quant = [None] * n
         self.scanned = [False] * n
+        self.progressive = False
 
     def comp_size(self, c):
         """(width, height) in samples of component c's plane."""
@@ -411,7 +419,7 @@ def probe_jpeg(data: bytes, name: str = "<bytes>"):
         marker, body, pos = _next_segment(data, pos, name)
         if marker in _REFUSED:
             _refuse(name, _REFUSED[marker])
-        if marker in (0xC0, 0xC1):
+        if marker in _FRAMES:
             frame = _Frame(body, name, allocate=False)
             return frame.h, frame.w, len(frame.ids)
         if marker in (0xD9, 0xDA):
@@ -436,10 +444,11 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
             _refuse(name, _REFUSED[marker])
         elif marker == 0xCC:
             _refuse(name, "arithmetic coding (DAC)")
-        elif marker in (0xC0, 0xC1):
+        elif marker in _FRAMES:
             if frame is not None:
                 raise ValueError(f"{name}: corrupt JPEG: two frames")
             frame = _Frame(body, name)
+            frame.progressive = marker == 0xC2
         elif marker == 0xC4:  # DHT
             i = 0
             while i < len(body):
@@ -494,6 +503,19 @@ def _scan(data, pos, body, frame: _Frame, qtables, htables, restart, name) -> in
     """Decode the scan whose header is ``body`` and whose data starts at
     ``pos``; returns the offset of the marker after it."""
     ns = body[0]
+    ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4, \
+        body[3 + 2 * ns] & 15
+    if not frame.progressive and (ss != 0 or se != 63):
+        _refuse(name, f"a spectral-selection scan ({ss}..{se}) in a sequential frame")
+    if frame.progressive and (se > 63 or ss > se or (ss == 0) != (se == 0)
+                              or (ss > 0 and ns != 1) or al > 13
+                              or (ah != 0 and al != ah - 1)):
+        raise ValueError(f"{name}: corrupt JPEG: a progressive scan of band {ss}..{se}, "
+                         f"bits {ah}->{al} over {ns} components")
+    # the Huffman tables the scan reads: DC for a sequential scan and a DC
+    # first scan, AC for a sequential scan and an AC scan
+    need_dc = not frame.progressive or (ss == 0 and ah == 0)
+    need_ac = not frame.progressive or ss > 0
     comps, tables = [], {}
     for i in range(ns):
         cid, tt = body[1 + 2 * i:3 + 2 * i]
@@ -502,18 +524,16 @@ def _scan(data, pos, body, frame: _Frame, qtables, htables, restart, name) -> in
         c = frame.ids.index(cid)
         comps.append(c)
         td, ta = tt >> 4, tt & 15
-        if (0, td) not in htables or (1, ta) not in htables:
+        if (need_dc and (0, td) not in htables) or (need_ac and (1, ta) not in htables):
             raise ValueError(f"{name}: corrupt JPEG: a scan uses an undefined Huffman table")
         if frame.tq[c] not in qtables:
             raise ValueError(f"{name}: corrupt JPEG: undefined quantization table")
-        frame.quant[c] = qtables[frame.tq[c]]
+        if frame.quant[c] is None:  # latched at the component's first scan, as libjpeg's
+            frame.quant[c] = qtables[frame.tq[c]]
         frame.scanned[c] = True
-        dc, dcsym = _huffman_table(0, *htables[(0, td)])
-        ac, acsym = _huffman_table(1, *htables[(1, ta)])
+        dc, dcsym = _huffman_table(0, *htables[(0, td)]) if need_dc else (None, None)
+        ac, acsym = _huffman_table(1, *htables[(1, ta)]) if need_ac else (None, None)
         tables[c] = (dc, ac, dcsym, acsym)
-    ss, se = body[1 + 2 * ns], body[2 + 2 * ns]
-    if ss != 0 or se != 63:
-        _refuse(name, f"a spectral-selection scan ({ss}..{se})")
     segs, end = _segments(data, pos, name)
     blocks, per_mcu = _scan_blocks(frame, comps)
     step = restart * per_mcu if restart else len(blocks)
@@ -523,8 +543,191 @@ def _scan(data, pos, body, frame: _Frame, qtables, htables, restart, name) -> in
                          f"where {n_int} are needed")
     try:
         for j in range(n_int):
-            _decode_interval(segs[j], blocks[j * step:(j + 1) * step], tables,
-                             frame.coefs, name)
+            part = blocks[j * step:(j + 1) * step]
+            if not frame.progressive:
+                _decode_interval(segs[j], part, tables, frame.coefs, name)
+            elif ss == 0 and ah:
+                _dc_refine(segs[j], part, frame.coefs, al, name)
+            elif ss == 0:
+                _dc_first(_Bits(segs[j]), part, tables, frame.coefs, al, name)
+            else:
+                c = comps[0]
+                _ac_scan(_Bits(segs[j]), [o for _, o in part], tables[c], frame.coefs[c],
+                         ss, se, ah, al, name)
     except (IndexError, OverflowError) as err:
         raise ValueError(f"{name}: corrupt JPEG: {err}") from None
     return end
+
+
+class _Bits:
+    """A restart interval's bits, read through the 64-bit windows of
+    ``_windows`` as ``_decode_interval`` reads them: ``block()`` before
+    each block moves the windows on, ``peek()`` gives the next 16 bits,
+    ``take(n)`` consumes n. A block reads at most 64 codes and their value
+    and correction bits, well inside ``_SLACK``."""
+
+    def __init__(self, seg: bytes):
+        self.buf = np.frombuffer(seg + bytes(_SLACK + 8), np.uint8)
+        self.nbits = 8 * len(seg)
+        self.pos = self.base = 0
+        self.win = _windows(self.buf, 0)
+        self.limit = (len(self.win) - _SLACK) * 8
+
+    def block(self):
+        if self.pos - self.base > self.limit:
+            self.base = self.pos & ~7
+            self.win = _windows(self.buf, self.base >> 3)
+            self.limit = (len(self.win) - _SLACK) * 8
+
+    def peek(self) -> int:
+        p = self.pos - self.base
+        return (self.win[p >> 3] >> (48 - (p & 7))) & 0xFFFF
+
+    def take(self, n: int) -> int:
+        if n == 0:
+            return 0
+        p = self.pos - self.base
+        self.pos += n
+        return (self.win[p >> 3] >> (64 - (p & 7) - n)) & ((1 << n) - 1)
+
+    def check(self, name):
+        if self.pos > self.nbits:
+            raise ValueError(f"{name}: corrupt or truncated JPEG: the entropy-coded data ends "
+                             f"before its blocks")
+
+
+def _extend(x: int, s: int) -> int:
+    """The signed value of ``s`` value bits ``x`` (JPEG's EXTEND)."""
+    return x - (1 << s) + 1 if x < 1 << (s - 1) else x
+
+
+def _ac_symbol(bits: _Bits, actab, acsym, name):
+    """One AC code of a progressive scan: (run, value), value 0 for the
+    codes without a coefficient (run 15: sixteen zeros; else an end-of-band
+    run of 2^run plus run more bits' blocks)."""
+    look = bits.peek()
+    t, r, v = actab[look]
+    if t:
+        bits.pos += t
+        return r, v
+    if r == -3:  # the value bits run past the 16
+        rs = acsym[look]
+        bits.pos += v
+        s = rs & 15
+        return rs >> 4, _extend(bits.take(s), s)
+    if r == -2:
+        bits.pos += v
+        return 15, 0
+    if r == -1:
+        bits.pos += v
+        return acsym[look] >> 4, 0
+    raise ValueError(f"{name}: corrupt JPEG: bad Huffman code")
+
+
+def _dc_first(bits: _Bits, blocks, tables, coefs, al, name):
+    """A progressive DC first scan: each block's DC difference, as a
+    sequential scan's, scaled by 2^al."""
+    pred = {}
+    for ci, off in blocks:
+        bits.block()
+        dctab, _, dcsym, _ = tables[ci]
+        look = bits.peek()
+        t, v = dctab[look]
+        if t > 0:
+            bits.pos += t
+        elif t == 0:  # v: the code's length
+            s = dcsym[look]
+            bits.pos += v
+            v = _extend(bits.take(s), s) if s else 0
+        else:
+            raise ValueError(f"{name}: corrupt JPEG: bad Huffman code")
+        v += pred.get(ci, 0)
+        pred[ci] = v
+        coefs[ci][off] = v * (1 << al)
+    bits.check(name)
+
+
+def _dc_refine(seg: bytes, blocks, coefs, al, name):
+    """A progressive DC refinement scan: one raw bit a block, bit al of its
+    DC coefficient (numpy over the interval's blocks)."""
+    bit = np.unpackbits(np.frombuffer(seg, np.uint8))
+    if bit.size < len(blocks):
+        raise ValueError(f"{name}: corrupt or truncated JPEG: the entropy-coded data ends "
+                         f"before its blocks")
+    ci = np.array([c for c, _ in blocks])
+    off = np.array([o for _, o in blocks])
+    set_ = bit[:len(blocks)].astype(bool)
+    for c in np.unique(ci).tolist():
+        view = np.frombuffer(coefs[c], np.int16)
+        at = off[set_ & (ci == c)]
+        view[at] |= np.int16(1 << al)
+
+
+def _ac_scan(bits: _Bits, offs, table, out, ss, se, ah, al, name):
+    """A progressive AC scan of one component's blocks over the band
+    ss..se (zigzag positions): a first scan (ah == 0) writes coefficients
+    scaled by 2^al; a refinement scan adds bit al to the coefficients
+    already nonzero (one correction bit each, where the band reaches them)
+    and places the new +-2^al ones. End-of-band runs carry across the
+    interval's blocks, as ``jdphuff.c`` decodes them."""
+    _, actab, _, acsym = table
+    eobrun = 0
+    if not ah:
+        for off in offs:
+            if eobrun:
+                eobrun -= 1
+                continue
+            bits.block()
+            k = ss
+            while k <= se:
+                r, v = _ac_symbol(bits, actab, acsym, name)
+                if v:
+                    k += r
+                    if k > se:
+                        raise ValueError(f"{name}: corrupt JPEG: a block runs past its band")
+                    out[off + k] = v * (1 << al)
+                elif r == 15:
+                    k += 15
+                else:
+                    eobrun = (1 << r) + bits.take(r) - 1
+                    break
+                k += 1
+        bits.check(name)
+        return
+    p1, m1 = 1 << al, -1 << al
+    for off in offs:
+        bits.block()
+        k = ss
+        if not eobrun:
+            while k <= se:
+                r, v = _ac_symbol(bits, actab, acsym, name)
+                if v not in (0, 1, -1):
+                    raise ValueError(f"{name}: corrupt JPEG: a refinement coefficient of "
+                                     f"size above 1")
+                if not v and r != 15:
+                    eobrun = (1 << r) + bits.take(r)
+                    break
+                # skip r zero coefficients (correcting the nonzero ones on
+                # the way) and stop at the zero that takes the new value
+                while k <= se:
+                    c = out[off + k]
+                    if c:
+                        if bits.take(1) and not c & p1:
+                            out[off + k] = c + (p1 if c >= 0 else m1)
+                    elif r:
+                        r -= 1
+                    else:
+                        break
+                    k += 1
+                if v:
+                    if k > se:
+                        raise ValueError(f"{name}: corrupt JPEG: a block runs past its band")
+                    out[off + k] = p1 if v > 0 else m1
+                k += 1
+        if eobrun:
+            for k in range(k, se + 1):
+                c = out[off + k]
+                if c and bits.take(1) and not c & p1:
+                    out[off + k] = c + (p1 if c >= 0 else m1)
+            eobrun -= 1
+    bits.check(name)

@@ -19,7 +19,8 @@ resizes a frame of another size with
 square-diff and FLIP frame sequences are written as
 ``{_diff,_square_diff,_flip}_frames/%05d.png``, what the JAX package writes
 when it has no video encoder. A JPEG frame in a format the decoder does not
-take (progressive, ROADMAP Queue 1, item 21) is refused by name.
+take (arithmetic-coded, lossless, hierarchical, 12-bit: ROADMAP Queue 1,
+item 23) is refused by name.
 """
 
 from __future__ import annotations

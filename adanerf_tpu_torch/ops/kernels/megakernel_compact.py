@@ -216,6 +216,10 @@ def _numpy_state(module):
     return {k: v.detach().float().cpu().numpy() for k, v in module.state_dict().items()}
 
 
+def _precision(dtype):
+    return "fp32" if dtype is None else str(dtype).replace("torch.", "")
+
+
 def refusal(renderer):
     """Why K1 (and K2, which adds refusals of its own) does not take this
     renderer's export, or None when it does; each reason names the line of
@@ -227,6 +231,15 @@ def refusal(renderer):
     if renderer.dtype not in (None, torch.bfloat16):
         return (f"kernel precision is fp32 or bf16, got {renderer.dtype} (as the JAX kernel's: "
                 "megakernel3.py:62 _PRECISIONS)")
+    # the kernels are built for one precision each, as the JAX kernel packs
+    # both MLPs at one pack_dtype; a renderer's per-net precisions
+    # (RealtimeRenderer(oracle_dtype=, nerf_dtype=)) run on the plain path
+    o = getattr(renderer, "oracle_dtype", renderer.dtype)
+    n = getattr(renderer, "nerf_dtype", renderer.dtype)
+    if o != renderer.dtype or n != renderer.dtype:
+        return (f"mixed precision (oracle {_precision(o)}, NeRF {_precision(n)}): the kernels "
+                "run both MLPs at one precision, fp32 or bf16, as the JAX kernel packs both at "
+                "one pack_dtype (viewer.py:234-236); render it on the plain path")
     if list(cfg.posEnc) != ["nerf", "nerf"]:
         return (f"kernel implements the nerf encoding, got {cfg.posEnc} (as the JAX kernel's "
                 "lane tables: megakernel.py:209 lane_encode_tables)")

@@ -229,6 +229,28 @@ class SpherePosDir(FeatureSet):
             self.abbr = ("SpPoDir" if self.project else self.base_abbr) + \
                 f"[{self.additional_samples}]"
 
+    def warp_depth_images(self, depths, rotations, poses, directions):
+        """GT depth maps in the sphere-relative warp: world depth less the
+        distance to the view-cell sphere's exit, re-normalized with the
+        warped range (1 stays 1). depths (n, h, w, 1), rotations (n, 3, 3),
+        poses (n, 3), directions (h*w, 3); one image at a time, as the JAX
+        ``vmap``."""
+        sc = self.scene
+        depths, rotations, poses, directions = (
+            torch.as_tensor(a, dtype=torch.float32) for a in (depths, rotations, poses, directions))
+        center = torch.tensor(sc.view_cell_center, dtype=torch.float32, device=depths.device)
+        out = []
+        for depth, rotation, pose in zip(depths, rotations, poses):
+            nds = directions @ rotation.T
+            dist = ray_sphere_offset(nds, pose.expand(nds.shape), center, sc.view_cell_radius)
+            d = depth.reshape(-1)
+            dw = sc.depth_transform.to_world(d, sc.depth_range) - dist
+            dw = torch.where(d == 1.0, torch.full_like(dw, sc.depth_range[1]), dw)
+            dn = sc.depth_transform.from_world(dw, sc.depth_range_warped)
+            dn = torch.where(dw == sc.depth_range[1], torch.ones_like(dn), dn)
+            out.append(dn.reshape(depth.shape))
+        return torch.stack(out)
+
     def batch(self, data, prev_outs=None, is_inference=False, generator=None):
         poses = data[DatasetKeys.image_pose]          # (n_img, 3)
         rotations = data[DatasetKeys.image_rotation]  # (n_img, 3, 3)

@@ -73,16 +73,23 @@ class RealtimeRenderer:
     oracle, nerf: ``BaseNetDef`` / ``NeRFDef`` modules on ``device``.
     dtype: None for fp32 MLPs, ``torch.bfloat16`` for bf16 operands with
     fp32 accumulation (the production precision of the kernels).
+    oracle_dtype, nerf_dtype: one net's precision where it differs from
+    ``dtype`` (each defaults to ``dtype``): ``precision_study.py`` bisects
+    which MLP's bf16 rounding carries a frame's PSNR deficit. K1 and K2 run
+    only a uniform precision (``megakernel_compact.refusal``).
     compaction: shade only the live samples; off (or at threshold <= 0)
     every slot is shaded, as the JAX renderer's ``compaction=False``.
     """
 
     def __init__(self, oracle, nerf, scene, config, batch_size: int = 65536,
-                 dtype=None, device="cuda", compaction: bool = True):
+                 dtype=None, device="cuda", compaction: bool = True,
+                 oracle_dtype="unset", nerf_dtype="unset"):
         self.oracle, self.nerf = oracle, nerf
         self.scene, self.config = scene, config
         self.batch_size = batch_size
         self.dtype = dtype
+        self.oracle_dtype = dtype if oracle_dtype == "unset" else oracle_dtype
+        self.nerf_dtype = dtype if nerf_dtype == "unset" else nerf_dtype
         self.device = torch.device(device)
         self.max_samples = config.numRaymarchSamples[1]
         self.threshold = float(config.adaptiveSamplingThreshold)
@@ -123,7 +130,7 @@ class RealtimeRenderer:
         distance = ray_sphere_offset(nds, origins, self.center, self.scene.view_cell_radius)
         proj = origins + nds * distance[:, None]
         x = torch.cat([self.enc0_dir(nds), self.enc0_pos(proj)], dim=-1)
-        return origins, nds, proj, mlp_rows(self.oracle, x, self.dtype)
+        return origins, nds, proj, mlp_rows(self.oracle, x, self.oracle_dtype)
 
     def _oracle_stage(self, pose, rotation, dirs):
         """dirs: (B, 3) camera-space unit dirs; pose (3,); rotation (3, 3).
@@ -180,8 +187,8 @@ class RealtimeRenderer:
             # NDC rays step with the unnormalized d but encode the unit dir
             d_enc = unit(d)
         restored = torch.zeros((B, S, 4), dtype=torch.float32, device=mask.device)
-        restored[ray, slot] = mlp_rows(self.nerf, self._encode_samples(pos, d_enc), self.dtype,
-                                       torch.sigmoid)
+        restored[ray, slot] = mlp_rows(self.nerf, self._encode_samples(pos, d_enc),
+                                       self.nerf_dtype, torch.sigmoid)
         return self._composite(restored, z_probs)
 
     def _dense_shade_stage(self, o_sh, d_sh, z_world, z_probs, mask):
@@ -196,7 +203,7 @@ class RealtimeRenderer:
         dirs_exp = d_enc[:, None, :].expand(pos.shape)
         sig = mlp_rows(self.nerf, self._encode_samples(pos.reshape(-1, 3),
                                                        dirs_exp.reshape(-1, 3)),
-                       self.dtype, torch.sigmoid).reshape(B, S, 4) * mask[..., None]
+                       self.nerf_dtype, torch.sigmoid).reshape(B, S, 4) * mask[..., None]
         return self._composite(sig, z_probs)
 
     @torch.no_grad()

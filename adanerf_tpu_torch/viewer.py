@@ -92,7 +92,9 @@ def build_renderer_from_export(model_dir, batch_size=65536, dtype_str="bf16",
                                device="cuda"):
     """Plain renderer of an export directory; returns (renderer, scene).
     Net shapes are inferred from the weight files; dtype_str is "bf16" or
-    "fp32"."""
+    "fp32" (both MLPs), or "oracle32" / "nerf32": that net in fp32, the
+    other in bf16 (``precision_study.py``'s bisection; the plain path only,
+    K1 and K2 refuse it: ``build_kernel``)."""
     cfg = parse_kv_file(os.path.join(model_dir, "config.ini"))
     info = parse_kv_file(os.path.join(model_dir, "dataset_info.txt"))
 
@@ -141,9 +143,13 @@ def build_renderer_from_export(model_dir, batch_size=65536, dtype_str="bf16",
                    input_ch_views=in_views1, n_out=4, skips=skips1 or (4,), net_idx=1)
     load_export_weights(oracle, path0)
     load_export_weights(nerf, path1)
-    dtype = {"fp32": None, "bf16": torch.bfloat16}[dtype_str]
+    if dtype_str not in ("bf16", "fp32", "oracle32", "nerf32"):
+        raise ValueError(f"dtype_str is 'bf16', 'fp32', 'oracle32' or 'nerf32', got {dtype_str!r}")
+    per_net = {"oracle32": dict(oracle_dtype=None), "nerf32": dict(nerf_dtype=None)}
     rt = RealtimeRenderer(oracle.to(device), nerf.to(device), scene, config,
-                          batch_size=batch_size, dtype=dtype, device=device)
+                          batch_size=batch_size,
+                          dtype=None if dtype_str == "fp32" else torch.bfloat16, device=device,
+                          **per_net.get(dtype_str, {}))
     return rt, scene
 
 
@@ -168,7 +174,9 @@ def build_kernel(rt, variant):
     """The frame kernel of a ``--megakernel`` variant, with the JAX viewer's
     refusals: a non-adaptive model or more than 16 samples for any variant
     (SystemExit), an NDC export for ``v3`` (ValueError); and the kernels'
-    own (ValueError: ``megakernel_compact.refusal``, K2's)."""
+    own (ValueError: ``megakernel_compact.refusal``, K2's), among them a
+    renderer whose two MLPs run at different precisions (``"oracle32"``,
+    ``"nerf32"``): the kernels are built for fp32 or bf16 throughout."""
     S = rt.max_samples
     if not (rt.threshold > 0.0 and S <= 16):
         raise SystemExit("--megakernel needs an adaptive model (threshold>0, <=16 samples; "
@@ -179,6 +187,16 @@ def build_kernel(rt, variant):
                              "NDC ray transform; v3 does not")
         return MegakernelDense(rt)
     return MegakernelCompact(rt)
+
+
+def kernel_frame(kernel, dirs, pose, rot, batch):
+    """(rgb (n, 3), counts (n,)) of one frame through a frame kernel: the
+    whole frame in one call on the card, ``batch`` rays at a time through
+    its plain version on the CPU."""
+    if dirs.device.type == "cuda":
+        return kernel(dirs, pose, rot)
+    outs = [kernel(dirs[s:s + batch], pose, rot) for s in range(0, dirs.shape[0], batch)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
 def camera_path(cam_path, n_frames):
@@ -267,10 +285,7 @@ def main(argv=None):
             return sharded(pos, rot)
         if kernel is None:
             return rt.render_frame(pos, rot, dirs)
-        if device.type == "cuda":
-            return kernel(dirs, pos, rot)
-        outs = [kernel(dirs[s:s + bs], pos, rot) for s in range(0, n_pix, bs)]
-        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+        return kernel_frame(kernel, dirs, pos, rot, bs)
 
     def sync():
         if device.type == "cuda":

@@ -40,7 +40,15 @@ layer GEMM ``wd_gemm`` alone against float64 and timed at 524,288 rows
 beside torch.addmm, K1 and K2 on seeded exports of mixed, 640- and
 1024-wide and 20-layer MLPs, K3 alone at 640, 768, 1024, 20 layers and
 150 input columns, both nets 1024 wide through the dense and the fine
-ini, wd_gemm's launches counted there), and prints, as its last two lines,
+ini, wd_gemm's launches counted there), runs the JAX package's last
+modules (phase 21: ``eval_megakernel`` on demo/mscene's test split
+through K1 and K2 in bf16 and K1's fp32 build against the ground truth
+and the fp32 plain renderer, and on the NDC export's orbit;
+``precision_study`` with the kernel's row; ``probe_threshold``'s counts
+against K1's and ``probe_oracle_ranks``; the progressive JPEG fixtures and
+``demo/llff_scene_pjpeg`` decoded and converted against their pins;
+``diagnose_tscene`` on demo/tscene's committed runs), and prints, as its
+last two lines,
 a JSON line of per-kernel numbers (each kernel's ``widths`` and
 ``shapes`` too) and a JSON line
 ``{"ok": true, "device": {...}}``. Exits
@@ -147,6 +155,21 @@ RUN_1024 = 1024
 NEW_FRAME_SIZE = 400
 # phase 20's wd_gemm shape in the kernels line (frame_times.GEMM_SHAPES has them all)
 GEMM_HEADLINE = "1024"
+# phase 21: the JAX package's last modules. (a)/(b) frame quality through K1
+# and K2 against the ground truth (eval_megakernel, precision_study) with
+# the BASELINE.json bar of 0.1 dB between the bf16 kernel and the fp32
+# plain renderer, 40 dB per image against it, 0.01 dB for the fp32 build;
+# (c) the threshold probe's counts against K1's (at most 1 ray in 10,000
+# apart, K1's bar against its plain version); (d) the progressive capture
+# and fixtures (tests/make_progressive_fixtures.py); (e) diagnose_tscene
+QUALITY_KERNEL_BARS = {"mean_db": 0.1, "image_vs_fp32_db": 40.0, "mlp_f32_mean_db": 0.01}
+PROBE_THRESHOLDS = (0.2, 0.01, 1e-4)
+PROBE_POSES = 4
+LLFF_PJPEG = os.path.join(ROOT, "demo", "llff_scene_pjpeg")
+PJPEG_FIXTURES = os.path.join(JPEG_FIXTURES, "progressive")
+PJPEG_PINNED = os.path.join(ROOT, "tests", "torch_fixtures", "llff_pjpeg.json")
+TSCENE = os.path.join(ROOT, "demo", "tscene")
+TLOGS = os.path.join(ROOT, "demo", "tlogs")
 
 T0 = time.perf_counter()
 
@@ -1388,52 +1411,54 @@ def jax_ndc_run():
     return os.path.join(NDC_LOGS, names[0])
 
 
-def decode_check():
-    """Phase 19a: the port's JPEG decoder against imageio's committed
-    pixels (tests/torch_fixtures/jpeg), at most 1 level on at most 0.1% of
-    the values (the CPU tests' bar), and the host time of decoding the 32
-    images of demo/llff_scene_jpeg."""
+def decode_check(fixtures=JPEG_FIXTURES, capture=LLFF_JPEG):
+    """Phase 19a (and 21d on the progressive files): the port's JPEG
+    decoder against imageio's committed pixels (tests/torch_fixtures/jpeg),
+    at most 1 level on at most 0.1% of the values (the CPU tests' bar),
+    and the host time of decoding the 32 images of demo/llff_scene_jpeg.
+    Returns (the numbers, the decoded images)."""
     from adanerf_tpu_torch.data.jpeg import read_jpeg
-    names = sorted(f for f in os.listdir(JPEG_FIXTURES) if f.endswith(".jpg"))
+    names = sorted(f for f in os.listdir(fixtures) if f.endswith(".jpg"))
     n_off, worst, n_values = 0, 0, 0
     for name in names:
-        got = read_jpeg(os.path.join(JPEG_FIXTURES, name))
-        want = np.load(os.path.join(JPEG_FIXTURES, name[:-4] + ".npy"))
+        got = read_jpeg(os.path.join(fixtures, name))
+        want = np.load(os.path.join(fixtures, name[:-4] + ".npy"))
         if got.shape != want.shape:
             raise SystemExit(f"{name} decodes to {got.shape}, imageio to {want.shape}")
         d = np.abs(got.astype(np.int16) - want)
         n_off, worst, n_values = n_off + int((d > 0).sum()), max(worst, int(d.max())), \
             n_values + d.size
-    images = sorted(os.listdir(os.path.join(LLFF_JPEG, "images")))
+    images = sorted(os.listdir(os.path.join(capture, "images")))
     t = time.perf_counter()
-    decoded = [read_jpeg(os.path.join(LLFF_JPEG, "images", f)) for f in images]
+    decoded = [read_jpeg(os.path.join(capture, "images", f)) for f in images]
     decode_s = time.perf_counter() - t
     print(f"  JPEG fixtures: {len(names)} files, {n_off} of {n_values} values differ from "
-          f"imageio's, max {worst}; demo/llff_scene_jpeg: {len(images)} images "
+          f"imageio's, max {worst}; {os.path.relpath(capture, ROOT)}: {len(images)} images "
           f"{decoded[0].shape} decoded in {decode_s:.3f} s (host CPU, "
           f"{1e3 * decode_s / len(images):.1f} ms an image)", flush=True)
     if len(names) < 6 or worst > 1 or n_off > n_values // 1000 or len(images) != 32:
         raise SystemExit("the JPEG decoder disagrees with imageio's committed pixels")
     return dict(fixtures=len(names), values_differing=n_off, max_diff=worst,
-                llff_images=len(images), llff_decode_s=decode_s)
+                llff_images=len(images), llff_decode_s=decode_s), decoded
 
 
-def convert_check(tmp):
+def convert_check(tmp, capture=LLFF_JPEG, pinned_path=LLFF_PINNED, tag="llff_jpeg"):
     """Phase 19b: ``python -m adanerf_tpu_torch.convert_llff`` on copies of
     demo/llff_scene_jpeg. At -factor 1 the JSON files equal demo/llff_scene's
     and the split images' mean PSNR against that PNG conversion equals the
     pinned CPU reading (tests/torch_fixtures/llff_jpeg.json) within its
     bar; at -factor 2 (the area resize) the focal length and the image size
-    halve. Returns (the numbers, the factor-1 scene)."""
+    halve (phase 21d: the same of demo/llff_scene_pjpeg against its pins).
+    Returns (the numbers, the factor-1 scene)."""
     import shutil
     from adanerf_tpu_torch import convert_llff
     from adanerf_tpu_torch.data.png import read_png
-    with open(LLFF_PINNED) as f:
+    with open(pinned_path) as f:
         pinned = json.load(f)
     scenes, infos = {}, {}
     for factor in (1, 2):
-        d = os.path.join(tmp, f"llff_jpeg_f{factor}")
-        shutil.copytree(LLFF_JPEG, d)
+        d = os.path.join(tmp, f"{tag}_f{factor}")
+        shutil.copytree(capture, d)
         convert_llff.main(["-dir", d, "-factor", str(factor)])
         scenes[factor] = d
         with open(os.path.join(d, "dataset_info.json")) as f:
@@ -1562,7 +1587,7 @@ def llff_leg(train, port_export, viewer, kernel, dev, tmp):
     Returns the phase's numbers."""
     from adanerf_tpu_torch.ops.kernels.nerf_train import BACKWARD_KERNEL_NAMES
     from adanerf_tpu_torch.utils.pdfplot import read_plot
-    out = {"decode": decode_check()}
+    out = {"decode": decode_check()[0]}
     out["convert"], scene = convert_check(tmp)
 
     # (c) the dense NDC config on the JPEG capture (its NeRF unlocked)
@@ -1761,6 +1786,171 @@ def evaluate_jax_run(port_evaluate):
     return dict(ms=ms, worst=worst, gap_to_committed=gap, count_ties=ties,
                 psnr=[g["psnr"] for g in got], flip=[g["flip"] for g in got],
                 samples=[g["samples"] for g in got])
+
+
+def quality_leg():
+    """Phase 21a/b: ``python -m adanerf_tpu_torch.eval_megakernel`` (in
+    this process, each kernel's launches counted from 0) on
+    demo/trained_mscene_export and demo/mscene's test split at 400x400 with
+    --fp32-delta, through K1 (v5d) and K2 (v3) in bf16 and K1's fp32 build
+    (--mlp-f32), then K1 on 4 orbit poses of the S=16 NDC export; then
+    ``precision_study`` on the first 2 test images, with the kernel's row:
+    K1's bf16 frames against the bf16 plain variant's. Bars:
+    QUALITY_KERNEL_BARS, K2's frames bit for bit K1's. Returns the phase's
+    numbers."""
+    from adanerf_tpu_torch import eval_megakernel, precision_study
+    from adanerf_tpu_torch.ops.kernels.megakernel_compact import MegakernelCompact
+    from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
+    bars = QUALITY_KERNEL_BARS
+    runs = {}
+    for label, kernel, argv in (
+            ("k1_bf16", MegakernelCompact, [MSCENE, MSCENE_DATA, "--variant", "v5d"]),
+            ("k2_bf16", MegakernelDense, [MSCENE, MSCENE_DATA, "--variant", "v3"]),
+            ("k1_mlp_f32", MegakernelCompact, [MSCENE, MSCENE_DATA, "--variant", "v5d",
+                                               "--mlp-f32"]),
+            ("k1_ndc_orbit", MegakernelCompact, [NDC, "--variant", "v5d", "--orbit", "4"])):
+        shown = [os.path.relpath(a, ROOT) if a.startswith(ROOT) else a for a in argv]
+        print(f"  python -m adanerf_tpu_torch.eval_megakernel {' '.join(shown)} --fp32-delta",
+              flush=True)
+        kernel.launches = 0
+        t = time.perf_counter()
+        out = eval_megakernel.main(argv + ["--fp32-delta"])
+        out["launches"], out["wall_s"] = kernel.launches, time.perf_counter() - t
+        runs[label] = out
+        n = len(out["rows"])
+        worst = min(r["psnr_mk_vs_fp32"] for r in out["rows"])
+        print(f"  {label}: {kernel.__name__} launches {out['launches']} for {n} frames, mean "
+              f"{json.dumps(out['mean'])}, worst image against fp32 {worst:.3f} dB, "
+              f"{out['wall_s']:.1f} s", flush=True)
+        if out["launches"] != n:
+            raise SystemExit(f"eval_megakernel {label} launched {kernel.__name__} "
+                             f"{out['launches']} times for {n} frames")
+        if worst < bars["image_vs_fp32_db"]:
+            raise SystemExit(f"eval_megakernel {label}: an image {worst:.3f} dB from the fp32 "
+                             f"plain renderer's (bar {bars['image_vs_fp32_db']} dB)")
+        if not all(np.isfinite(f).all() for f in out["frames"]):
+            raise SystemExit(f"eval_megakernel {label} rendered non-finite values")
+    m1, m2, mf = (runs[k]["mean"] for k in ("k1_bf16", "k2_bf16", "k1_mlp_f32"))
+    gap, gap_f32 = m1["psnr_mk"] - m1["psnr_fp32"], mf["psnr_mk"] - mf["psnr_fp32"]
+    k2_same = all(np.array_equal(a, b) for a, b in zip(runs["k1_bf16"]["frames"],
+                                                       runs["k2_bf16"]["frames"]))
+    print(f"  K1 bf16 mean PSNR {m1['psnr_mk']:.4f} dB against the fp32 plain renderer's "
+          f"{m1['psnr_fp32']:.4f} ({gap:+.4f} dB, bar {bars['mean_db']}); K2 bf16 frames bit "
+          f"for bit K1's: {k2_same}; K1 fp32 build {mf['psnr_mk']:.4f} dB ({gap_f32:+.6f} dB, "
+          f"bar {bars['mlp_f32_mean_db']})", flush=True)
+    if abs(gap) > bars["mean_db"] or abs(gap_f32) > bars["mlp_f32_mean_db"] or not k2_same:
+        raise SystemExit("frame quality through K1/K2 outside its bars")
+
+    study, imgs = precision_study.main([MSCENE, MSCENE_DATA, "--n-frames", "2"])
+    k1 = np.stack(runs["k1_bf16"]["frames"][:2])
+    gts = [eval_megakernel.ground_truth(MSCENE_DATA, fr)[1]
+           for fr in eval_megakernel.scene_frames(MSCENE_DATA, "test", 2)[1]]
+    kernel_row = {"psnr_gt": eval_megakernel.psnr(k1, np.stack(gts)),
+                  "psnr_gt_mean": float(np.mean([eval_megakernel.psnr(a, g)
+                                                 for a, g in zip(k1, gts)])),
+                  "psnr_vs_fp32": eval_megakernel.psnr(k1, np.stack(imgs["fp32"])),
+                  "psnr_vs_bf16_plain": eval_megakernel.psnr(k1, np.stack(imgs["bf16"]))}
+    print("kernel    " + " ".join(f"{k}={v:.3f}" for k, v in kernel_row.items())
+          + "  (K1 bf16, eval_megakernel's frames)", flush=True)
+    same_fp32 = all(np.array_equal(a, b) for a, b in zip(imgs["fp32"],
+                                                         runs["k1_bf16"]["fp32_frames"][:2]))
+    if not same_fp32:
+        raise SystemExit("precision_study's fp32 frames differ from eval_megakernel's")
+    return {"eval": {k: {"mean": v["mean"], "rows": v["rows"], "launches": v["launches"],
+                         "wall_s": v["wall_s"]} for k, v in runs.items()},
+            "k1_bf16_minus_fp32_db": gap, "k1_mlp_f32_minus_fp32_db": gap_f32,
+            "k2_equals_k1": k2_same, "precision_study": study, "kernel_row": kernel_row}
+
+
+def probe_leg(dev):
+    """Phase 21c: ``probe_threshold``'s per-ray counts (the oracle in fp32,
+    ``clip((logits >= thr).sum(-1), 1, S)``) on demo/trained_mscene_export at
+    800x800 against K1's fp32 counts at the same threshold and pose, at
+    PROBE_THRESHOLDS over its PROBE_POSES seeded poses: at most 1 ray in
+    10,000 apart; then both probes' CLIs. Returns the phase's numbers."""
+    from adanerf_tpu_torch import probe_oracle_ranks, probe_threshold
+    from adanerf_tpu_torch.ops.kernels.megakernel_compact import MegakernelCompact
+    rt, scene, dirs = probe_threshold.probe_renderer(MSCENE, dev)
+    poses = probe_threshold.in_cell_poses(scene, PROBE_POSES)
+    eye = np.eye(3, dtype=np.float32)
+    scene_thr, out = rt.threshold, {}
+    MegakernelCompact.launches = 0
+    for thr in PROBE_THRESHOLDS:
+        rt.threshold = thr
+        k1 = MegakernelCompact(rt)
+        n_diff, spp = [], []
+        for pose in poses:
+            probe = probe_threshold.frame_counts(rt, pose, dirs, thr)
+            _, counts = k1(dirs, pose, eye)
+            n_diff.append(int((counts != probe).sum()))
+            spp.append(float(probe.float().mean()))
+        out[str(thr)] = {"rays_differing": n_diff, "samples_per_pixel": spp}
+        print(f"  threshold {thr}: probe samples/px {[round(x, 4) for x in spp]}, rays whose "
+              f"count differs from K1 fp32's {n_diff} of {dirs.shape[0]} a pose", flush=True)
+        if max(n_diff) > dirs.shape[0] // 10_000:
+            raise SystemExit(f"probe_threshold's counts at {thr} differ from K1's")
+    rt.threshold = scene_thr
+    launches = MegakernelCompact.launches
+    if launches != len(PROBE_THRESHOLDS) * len(poses):
+        raise SystemExit(f"K1 launched {launches} times in the probe check")
+    t = time.perf_counter()
+    table = probe_threshold.main([MSCENE, "--thresholds", ",".join(map(str, PROBE_THRESHOLDS)),
+                                  "--poses", str(PROBE_POSES)])
+    tops = probe_oracle_ranks.main([MSCENE])
+    print(f"  both probes' CLIs {time.perf_counter() - t:.1f} s", flush=True)
+    if not np.isfinite(tops).all() \
+            or not table[PROBE_THRESHOLDS[0]] <= table[PROBE_THRESHOLDS[-1]]:
+        raise SystemExit("the probes printed non-finite or unordered values")
+    return {"by_threshold": out, "k1_launches": launches,
+            "avg_samples_px": {str(k): v for k, v in table.items()},
+            "rank_means": tops.mean(axis=0).tolist()}
+
+
+def progressive_check(tmp):
+    """Phase 21d: the progressive fixtures (tests/torch_fixtures/jpeg/
+    progressive) against imageio's pixels and demo/llff_scene_pjpeg's 32
+    images against their PNG sources, the mean PSNR within the pin's bar of
+    imageio's (tests/torch_fixtures/llff_pjpeg.json); ``convert_llff`` of the
+    capture at factors 1 and 2 against the pin, as phase 19 holds the
+    sequential capture. Returns the phase's numbers."""
+    from adanerf_tpu_torch.data.png import read_png
+    with open(PJPEG_PINNED) as f:
+        pinned = json.load(f)
+    out, decoded = decode_check(PJPEG_FIXTURES, LLFF_PJPEG)
+    pngs = sorted(os.listdir(os.path.join(LLFF_PNG, "images")))
+    psnrs = [psnr(torch.from_numpy(a.astype(np.float64) / 255),
+                  torch.from_numpy(read_png(os.path.join(LLFF_PNG, "images", n))[..., :3]
+                                   .astype(np.float64) / 255)) for a, n in zip(decoded, pngs)]
+    out["decode_mean_psnr_db"] = float(np.mean(psnrs))
+    print(f"  demo/llff_scene_pjpeg decoded against its PNG sources: mean PSNR "
+          f"{out['decode_mean_psnr_db']:.6f} dB over {len(psnrs)} images (imageio's, pinned: "
+          f"{pinned['decode_mean_psnr_db']:.6f}, bar {pinned['bar_db']})", flush=True)
+    if len(psnrs) != pinned["decoded_images"] \
+            or abs(out["decode_mean_psnr_db"] - pinned["decode_mean_psnr_db"]) > pinned["bar_db"]:
+        raise SystemExit("the progressive capture's decode is off its pin")
+    out["convert"], _ = convert_check(tmp, LLFF_PJPEG, PJPEG_PINNED, "llff_pjpeg")
+    return out
+
+
+def diagnose_leg():
+    """Phase 21e: ``python -m adanerf_tpu_torch.diagnose_tscene`` on
+    demo/tscene and demo/tlogs/tscene (the dense and the fine S=8 run), test
+    image 0 at stride 8, on the card. Returns the phase's numbers."""
+    from adanerf_tpu_torch import diagnose_tscene
+    from adanerf_tpu_torch.eval_megakernel import psnr as psnr_np
+    t = time.perf_counter()
+    res = diagnose_tscene.main(["--data", TSCENE, "--log", TLOGS, "--image", "0",
+                                "--stride", "8"])
+    wall = time.perf_counter() - t
+    gt, rgb_d = res["dense"][:2]
+    rgb_f = res["fine"][1]
+    n = gt.shape[0]
+    p_d, p_f = psnr_np(rgb_d, gt), psnr_np(rgb_f, gt)
+    print(f"  diagnose_tscene: {n} rays a run, dense {p_d:.3f} dB, fine {p_f:.3f} dB, "
+          f"{wall:.1f} s", flush=True)
+    if n != 400 * 400 // 8 or not (np.isfinite(rgb_d).all() and np.isfinite(rgb_f).all()):
+        raise SystemExit("diagnose_tscene rendered the wrong rays or non-finite values")
+    return {"rays": n, "dense_psnr_db": p_d, "fine_psnr_db": p_f, "wall_s": wall}
 
 
 def videos_leg(port_evaluate, images_leg):
@@ -2509,6 +2699,22 @@ def main():
     torch.cuda.empty_cache()
     print(f"  card: {card_state()}", flush=True)
     done("20", t)
+
+    t = time.perf_counter()
+    phase("21 the last modules: eval_megakernel through K1 and K2 (bf16, --mlp-f32, the NDC "
+          "orbit), precision_study, probe_threshold against K1's counts and "
+          "probe_oracle_ranks, progressive JPEG (fixtures, demo/llff_scene_pjpeg, "
+          "convert_llff), diagnose_tscene")
+    last = {"quality": quality_leg()}
+    torch.cuda.empty_cache()
+    last["probe"] = probe_leg(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pjpeg_") as tmp:
+        last["progressive"] = progressive_check(tmp)
+    last["diagnose"] = diagnose_leg()
+    torch.cuda.empty_cache()
+    print(json.dumps({"last_modules": last}), flush=True)
+    print(f"  card: {card_state()}", flush=True)
+    done("21", t)
 
     def k3_widths(way):  # the kernels line's K3 numbers at each width
         out = {}

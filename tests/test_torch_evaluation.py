@@ -8,8 +8,8 @@
   cv2 itself;
 * the metrics, the parameter census (``network_description.txt``), a
   JPEG reference video frame read as the JAX package reads it (ROADMAP item
-  19, done) and the refusal of a progressive one (item 21), before any run
-  is loaded;
+  19, done) and the refusal of an arithmetic-coded progressive one (item
+  23), before any run is loaded;
 * re-hydrating the committed JAX run (``load_config``), which loads its
   ``_opt`` checkpoints through ``load_specific_weights("opt")``;
 * the comparison tool's CSV and XML against the JAX package's on the same
@@ -131,9 +131,9 @@ def test_metrics_are_the_jax_packages():
                                         (["images", "videos"], "item 19")])
 def test_unported_evaluations_are_refused(evals, item, tmp_path):
     """A JPEG reference video, refused until ``item`` was done, decodes as
-    the JAX package reads it; what the port still cannot decode, a
-    progressive frame, is refused by name (item 21, not ``item``), by the
-    CLI before anything is loaded or written."""
+    the JAX package reads it; what the port still cannot decode, an
+    arithmetic-coded progressive frame, is refused by name (item 23, not
+    ``item``), by the CLI before anything is loaded or written."""
     scene = tmp_path / "scene"
     shutil.copytree(DATA, scene, ignore=shutil.ignore_patterns("train", "*_depth.npz"))
     (scene / "reference_video").mkdir()
@@ -147,12 +147,15 @@ def test_unported_evaluations_are_refused(evals, item, tmp_path):
     from PIL import Image
     Image.fromarray(frame).save(str(scene / "reference_video" / "0001.jpg"), "JPEG",
                                 progressive=True)
-    with pytest.raises(ValueError, match="progressive.*item 21") as err:
+    data = bytearray((scene / "reference_video" / "0001.jpg").read_bytes())
+    data[data.index(b"\xff\xc2") + 1] = 0xCA  # SOF10: arithmetic-coded progressive
+    (scene / "reference_video" / "0001.jpg").write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="progressive.*item 23") as err:
         t_eval.load_reference_video(str(scene))
     assert item not in str(err.value)
     out = tmp_path / "out"
     out.mkdir()
-    with pytest.raises(SystemExit, match="progressive.*item 21"):
+    with pytest.raises(SystemExit, match="progressive.*item 23"):
         t_evaluate_cli.main(["-data", str(scene), "-log", RUN, "--outDir", str(out),
                              "--device", "cpu"] + [a for e in evals for a in ("--evaluations", e)])
     assert not os.listdir(out)  # refused before anything ran

@@ -43,3 +43,33 @@ def test_port_has_files():
 def test_no_forbidden_imports(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+# the port's counterparts of the JAX package's tools and scene makers: run
+# where there is no jax, imageio or PIL
+TOOLS = ["eval_megakernel", "precision_study", "probe_threshold", "probe_oracle_ranks",
+         "diagnose_tscene", "make_synthetic_scene", "make_llff_scene", "utils.synthetic"]
+BLOCKER = """
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {forbidden!r}:
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import importlib
+importlib.import_module("adanerf_tpu_torch." + {module!r})
+"""
+
+
+@pytest.mark.parametrize("module", TOOLS)
+def test_tools_import_without_the_jax_stack(module):
+    """Each tool is among the guarded files, and imports in a process where
+    importing any of FORBIDDEN fails."""
+    import subprocess
+    import sys
+    path = os.path.join(ROOT, "adanerf_tpu_torch", *module.split(".")) + ".py"
+    assert path in _port_files()
+    proc = subprocess.run([sys.executable, "-c", BLOCKER.format(forbidden=set(FORBIDDEN),
+                                                                module=module)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

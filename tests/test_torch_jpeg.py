@@ -11,8 +11,9 @@ imageio, the JAX package's reader (PIL on libjpeg-turbo), on the CPU:
   run holds the decoder to) decode to their imageio pixels;
 * a 4032x3024 4:2:0 quality-95 photo-sized file (made in ``tmp_path``)
   decodes to imageio's pixels; its host CPU time is printed;
-* progressive, arithmetic-coded, lossless and 12-bit files, and truncated
-  ones, are refused by name; ``png.read_image`` tells PNG from JPEG by
+* arithmetic-coded (progressive too), lossless and 12-bit files, and
+  truncated ones, are refused by name (progressive Huffman files decode:
+  ``tests/test_torch_jpeg_progressive.py``); ``png.read_image`` tells PNG from JPEG by
   the signature and ``png.check_image`` refuses from the headers alone."""
 
 import glob
@@ -114,18 +115,24 @@ def _sof(data):
 def test_other_processes_are_refused_by_name(marker, words):
     data = bytearray(encode(seeded_image(17, 33, 3), quality=90))
     data[_sof(data)] = marker
-    with pytest.raises(ValueError, match=f"{words}.*item 21"):
+    with pytest.raises(ValueError, match=f"{words}.*item 23"):
         jpeg.decode_jpeg(bytes(data))
     with pytest.raises(ValueError, match=words):
         jpeg.probe_jpeg(bytes(data))
 
 
 def test_progressive_is_refused_by_name():
+    """The decoder reads progressive Huffman files
+    (tests/test_torch_jpeg_progressive.py); an arithmetic-coded progressive
+    one (a PIL progressive file with its SOF2 marker made SOF10) is refused
+    by name (item 23)."""
     from PIL import Image
     buf = io.BytesIO()
     Image.fromarray(seeded_image(37, 29, 3)).save(buf, "JPEG", progressive=True)
-    with pytest.raises(ValueError, match="progressive.*imageio.*item 21"):
-        jpeg.decode_jpeg(buf.getvalue())
+    data = bytearray(buf.getvalue())
+    data[data.index(b"\xff\xc2") + 1] = 0xCA
+    with pytest.raises(ValueError, match="progressive.*imageio.*item 23"):
+        jpeg.decode_jpeg(bytes(data))
 
 
 def test_12_bit_samples_are_refused_by_name():

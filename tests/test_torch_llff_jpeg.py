@@ -13,7 +13,13 @@ written as quality-95 4:2:0 JPEG, half of them with restart markers, by
   the same JSON files, and the images' mean PSNR equal to the constant
   pinned in ``tests/torch_fixtures/llff_jpeg.json`` within its bar (the
   value ``chip_smoke.py`` phase 19 holds the card's reading to); at
-  factor 2 the focal length and the image size halve."""
+  factor 2 the focal length and the image size halve;
+* the same capture as progressive JPEG (``demo/llff_scene_pjpeg``, by
+  ``tests/make_progressive_fixtures.py``): ``load_llff_data`` against the
+  JAX package's, and the port's decode and factor-1 conversion against the
+  PNG scene, each mean PSNR within its bar of the readings of imageio's
+  decode pinned in ``tests/torch_fixtures/llff_pjpeg.json`` (which
+  ``chip_smoke.py`` phase 21 holds the card's readings to)."""
 
 import json
 import os
@@ -33,6 +39,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JPEG_SCENE = os.path.join(ROOT, "demo", "llff_scene_jpeg")
 PNG_SCENE = os.path.join(ROOT, "demo", "llff_scene")
 PINNED = os.path.join(ROOT, "tests", "torch_fixtures", "llff_jpeg.json")
+PJPEG_SCENE = os.path.join(ROOT, "demo", "llff_scene_pjpeg")
+PJPEG_PINNED = os.path.join(ROOT, "tests", "torch_fixtures", "llff_pjpeg.json")
 JSONS = ["dataset_info.json", "cam_path_spiral.json", "transforms_train.json",
          "transforms_val.json", "transforms_test.json"]
 SPLITS = ("train", "val", "test")
@@ -138,3 +146,52 @@ def test_factor_2_halves_the_focal_length_and_the_size(converted):
     np.testing.assert_allclose(focal[1], focal[0] / 2, rtol=1e-6)
     img = read_png(os.path.join(converted["port", 2], "train", "00001.png"))
     assert img.shape == (120, 160, 3)
+
+
+def test_the_progressive_scene_is_the_png_scenes_images():
+    names = sorted(os.listdir(os.path.join(PJPEG_SCENE, "images")))
+    assert names == [n.replace(".png", ".jpg")
+                     for n in sorted(os.listdir(os.path.join(PNG_SCENE, "images")))]
+    for n in names:
+        with open(os.path.join(PJPEG_SCENE, "images", n), "rb") as f:
+            assert b"\xff\xc2" in f.read()  # a progressive frame header
+    assert np.array_equal(np.load(os.path.join(PJPEG_SCENE, "poses_bounds.npy")),
+                          np.load(os.path.join(PNG_SCENE, "poses_bounds.npy")))
+
+
+@pytest.mark.parametrize("factor", [1, 2])
+def test_load_llff_data_on_progressive_jpeg_matches_jax(factor):
+    got = t_llff.load_llff_data(PJPEG_SCENE, factor=factor, recenter=True, bd_factor=0.75)
+    want = j_llff.load_llff_data(PJPEG_SCENE, factor=factor, recenter=True, bd_factor=0.75)
+    assert got[0].shape == want[0].shape == (32, 240 // factor, 320 // factor, 3)
+    err = float(np.abs(got[0] - want[0]).max())
+    print(f"factor {factor}: images max abs err {err:.3e}")
+    assert err <= 1 / 255
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_progressive_decode_and_conversion_match_the_pins(tmp_path):
+    """The port's decode of the 32 progressive images against their PNG
+    sources, and its -factor 1 conversion against the PNG scene's, each
+    mean PSNR within the bar of imageio's pinned readings."""
+    from adanerf_tpu_torch.data.png import read_image
+    with open(PJPEG_PINNED) as f:
+        pinned = json.load(f)
+    psnrs = []
+    for n in sorted(os.listdir(os.path.join(PNG_SCENE, "images"))):
+        a = read_image(os.path.join(PJPEG_SCENE, "images", n.replace(".png", ".jpg")))
+        b = read_png(os.path.join(PNG_SCENE, "images", n))[..., :3]
+        psnrs.append(10 * np.log10(1.0 / np.mean((a / 255.0 - b / 255.0) ** 2)))
+    decoded = float(np.mean(psnrs))
+    d = str(tmp_path / "scene")
+    shutil.copytree(PJPEG_SCENE, d)
+    _convert_port(d, 1)
+    assert _jsons(d) == _jsons(PNG_SCENE)
+    mean, n = mean_psnr_vs_png(d)
+    print(f"progressive capture: decode {decoded:.6f} dB over {len(psnrs)} images (pinned "
+          f"{pinned['decode_mean_psnr_db']:.6f}), conversion {mean:.6f} dB over {n} (pinned "
+          f"{pinned['mean_psnr_db']:.6f})")
+    assert len(psnrs) == pinned["decoded_images"] and n == pinned["images"]
+    assert abs(decoded - pinned["decode_mean_psnr_db"]) <= pinned["bar_db"]
+    assert abs(mean - pinned["mean_psnr_db"]) <= pinned["bar_db"]

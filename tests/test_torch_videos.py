@@ -17,8 +17,9 @@ package's and OpenCV, on the CPU:
   level (at most 1 level, on at most 1% of the values); through both
   packages' ``evaluate``, the same files;
 * a JPEG reference frame, and the JPEG images of an LLFF scene, read as
-  the JAX package reads them (ROADMAP item 19, done); a progressive one
-  is refused by name (item 21)."""
+  the JAX package reads them (ROADMAP item 19, done), a progressive one
+  too (item 21, done); an arithmetic-coded one is refused by name (item
+  23)."""
 
 import json
 import os
@@ -199,18 +200,24 @@ def test_videos_evaluation_through_evaluate_matches_jax(video_states, tmp_path):
             "_square_diff_frames", "_flip_frames"} <= set(names[t_eval])
 
 
-def _progressive(img):
+def _progressive(img, arithmetic=False):
+    """A PIL progressive JPEG of ``img``; ``arithmetic`` makes its SOF2
+    marker SOF10 (arithmetic-coded progressive), which the port refuses."""
     from PIL import Image
     import io
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, "JPEG", progressive=True)
-    return buf.getvalue()
+    data = bytearray(buf.getvalue())
+    if arithmetic:
+        data[data.index(b"\xff\xc2") + 1] = 0xCA
+    return bytes(data)
 
 
 def test_jpeg_reference_frame_is_refused(tmp_path):
-    """A baseline JPEG reference frame beside a PNG one reads as the JAX
-    package reads it (imageio); a progressive one, which the port does not
-    decode, is refused by name (ROADMAP item 21; item 19 is done)."""
+    """A baseline or progressive JPEG reference frame beside a PNG one
+    reads as the JAX package reads it (imageio); an arithmetic-coded
+    progressive one, which the port does not decode, is refused by name
+    (ROADMAP item 23; items 19 and 21 are done)."""
     ref = tmp_path / "reference_video"
     ref.mkdir()
     imageio.imwrite(str(ref / "0000.png"), np.zeros((4, 4, 3), np.uint8))
@@ -222,15 +229,21 @@ def test_jpeg_reference_frame_is_refused(tmp_path):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
     (ref / "0002.jpg").write_bytes(_progressive(seeded_image(8, 8, 3)))
-    with pytest.raises(ValueError, match="0002.jpg.*progressive.*item 21"):
+    got, want = t_eval.load_reference_video(str(tmp_path)), j_eval.load_reference_video(
+        str(tmp_path))
+    assert len(got) == len(want) == 3
+    np.testing.assert_array_equal(got[2], want[2])
+    (ref / "0003.jpg").write_bytes(_progressive(seeded_image(8, 8, 3), arithmetic=True))
+    with pytest.raises(ValueError, match="0003.jpg.*progressive.*item 23"):
         t_eval.load_reference_video(str(tmp_path))
     assert t_eval.load_reference_video(str(tmp_path / "nowhere")) is None
 
 
 def test_jpeg_llff_images_are_refused(tmp_path):
     """An LLFF capture whose images are JPEG (named .JPG, as cameras name
-    them) loads as the JAX package loads it; a progressive image is refused
-    by name (ROADMAP item 21; item 19 is done)."""
+    them) loads as the JAX package loads it; an arithmetic-coded
+    progressive image is refused by name (ROADMAP item 23; items 19 and 21
+    are done)."""
     d = make_llff_scene(str(tmp_path / "scene"))
     for f in sorted(os.listdir(os.path.join(d, "images"))):
         img = imageio.imread(os.path.join(d, "images", f))
@@ -244,6 +257,6 @@ def test_jpeg_llff_images_are_refused(tmp_path):
         for g, w in zip(got[1:], want[1:]):
             np.testing.assert_array_equal(g, w)
     (tmp_path / "scene" / "images" / "000.JPG").write_bytes(
-        _progressive(seeded_image(32, 40, 3)))
-    with pytest.raises(ValueError, match="000.JPG.*progressive.*item 21"):
+        _progressive(seeded_image(32, 40, 3), arithmetic=True))
+    with pytest.raises(ValueError, match="000.JPG.*progressive.*item 23"):
         load_llff_data(d, factor=None)
