@@ -1,12 +1,13 @@
-"""A sequential JPEG decoder in numpy, the port's counterpart of
+"""A JPEG decoder in numpy, the port's counterpart of
 ``imageio.v2.imread`` on a JPEG file (imageio reads it through PIL, which
 decodes with libjpeg-turbo); the machine that runs the port on the GPU has
 neither.
 
-Formats: baseline, extended sequential and progressive Huffman DCT (SOF0,
-SOF1, SOF2), 8-bit samples, 1 component (greyscale, returned (h, w)
-uint8) or 3 (YCbCr, or RGB under an Adobe transform 0 or 'R', 'G', 'B'
-component ids; returned (h, w, 3) uint8), sampling factors 1 or 2 against the largest (4:4:4,
+Formats: baseline, extended sequential and progressive DCT, Huffman- or
+arithmetic-coded (SOF0, SOF1, SOF2, SOF9, SOF10), and lossless Huffman
+(SOF3); 8-bit samples, 1 component (greyscale, returned (h, w) uint8) or 3
+(YCbCr, or RGB under an Adobe transform 0 or 'R', 'G', 'B' component ids;
+returned (h, w, 3) uint8), sampling factors 1 or 2 against the largest (4:4:4,
 4:2:2, 4:2:0, 4:4:0), interleaved or one scan per component, restart
 intervals (DRI), 8- or 16-bit quantization tables. A progressive file's
 scans (spectral selection, successive approximation: DC first and
@@ -14,10 +15,14 @@ refinement, AC first and refinement with their end-of-band runs and
 correction bits, restart intervals inside any of them) build up each
 block's coefficients, which then decode as a sequential file's. APPn and
 COM segments are skipped, EXIF included; as imageio, no EXIF orientation
-is applied. Lossless, hierarchical and arithmetic-coded files and 12-bit
-samples raise a ``ValueError`` that names the format (the JAX package reads
-them through imageio: ROADMAP Queue 1, item 23), and so does a file that
-ends inside its entropy-coded data (PIL refuses a truncated file too).
+is applied. What imageio refuses too raises a ``ValueError`` that names
+the format: arithmetic-coded lossless (SOF11), the hierarchical processes
+(SOF5-7, SOF13-15), samples of other than 8 bits, a lossless file that
+libjpeg reads as YCbCr (a JFIF marker or an Adobe transform other than 0:
+libjpeg-turbo has no lossless colour conversion), and a file that ends
+inside its entropy-coded data (ROADMAP Queue 1, item 23). Layouts the
+decoder does not take (2 or 4 components, sampling factors beyond 2, a
+subsampled lossless file) raise one that names ROADMAP Queue 1, item 24.
 
 The pixels are libjpeg-turbo's under its defaults: the integer "islow"
 inverse DCT (``jidctint.c``), fancy (triangle) upsampling of 2x chroma
@@ -34,6 +39,17 @@ coefficient, so most coefficients cost one table lookup; a progressive
 scan reads the same tables through ``_Bits``, and a DC refinement scan,
 one bit a block, is read in numpy. Dequantization, the IDCT, upsampling
 and colour conversion run in numpy over all blocks.
+
+Arithmetic-coded scans decode through the QM coder of ``jdarith.c`` (ITU
+T.81 Annex D: the Qe table ``_QM``, one binary decision at a time, each
+restart interval starting with fresh statistics), with DC conditioning on
+the previous difference's category (the DAC segment's L and U) and AC
+magnitude contexts split at Kx, into the same coefficient arrays. A
+lossless scan Huffman-decodes one difference a sample (``jdlhuff.c``)
+and undoes the prediction (``jdlossls.c``: predictors 1-7, the first row
+of each restart interval from the left and the first column from above,
+the point transform's left shift) a row at a time in numpy, predictors 6
+and 7 a sample at a time.
 """
 
 from __future__ import annotations
@@ -45,7 +61,8 @@ from array import array
 
 import numpy as np
 
-_ITEM = "ROADMAP Queue 1, item 23"
+_ITEM = "ROADMAP Queue 1, item 23"  # what imageio refuses too
+_LAYOUTS = "ROADMAP Queue 1, item 24"  # what the decoder does not take yet
 # zigzag position k -> natural (row-major) index of the 8x8 block
 _ZIGZAG = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
@@ -53,14 +70,13 @@ _ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 _NATURAL = np.argsort(_ZIGZAG)  # natural index -> zigzag position
-_FRAMES = (0xC0, 0xC1, 0xC2)  # baseline, extended sequential, progressive
+# baseline, extended sequential, progressive, lossless; arithmetic-coded
+# sequential and progressive
+_FRAMES = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA)
 _REFUSED = {
-    0xC3: "lossless (SOF3)",
     0xC5: "differential sequential DCT (SOF5, hierarchical)",
     0xC6: "differential progressive DCT (SOF6, hierarchical)",
     0xC7: "differential lossless (SOF7, hierarchical)",
-    0xC9: "arithmetic-coded sequential DCT (SOF9)",
-    0xCA: "arithmetic-coded progressive DCT (SOF10)",
     0xCB: "arithmetic-coded lossless (SOF11)",
     0xCD: "arithmetic-coded differential sequential DCT (SOF13)",
     0xCE: "arithmetic-coded differential progressive DCT (SOF14)",
@@ -82,9 +98,16 @@ def read_jpeg(path: str) -> np.ndarray:
 
 
 def _refuse(name, what):
-    raise ValueError(f"{name}: unsupported JPEG format: {what}. The port decodes baseline, "
-                     f"extended sequential and progressive Huffman JPEG with 8-bit samples; "
-                     f"the JAX package reads this file through imageio ({_ITEM})")
+    """A format that imageio (libjpeg-turbo) refuses too."""
+    raise ValueError(f"{name}: unsupported JPEG format: {what}, which imageio (libjpeg-turbo, "
+                     f"the JAX package's reader) refuses too ({_ITEM})")
+
+
+def _not_yet(name, what):
+    """A layout the decoder does not take, which imageio may read."""
+    raise ValueError(f"{name}: unsupported JPEG layout: {what}. The port decodes 1 or 3 "
+                     f"components at sampling factors 1 or 2; the JAX package reads this "
+                     f"file through imageio ({_LAYOUTS})")
 
 
 @functools.lru_cache(maxsize=64)
@@ -262,15 +285,22 @@ def _idct_1d(x):
             tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3]
 
 
+# jdmaster.c's post-IDCT range limit, indexed by an output & 1023: -128..127
+# to 0..255, 128..511 to 255, -512..-129 to 0 (outputs beyond wrap)
+_RANGE_LIMIT = np.concatenate([np.arange(128, 256), np.full(384, 255), np.zeros(384),
+                               np.arange(0, 128)]).astype(np.uint8)
+
+
 def idct_islow(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
     """libjpeg's integer IDCT: (n, 64) natural-order coefficients and the
     (64,) natural-order quantization table -> (n, 8, 8) uint8 samples."""
     x = coefs.astype(np.int64).reshape(-1, 8, 8) * quant.astype(np.int64).reshape(8, 8)
     cols = _idct_1d([x[:, k, :] for k in range(8)])  # pass 1 down the columns
-    ws = np.stack([(c + (1 << 10)) >> 11 for c in cols], axis=1)
-    rows = _idct_1d([ws[:, :, k] for k in range(8)])  # pass 2 along the rows
+    # the pass's int workspace
+    ws = np.stack([(c + (1 << 10)) >> 11 for c in cols], axis=1).astype(np.int32)
+    rows = _idct_1d([ws[:, :, k].astype(np.int64) for k in range(8)])  # pass 2 along the rows
     out = np.stack([(r + (1 << 17)) >> 18 for r in rows], axis=2)
-    return np.clip(out + 128, 0, 255).astype(np.uint8)
+    return _RANGE_LIMIT[out & 1023]
 
 
 def _upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
@@ -326,14 +356,21 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 class _Frame:
-    def __init__(self, body: bytes, name: str, allocate: bool = True):
+    """A frame header (SOF ``marker``) and what its scans decode into: each
+    component's zigzag-ordered coefficients, a lossless frame's sample
+    planes."""
+
+    def __init__(self, body: bytes, name: str, marker: int, allocate: bool = True):
         precision, self.h, self.w, n = struct.unpack(">BHHB", body[:6])
         if precision != 8:
             _refuse(name, f"{precision}-bit samples")
         if n not in (1, 3):
-            _refuse(name, f"{n} components")
+            _not_yet(name, f"{n} components")
         if self.h == 0 or self.w == 0:
             _refuse(name, "a height set by a DNL marker" if self.h == 0 else "width 0")
+        self.progressive = marker in (0xC2, 0xCA)
+        self.arithmetic = marker in (0xC9, 0xCA)
+        self.lossless = marker == 0xC3
         self.ids, self.hs, self.vs, self.tq = [], [], [], []
         for i in range(n):
             cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
@@ -346,15 +383,22 @@ class _Frame:
         self.hmax, self.vmax = max(self.hs), max(self.vs)
         for h, v in zip(self.hs, self.vs):
             if self.hmax not in (h, 2 * h) or self.vmax not in (v, 2 * v):
-                _refuse(name, f"sampling factors {list(zip(self.hs, self.vs))} (the decoder "
-                              "upsamples by 1 or 2)")
-        self.mcux = -(-self.w // (8 * self.hmax))
-        self.mcuy = -(-self.h // (8 * self.vmax))
+                _not_yet(name, f"sampling factors {list(zip(self.hs, self.vs))} (the decoder "
+                               "upsamples by 1 or 2)")
+        if self.lossless and (self.hmax, self.vmax) != (1, 1):
+            _not_yet(name, f"a lossless frame at sampling factors "
+                           f"{list(zip(self.hs, self.vs))}")
+        unit = 1 if self.lossless else 8  # a data unit: a sample or an 8x8 block
+        self.mcux = -(-self.w // (unit * self.hmax))
+        self.mcuy = -(-self.h // (unit * self.vmax))
         self.coefs = [array("h", bytes(2 * 64 * self.mcux * h * self.mcuy * v))
-                      for h, v in zip(self.hs, self.vs)] if allocate else None
+                      for h, v in zip(self.hs, self.vs)] \
+            if allocate and not self.lossless else None
+        self.planes = [np.zeros((self.h, self.w), np.uint8) for _ in range(n)] \
+            if allocate and self.lossless else None
         self.quant = [None] * n
         self.scanned = [False] * n
-        self.progressive = False
+        self.rgb = None  # 3 components: RGB or YCbCr, set at the first scan
 
     def comp_size(self, c):
         """(width, height) in samples of component c's plane."""
@@ -409,21 +453,48 @@ def _next_segment(data: bytes, pos: int, name: str):
     return marker, body, pos + seglen
 
 
+def _is_rgb(frame: _Frame, jfif: bool, adobe, name: str) -> bool:
+    """Whether a 3-component frame holds RGB, as libjpeg-turbo infers it
+    (``jdapimin.c``): a JFIF marker means YCbCr, else an Adobe marker's
+    transform (0: RGB), else the component ids ('R', 'G', 'B': RGB; a
+    lossless frame is RGB whatever its ids). libjpeg-turbo converts no
+    lossless YCbCr, so such a frame is refused."""
+    if jfif:
+        rgb = False
+    elif adobe is not None:
+        rgb = adobe == 0
+    else:
+        rgb = frame.lossless or frame.ids == [82, 71, 66]
+    if frame.lossless and not rgb:
+        _refuse(name, "a lossless frame read as YCbCr (a JFIF marker or an Adobe transform "
+                      "other than 0; libjpeg-turbo has no lossless colour conversion)")
+    return rgb
+
+
 def probe_jpeg(data: bytes, name: str = "<bytes>"):
-    """(height, width, components) from a JPEG's frame header, raising the
-    decoder's ValueError for a format it refuses; nothing is decoded."""
+    """(height, width, components) from a JPEG's headers up to its first
+    scan, raising the decoder's ValueError for a format it refuses; nothing
+    is decoded."""
     if not is_jpeg(data):
         raise ValueError(f"{name}: not a JPEG file")
+    frame, adobe, jfif = None, None, False
     pos = 2
     while True:
         marker, body, pos = _next_segment(data, pos, name)
         if marker in _REFUSED:
             _refuse(name, _REFUSED[marker])
-        if marker in _FRAMES:
-            frame = _Frame(body, name, allocate=False)
+        if marker in _FRAMES and frame is None:
+            frame = _Frame(body, name, marker, allocate=False)
+        elif marker == 0xE0 and body[:5] == b"JFIF\x00":
+            jfif = True
+        elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+            adobe = body[11]
+        elif marker in (0xD9, 0xDA):
+            if frame is None:
+                raise ValueError(f"{name}: corrupt JPEG: no frame header before the scan")
+            if len(frame.ids) == 3:
+                _is_rgb(frame, jfif, adobe, name)
             return frame.h, frame.w, len(frame.ids)
-        if marker in (0xD9, 0xDA):
-            raise ValueError(f"{name}: corrupt JPEG: no frame header before the scan")
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
@@ -432,6 +503,7 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if not is_jpeg(data):
         raise ValueError(f"{name}: not a JPEG file")
     qtables, htables = {}, {}
+    conditioning = {}  # DAC: Tc << 4 | Tb -> L + 16 U (DC) or Kx (AC)
     frame, restart, adobe, jfif = None, 0, None, False
     pos = 2
     while True:
@@ -442,13 +514,10 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
             continue
         if marker in _REFUSED:
             _refuse(name, _REFUSED[marker])
-        elif marker == 0xCC:
-            _refuse(name, "arithmetic coding (DAC)")
         elif marker in _FRAMES:
             if frame is not None:
                 raise ValueError(f"{name}: corrupt JPEG: two frames")
-            frame = _Frame(body, name)
-            frame.progressive = marker == 0xC2
+            frame = _Frame(body, name, marker)
         elif marker == 0xC4:  # DHT
             i = 0
             while i < len(body):
@@ -457,6 +526,13 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
                 total = sum(counts)
                 htables[(tc, th)] = (counts, body[i + 17:i + 17 + total])
                 i += 17 + total
+        elif marker == 0xCC:  # DAC
+            for i in range(0, len(body) - 1, 2):
+                index, value = body[i], body[i + 1]
+                if index >= 32 or (index < 16 and value & 15 > value >> 4) \
+                        or (index >= 16 and not 1 <= value <= 63):
+                    raise ValueError(f"{name}: corrupt JPEG: DAC entry {index}: {value}")
+                conditioning[index] = value
         elif marker == 0xDB:  # DQT
             i = 0
             while i < len(body):
@@ -476,10 +552,20 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
         elif marker == 0xDA:  # SOS
             if frame is None:
                 raise ValueError(f"{name}: corrupt JPEG: a scan before the frame header")
-            pos = _scan(data, pos, body, frame, qtables, htables, restart, name)
+            if len(frame.ids) == 3 and frame.rgb is None:  # libjpeg decides before a scan
+                frame.rgb = _is_rgb(frame, jfif, adobe, name)
+            if frame.lossless:
+                pos = _lossless_scan(data, pos, body, frame, htables, restart, name)
+            else:
+                pos = _scan(data, pos, body, frame, qtables, htables, conditioning, restart,
+                            name)
         # APPn, COM and other segments: skipped
     if frame is None or not all(frame.scanned):
         raise ValueError(f"{name}: corrupt JPEG: no frame, or a component without a scan")
+    if frame.lossless:
+        if len(frame.planes) == 1:
+            return frame.planes[0]
+        return np.stack(frame.planes, axis=-1)  # RGB: _is_rgb refused the rest
     planes = []
     for c in range(len(frame.ids)):
         cw, ch = frame.comp_size(c)
@@ -492,15 +578,14 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
         planes.append(plane[:frame.h, :frame.w])
     if len(planes) == 1:
         return planes[0]
-    rgb = adobe == 0 if not jfif and adobe is not None else (
-        not jfif and adobe is None and frame.ids == [82, 71, 66])
-    if rgb:
+    if frame.rgb:
         return np.stack(planes, axis=-1)
     return ycc_to_rgb(*planes)
 
 
-def _scan(data, pos, body, frame: _Frame, qtables, htables, restart, name) -> int:
-    """Decode the scan whose header is ``body`` and whose data starts at
+def _scan(data, pos, body, frame: _Frame, qtables, htables, conditioning, restart,
+          name) -> int:
+    """Decode the DCT scan whose header is ``body`` and whose data starts at
     ``pos``; returns the offset of the marker after it."""
     ns = body[0]
     ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4, \
@@ -512,8 +597,8 @@ def _scan(data, pos, body, frame: _Frame, qtables, htables, restart, name) -> in
                               or (ah != 0 and al != ah - 1)):
         raise ValueError(f"{name}: corrupt JPEG: a progressive scan of band {ss}..{se}, "
                          f"bits {ah}->{al} over {ns} components")
-    # the Huffman tables the scan reads: DC for a sequential scan and a DC
-    # first scan, AC for a sequential scan and an AC scan
+    # the tables the scan reads: DC for a sequential scan and a DC first
+    # scan, AC for a sequential scan and an AC scan
     need_dc = not frame.progressive or (ss == 0 and ah == 0)
     need_ac = not frame.progressive or ss > 0
     comps, tables = [], {}
@@ -524,13 +609,19 @@ def _scan(data, pos, body, frame: _Frame, qtables, htables, restart, name) -> in
         c = frame.ids.index(cid)
         comps.append(c)
         td, ta = tt >> 4, tt & 15
-        if (need_dc and (0, td) not in htables) or (need_ac and (1, ta) not in htables):
-            raise ValueError(f"{name}: corrupt JPEG: a scan uses an undefined Huffman table")
         if frame.tq[c] not in qtables:
             raise ValueError(f"{name}: corrupt JPEG: undefined quantization table")
         if frame.quant[c] is None:  # latched at the component's first scan, as libjpeg's
             frame.quant[c] = qtables[frame.tq[c]]
         frame.scanned[c] = True
+        if frame.arithmetic:  # the conditioning tables (DAC; T.81's defaults L 0, U 1, Kx 5)
+            if td > 3 or ta > 3:
+                raise ValueError(f"{name}: corrupt JPEG: arithmetic table {max(td, ta)}")
+            dac = conditioning.get(td, 0x10)
+            tables[c] = (td, ta, dac & 15, dac >> 4, conditioning.get(16 + ta, 5))
+            continue
+        if (need_dc and (0, td) not in htables) or (need_ac and (1, ta) not in htables):
+            raise ValueError(f"{name}: corrupt JPEG: a scan uses an undefined Huffman table")
         dc, dcsym = _huffman_table(0, *htables[(0, td)]) if need_dc else (None, None)
         ac, acsym = _huffman_table(1, *htables[(1, ta)]) if need_ac else (None, None)
         tables[c] = (dc, ac, dcsym, acsym)
@@ -544,7 +635,10 @@ def _scan(data, pos, body, frame: _Frame, qtables, htables, restart, name) -> in
     try:
         for j in range(n_int):
             part = blocks[j * step:(j + 1) * step]
-            if not frame.progressive:
+            if frame.arithmetic:
+                _arith_interval(_QMDecoder(segs[j]), part, tables, frame.coefs, ss, se, ah, al,
+                                frame.progressive, name)
+            elif not frame.progressive:
                 _decode_interval(segs[j], part, tables, frame.coefs, name)
             elif ss == 0 and ah:
                 _dc_refine(segs[j], part, frame.coefs, al, name)
@@ -731,3 +825,365 @@ def _ac_scan(bits: _Bits, offs, table, out, ss, se, ah, al, name):
                     out[off + k] = c + (p1 if c >= 0 else m1)
             eobrun -= 1
     bits.check(name)
+
+
+# ITU T.81 Table D.2 (``jaricom.c``): (Qe, next index after an MPS, next
+# index after an LPS, switch MPS) per state, and state 113, the fixed
+# 0.5 estimate the sign and correction bits use
+_QM = (
+    (0x5A1D, 1, 1, 1), (0x2586, 2, 14, 0), (0x1114, 3, 16, 0), (0x080B, 4, 18, 0),
+    (0x03D8, 5, 20, 0), (0x01DA, 6, 23, 0), (0x00E5, 7, 25, 0), (0x006F, 8, 28, 0),
+    (0x0036, 9, 30, 0), (0x001A, 10, 33, 0), (0x000D, 11, 35, 0), (0x0006, 12, 9, 0),
+    (0x0003, 13, 10, 0), (0x0001, 13, 12, 0), (0x5A7F, 15, 15, 1), (0x3F25, 16, 36, 0),
+    (0x2CF2, 17, 38, 0), (0x207C, 18, 39, 0), (0x17B9, 19, 40, 0), (0x1182, 20, 42, 0),
+    (0x0CEF, 21, 43, 0), (0x09A1, 22, 45, 0), (0x072F, 23, 46, 0), (0x055C, 24, 48, 0),
+    (0x0406, 25, 49, 0), (0x0303, 26, 51, 0), (0x0240, 27, 52, 0), (0x01B1, 28, 54, 0),
+    (0x0144, 29, 56, 0), (0x00F5, 30, 57, 0), (0x00B7, 31, 59, 0), (0x008A, 32, 60, 0),
+    (0x0068, 33, 62, 0), (0x004E, 34, 63, 0), (0x003B, 35, 32, 0), (0x002C, 9, 33, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 38, 64, 0), (0x3A0D, 39, 65, 0), (0x2EF1, 40, 67, 0),
+    (0x261F, 41, 68, 0), (0x1F33, 42, 69, 0), (0x19A8, 43, 70, 0), (0x1518, 44, 72, 0),
+    (0x1177, 45, 73, 0), (0x0E74, 46, 74, 0), (0x0BFB, 47, 75, 0), (0x09F8, 48, 77, 0),
+    (0x0861, 49, 78, 0), (0x0706, 50, 79, 0), (0x05CD, 51, 48, 0), (0x04DE, 52, 50, 0),
+    (0x040F, 53, 50, 0), (0x0363, 54, 51, 0), (0x02D4, 55, 52, 0), (0x025C, 56, 53, 0),
+    (0x01F8, 57, 54, 0), (0x01A4, 58, 55, 0), (0x0160, 59, 56, 0), (0x0125, 60, 57, 0),
+    (0x00F6, 61, 58, 0), (0x00CB, 62, 59, 0), (0x00AB, 63, 61, 0), (0x008F, 32, 61, 0),
+    (0x5B12, 65, 65, 1), (0x4D04, 66, 80, 0), (0x412C, 67, 81, 0), (0x37D8, 68, 82, 0),
+    (0x2FE8, 69, 83, 0), (0x293C, 70, 84, 0), (0x2379, 71, 86, 0), (0x1EDF, 72, 87, 0),
+    (0x1AA9, 73, 87, 0), (0x174E, 74, 72, 0), (0x1424, 75, 72, 0), (0x119C, 76, 74, 0),
+    (0x0F6B, 77, 74, 0), (0x0D51, 78, 75, 0), (0x0BB6, 79, 77, 0), (0x0A40, 48, 77, 0),
+    (0x5832, 81, 80, 1), (0x4D1C, 82, 88, 0), (0x438E, 83, 89, 0), (0x3BDD, 84, 90, 0),
+    (0x34EE, 85, 91, 0), (0x2EAE, 86, 92, 0), (0x299A, 87, 93, 0), (0x2516, 71, 86, 0),
+    (0x5570, 89, 88, 1), (0x4CA9, 90, 95, 0), (0x44D9, 91, 96, 0), (0x3E22, 92, 97, 0),
+    (0x3824, 93, 99, 0), (0x32B4, 94, 99, 0), (0x2E17, 86, 93, 0), (0x56A8, 96, 95, 1),
+    (0x4F46, 97, 101, 0), (0x47E5, 98, 102, 0), (0x41CF, 99, 103, 0), (0x3C3D, 100, 104, 0),
+    (0x375E, 93, 99, 0), (0x5231, 102, 105, 0), (0x4C0F, 103, 106, 0), (0x4639, 104, 107, 0),
+    (0x415E, 99, 103, 0), (0x5627, 106, 105, 1), (0x50E7, 107, 108, 0), (0x4B85, 103, 109, 0),
+    (0x5597, 109, 110, 0), (0x504F, 107, 111, 0), (0x5A10, 111, 110, 1), (0x5522, 109, 112, 0),
+    (0x59EB, 111, 112, 1), (0x5A1D, 113, 113, 0),
+)
+# a statistics byte is a state index and, in its top bit, the MPS: per byte,
+# its Qe and the byte after an MPS and after an LPS decision
+_QE = [_QM[b & 0x7F][0] if b & 0x7F < len(_QM) else 0 for b in range(256)]
+_AFTER_MPS = [(b & 0x80) ^ _QM[b & 0x7F][1] if b & 0x7F < len(_QM) else 0 for b in range(256)]
+_AFTER_LPS = [(b & 0x80) ^ (_QM[b & 0x7F][2] | _QM[b & 0x7F][3] << 7)
+              if b & 0x7F < len(_QM) else 0 for b in range(256)]
+_FIXED = 113
+
+
+class _QMDecoder:
+    """The QM coder's decoder (``jdarith.c::arith_decode``, T.81 D.2) over
+    one restart interval's unstuffed bytes, zeros past their end (a marker,
+    as libjpeg supplies them). ``decode(st, i)`` is one binary decision in
+    the context of statistics byte ``st[i]``, which it updates."""
+
+    __slots__ = ("data", "n", "pos", "c", "a", "ct")
+
+    def __init__(self, seg: bytes):
+        self.data, self.n, self.pos = seg, len(seg), 0
+        self.c, self.a, self.ct = 0, 0, -16  # -16: read two bytes before the first decision
+
+    def decode(self, st, i) -> int:
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:  # renormalize, reading a byte every 8 shifts
+            ct -= 1
+            if ct < 0:
+                pos = self.pos
+                c = (c << 8) | (self.data[pos] if pos < self.n else 0)
+                self.pos = pos + 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe = _QE[sv]
+        a -= qe
+        temp = a << ct
+        bit = sv >> 7
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                st[i] = _AFTER_MPS[sv]
+            else:
+                st[i] = _AFTER_LPS[sv]
+                bit ^= 1
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = _AFTER_LPS[sv]
+                bit ^= 1
+            else:
+                st[i] = _AFTER_MPS[sv]
+        self.a, self.c, self.ct = a, c, ct
+        return bit
+
+
+def _arith_dc(dec, st, ctx, lower, upper, name):
+    """One DC difference (``jdarith.c``'s DC part; F.1.4.4.1): (the
+    difference, the next conditioning context) from statistics ``st`` in
+    context ``ctx``, the L and U bounds ``lower`` and ``upper``."""
+    if not dec(st, ctx):
+        return 0, 0
+    sign = dec(st, ctx + 1)
+    p = ctx + 2 + sign
+    m = dec(st, p)
+    if m:
+        p = 20  # X1
+        while dec(st, p):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError(f"{name}: corrupt JPEG: an arithmetic-coded DC magnitude "
+                                 "overflows")
+            p += 1
+    if m < (1 << lower) >> 1:
+        ctx = 0  # zero-difference category
+    elif m > (1 << upper) >> 1:
+        ctx = 12 + 4 * sign  # large
+    else:
+        ctx = 4 + 4 * sign  # small
+    v = m
+    p += 14
+    m >>= 1
+    while m:
+        if dec(st, p):
+            v |= m
+        m >>= 1
+    return (-v - 1 if sign else v + 1), ctx
+
+
+def _arith_ac(dec, st, fixed, k, kx, name) -> int:
+    """One nonzero AC coefficient at zigzag position ``k`` (F.1.4.4.2):
+    its sign at the fixed estimate, its magnitude category (bin SP, then
+    from 189 up to Kx or 217 above), its bits."""
+    sign = dec(fixed, 0)
+    p = 3 * (k - 1) + 2
+    m = dec(st, p)
+    if m and dec(st, p):
+        m = 2
+        p = 189 if k <= kx else 217
+        while dec(st, p):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError(f"{name}: corrupt JPEG: an arithmetic-coded AC magnitude "
+                                 "overflows")
+            p += 1
+    v = m
+    p += 14
+    m >>= 1
+    while m:
+        if dec(st, p):
+            v |= m
+        m >>= 1
+    return -v - 1 if sign else v + 1
+
+
+def _int16(x: int) -> int:
+    """A JCOEF's value of ``x`` (libjpeg keeps coefficients in 16 bits)."""
+    x &= 0xFFFF
+    return x - 0x10000 if x & 0x8000 else x
+
+
+def _arith_interval(qm: _QMDecoder, blocks, tables, coefs, ss, se, ah, al, progressive,
+                    name):
+    """One restart interval of an arithmetic-coded scan (``jdarith.c``:
+    ``decode_mcu``, or the progressive ``decode_mcu_{DC,AC}_{first,refine}``)
+    into ``coefs`` (zigzag order). The interval starts with zeroed
+    statistics (64 DC and 256 AC bins a table), DC predictions and
+    contexts. ``tables[c]`` is (DC table, AC table, L, U, Kx)."""
+    dec = qm.decode
+    fixed = bytearray([_FIXED])
+    dc_stats = {t[0]: bytearray(64) for t in tables.values()}
+    ac_stats = {t[1]: bytearray(256) for t in tables.values()}
+    last, ctx = {}, {}
+    if not progressive or (ss == 0 and ah == 0):  # sequential, or a DC first scan
+        for ci, off in blocks:
+            td, ta, lower, upper, kx = tables[ci]
+            diff, ctx[ci] = _arith_dc(dec, dc_stats[td], ctx.get(ci, 0), lower, upper, name)
+            v = last.get(ci, 0) + diff
+            last[ci] = v
+            out = coefs[ci]
+            if progressive:
+                out[off] = _int16(v << al)
+                continue
+            out[off] = _int16(v)
+            st = ac_stats[ta]
+            k = 1
+            while k <= 63:
+                p = 3 * (k - 1)
+                if dec(st, p):  # end of block
+                    break
+                while not dec(st, p + 1):  # a zero
+                    p += 3
+                    k += 1
+                    if k > 63:
+                        raise ValueError(f"{name}: corrupt JPEG: a block runs past 64 "
+                                         "coefficients")
+                out[off + k] = _arith_ac(dec, st, fixed, k, kx, name)
+                k += 1
+        return
+    if ss == 0:  # DC refinement: bit al of each block's DC at the fixed estimate
+        for ci, off in blocks:
+            if dec(fixed, 0):
+                coefs[ci][off] |= 1 << al
+        return
+    p1, m1 = 1 << al, -1 << al
+    for ci, off in blocks:  # an AC scan of one component's blocks, band ss..se
+        _, ta, _, _, kx = tables[ci]
+        st, out = ac_stats[ta], coefs[ci]
+        if not ah:
+            k = ss
+            while k <= se:
+                p = 3 * (k - 1)
+                if dec(st, p):
+                    break
+                while not dec(st, p + 1):
+                    p += 3
+                    k += 1
+                    if k > se:
+                        raise ValueError(f"{name}: corrupt JPEG: a block runs past its band")
+                out[off + k] = _arith_ac(dec, st, fixed, k, kx, name) * p1
+                k += 1
+            continue
+        kex = se  # the previous scans' end of block
+        while kex > 0 and not out[off + kex]:
+            kex -= 1
+        k = ss
+        while k <= se:
+            p = 3 * (k - 1)
+            if k > kex and dec(st, p):
+                break
+            while True:
+                c = out[off + k]
+                if c:  # a correction bit
+                    if dec(st, p + 2):
+                        out[off + k] = c + (m1 if c < 0 else p1)
+                    break
+                if dec(st, p + 1):  # newly nonzero
+                    out[off + k] = m1 if dec(fixed, 0) else p1
+                    break
+                p += 3
+                k += 1
+                if k > se:
+                    raise ValueError(f"{name}: corrupt JPEG: a block runs past its band")
+            k += 1
+
+
+def _lossless_diffs(seg: bytes, n: int, tables, name) -> np.ndarray:
+    """Huffman-decode ``n`` differences of a lossless restart interval
+    (``jdlhuff.c``), one from each of ``tables`` (DC lookahead table,
+    symbols) in turn: a category s (0-16) and s value bits, 16 meaning
+    32768 with none."""
+    buf = np.frombuffer(seg + bytes(_SLACK + 8), np.uint8)
+    pos = base = 0
+    win = _windows(buf, 0)
+    limit = (len(win) - _SLACK) * 8
+    out = array("i", bytes(4 * n))
+    k = len(tables)
+    for i in range(n):
+        if pos - base > limit:
+            base = pos & ~7
+            win = _windows(buf, base >> 3)
+            limit = (len(win) - _SLACK) * 8
+        tab, sym = tables[i % k]
+        p = pos - base
+        w = win[p >> 3]
+        look = (w >> (48 - (p & 7))) & 0xFFFF
+        t, v = tab[look]
+        if t > 0:
+            pos += t
+        elif t == 0:  # v: the code's length; the value bits run past the 16
+            s = sym[look]
+            if s == 16:
+                pos += v
+                v = 32768
+            else:
+                x = (w >> (64 - (p & 7) - v - s)) & ((1 << s) - 1)
+                pos += v + s
+                v = x - (1 << s) + 1 if x < 1 << (s - 1) else x
+        else:
+            raise ValueError(f"{name}: corrupt JPEG: bad Huffman code")
+        out[i] = v
+    if pos > 8 * len(seg):
+        raise ValueError(f"{name}: corrupt or truncated JPEG: the entropy-coded data ends "
+                         f"before its samples")
+    return np.frombuffer(out, np.int32).astype(np.int64)
+
+
+def _undifference(d: np.ndarray, predictor: int, pt: int) -> np.ndarray:
+    """``jdlossls.c`` over one restart interval's (rows, width) differences
+    of a component: the first row predicted from the left (its first sample
+    from 2^(7 - pt)), each later row's first sample from above and the
+    others by ``predictor`` (Ra left, Rb above, Rc above left), every sum
+    modulo 2^16; returns the samples shifted left by ``pt``."""
+    rows, width = d.shape
+    x = np.empty((rows, width), np.int64)
+    x[0] = (np.cumsum(d[0]) + (1 << (7 - pt))) & 0xFFFF
+    for i in range(1, rows):
+        b, di = x[i - 1], d[i]
+        if predictor in (1, 4):  # Ra; Ra + Rb - Rc: a running sum over the row
+            row = np.cumsum(di) + (b[0] if predictor == 1 else b)
+        elif predictor == 2:  # Rb
+            row = di + b
+        elif predictor == 3:  # Rc
+            row = di.copy()
+            row[0] += b[0]
+            row[1:] += b[:-1]
+        elif predictor == 5:  # Ra + ((Rb - Rc) >> 1)
+            t = di.copy()
+            t[1:] += (b[1:] - b[:-1]) >> 1
+            row = np.cumsum(t) + b[0]
+        else:  # 6: Rb + ((Ra - Rc) >> 1), 7: (Ra + Rb) >> 1, a sample at a time
+            bl, dl = b.tolist(), di.tolist()
+            a = (dl[0] + bl[0]) & 0xFFFF
+            out = [a]
+            if predictor == 6:
+                for j in range(1, width):
+                    a = (dl[j] + bl[j] + ((a - bl[j - 1]) >> 1)) & 0xFFFF
+                    out.append(a)
+            else:
+                for j in range(1, width):
+                    a = (dl[j] + ((a + bl[j]) >> 1)) & 0xFFFF
+                    out.append(a)
+            row = np.array(out, np.int64)
+        x[i] = row & 0xFFFF
+    return (x << pt) & 0xFF
+
+
+def _lossless_scan(data, pos, body, frame: _Frame, htables, restart, name) -> int:
+    """Decode the lossless scan whose header is ``body`` (Ss the predictor,
+    Al the point transform) and whose data starts at ``pos`` into the
+    frame's sample planes; returns the offset of the marker after it. As
+    ``jddiffct.c``, a restart interval must hold whole rows of MCUs (of
+    samples: the frame's factors are all 1)."""
+    ns = body[0]
+    predictor, pt = body[1 + 2 * ns], body[3 + 2 * ns] & 15
+    if not 1 <= predictor <= 7 or pt > 7:
+        raise ValueError(f"{name}: corrupt JPEG: a lossless scan with predictor {predictor}, "
+                         f"point transform {pt}")
+    comps, tables = [], []
+    for i in range(ns):
+        cid, tt = body[1 + 2 * i:3 + 2 * i]
+        if cid not in frame.ids:
+            raise ValueError(f"{name}: corrupt JPEG: a scan names component {cid}")
+        comps.append(frame.ids.index(cid))
+        if (0, tt >> 4) not in htables:
+            raise ValueError(f"{name}: corrupt JPEG: a scan uses an undefined Huffman table")
+        tables.append(_huffman_table(0, *htables[(0, tt >> 4)]))
+        frame.scanned[comps[-1]] = True
+    h, w = frame.h, frame.w
+    if restart % w:
+        raise ValueError(f"{name}: corrupt JPEG: a lossless restart interval of {restart} "
+                         f"MCUs, not a multiple of the {w} in a row")
+    rows = restart // w if restart else h
+    segs, end = _segments(data, pos, name)
+    n_int = -(-h // rows)
+    if len(segs) < n_int:
+        raise ValueError(f"{name}: corrupt or truncated JPEG: {len(segs)} restart intervals "
+                         f"where {n_int} are needed")
+    for j in range(n_int):
+        r0, r1 = j * rows, min(h, (j + 1) * rows)
+        d = _lossless_diffs(segs[j], (r1 - r0) * w * ns, tables, name).reshape(r1 - r0, w, ns)
+        for k, c in enumerate(comps):
+            frame.planes[c][r0:r1] = _undifference(d[:, :, k], predictor, pt)
+    return end

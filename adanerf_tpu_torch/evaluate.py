@@ -14,8 +14,8 @@ evaluations are complexity, images, flip, psnr, ssim and output_images;
 ``videos`` holds the ``cam_path.json`` camera path against
 ``<scene>/reference_video/*.{png,jpg}`` and ``export`` writes the viewer
 artifacts to ``exported_model/``. A reference frame the port cannot decode
-(an arithmetic-coded, lossless, hierarchical or 12-bit JPEG, ROADMAP Queue
-1, item 23) is refused before any run is loaded.
+(a hierarchical, arithmetic-coded lossless or 12-bit JPEG, which imageio
+refuses too: ROADMAP Queue 1, item 23) is refused before any run is loaded.
 
 ``--device`` (``-d``) is ``cuda`` by default (an index N means
 ``cuda:N``), ``cpu`` on request; a missing card raises and nothing falls

@@ -18,9 +18,9 @@ resizes a frame of another size with
 ``utils/resize.py::resize_area`` (OpenCV's ``INTER_AREA``). Its diff,
 square-diff and FLIP frame sequences are written as
 ``{_diff,_square_diff,_flip}_frames/%05d.png``, what the JAX package writes
-when it has no video encoder. A JPEG frame in a format the decoder does not
-take (arithmetic-coded, lossless, hierarchical, 12-bit: ROADMAP Queue 1,
-item 23) is refused by name.
+when it has no video encoder. A JPEG frame in a format that imageio
+refuses too (hierarchical, arithmetic-coded lossless, 12-bit: ROADMAP
+Queue 1, item 23) is refused by name.
 """
 
 from __future__ import annotations
@@ -209,7 +209,7 @@ def generate_data(ts, flags, out_dir=None):
 def reference_frame_files(data_path):
     """The frames of ``<data_path>/reference_video`` (``.png`` and ``.jpg``,
     in name order), or None when there is no such directory. A frame the
-    port cannot decode (``data/png.py::check_image``: a progressive JPEG,
+    port cannot decode (``data/png.py::check_image``: a hierarchical JPEG,
     say) raises ValueError, from its headers alone."""
     ref_path = os.path.join(data_path, "reference_video")
     if not os.path.exists(ref_path):

@@ -386,9 +386,17 @@ def run(config, group=None) -> dict:
             print(f"data-parallel over {world} ranks (rays axis, {dist.get_backend(group)}), "
                   f"{config.samples // world} of each image's {config.samples} rays a rank",
                   flush=True)
+    k3 = None
+    if any(r is not None for r in routes):
+        from .ops.kernels.nerf_train import NerfTrainKernel as k3
+        launched = (k3.forward_launches, k3.backward_launches)
     pretrain = pre_train(ts, group)
     stats = train(ts, group)
     stats["pretrain"] = pretrain
+    if k3 is not None and rank == 0:  # a supervised run's log shows its route at work
+        print(f"K3 launches: forward {k3.forward_launches - launched[0]}, backward "
+              f"{k3.backward_launches - launched[1]} in {len(stats['losses'])} steps",
+              flush=True)
     stats["checkpoint"] = ts.save_weights(name_suffix=f"{ts.epochs - 1:07d}") if rank == 0 else []
     mesh.barrier(group)
     if config.performEvaluation and rank == 0:

@@ -47,7 +47,17 @@ and the fp32 plain renderer, and on the NDC export's orbit;
 ``precision_study`` with the kernel's row; ``probe_threshold``'s counts
 against K1's and ``probe_oracle_ranks``; the progressive JPEG fixtures and
 ``demo/llff_scene_pjpeg`` decoded and converted against their pins;
-``diagnose_tscene`` on demo/tscene's committed runs), and prints, as its
+``diagnose_tscene`` on demo/tscene's committed runs), drives the demo
+pipelines' tools and the JPEG processes imageio reads (phase 22: the
+``tscene`` recipe of ``adanerf_tpu_torch/pipelines.py`` cut short under a
+scratch root, its dense leg under ``adanerf_tpu_torch.supervise_train``
+with its trainer stopped after its first checkpoint, so that the
+supervisor kills and relaunches it and the relaunch resumes from the
+newest complete checkpoint and runs K3 to the leg's end, the fine leg
+through K3 a step, the export viewed through K1 and K2 by
+``eval_megakernel --fp32-delta``; the arithmetic-coded and lossless
+fixtures and demo/llff_scene_ajpeg and demo/llff_scene_ljpeg against
+demo/llff_scene_jpeg's pixels and its conversion pin), and prints, as its
 last two lines,
 a JSON line of per-kernel numbers (each kernel's ``widths`` and
 ``shapes`` too) and a JSON line
@@ -170,6 +180,19 @@ PJPEG_FIXTURES = os.path.join(JPEG_FIXTURES, "progressive")
 PJPEG_PINNED = os.path.join(ROOT, "tests", "torch_fixtures", "llff_pjpeg.json")
 TSCENE = os.path.join(ROOT, "demo", "tscene")
 TLOGS = os.path.join(ROOT, "demo", "tlogs")
+# phase 22: (a) the tscene pipeline (adanerf_tpu_torch/pipelines.py, its
+# script's arguments verbatim) cut short by later -e/-Er/-Ev/-Eckpt flags,
+# under a scratch log and export root; the dense leg under the supervisor
+# with a stall limit of PIPELINE_STALL_MIN minutes, its trainer stopped
+# (SIGSTOP) once its first checkpoint is complete; (b) the arithmetic-coded
+# and lossless fixtures and captures (tests/make_jpeg_process_fixtures.py)
+PIPELINE_RECIPE = "tscene"
+PIPELINE_CUTS = {"dense": ["-e", "601", "-Er", "600", "-Ev", "300", "-Eckpt", "200"],
+                 "fine": ["-e", "301", "-Er", "300", "-Ev", "150", "-Eckpt", "100"]}
+PIPELINE_STALL_MIN = 0.25
+LLFF_AJPEG = os.path.join(ROOT, "demo", "llff_scene_ajpeg")
+LLFF_LJPEG = os.path.join(ROOT, "demo", "llff_scene_ljpeg")
+PROCESS_FIXTURES = [os.path.join(JPEG_FIXTURES, d) for d in ("arith", "lossless")]
 
 T0 = time.perf_counter()
 
@@ -1442,21 +1465,23 @@ def decode_check(fixtures=JPEG_FIXTURES, capture=LLFF_JPEG):
                 llff_images=len(images), llff_decode_s=decode_s), decoded
 
 
-def convert_check(tmp, capture=LLFF_JPEG, pinned_path=LLFF_PINNED, tag="llff_jpeg"):
+def convert_check(tmp, capture=LLFF_JPEG, pinned_path=LLFF_PINNED, tag="llff_jpeg",
+                  factors=(1, 2)):
     """Phase 19b: ``python -m adanerf_tpu_torch.convert_llff`` on copies of
     demo/llff_scene_jpeg. At -factor 1 the JSON files equal demo/llff_scene's
     and the split images' mean PSNR against that PNG conversion equals the
     pinned CPU reading (tests/torch_fixtures/llff_jpeg.json) within its
     bar; at -factor 2 (the area resize) the focal length and the image size
-    halve (phase 21d: the same of demo/llff_scene_pjpeg against its pins).
-    Returns (the numbers, the factor-1 scene)."""
+    halve (phase 21d: the same of demo/llff_scene_pjpeg against its pins;
+    phase 22b: -factor 1 alone of the arithmetic-coded and lossless
+    captures). Returns (the numbers, the factor-1 scene)."""
     import shutil
     from adanerf_tpu_torch import convert_llff
     from adanerf_tpu_torch.data.png import read_png
     with open(pinned_path) as f:
         pinned = json.load(f)
     scenes, infos = {}, {}
-    for factor in (1, 2):
+    for factor in factors:
         d = os.path.join(tmp, f"{tag}_f{factor}")
         shutil.copytree(capture, d)
         convert_llff.main(["-dir", d, "-factor", str(factor)])
@@ -1478,20 +1503,21 @@ def convert_check(tmp, capture=LLFF_JPEG, pinned_path=LLFF_PINNED, tag="llff_jpe
     mean = float(np.mean(psnrs))
     focal = {k: v["resolution"][0] / 2 / math.tan(v["camera_angle_x"] / 2)
              for k, v in infos.items()}
-    print(f"  convert_llff -factor 1: JSON files equal demo/llff_scene's: "
-          f"{dict(zip(jsons, same_json))}; split images' mean PSNR against the PNG "
-          f"conversion {mean:.6f} dB over {len(psnrs)} images (pinned CPU reading "
-          f"{pinned['mean_psnr_db']:.6f}, bar {pinned['bar_db']}); -factor 2: resolution "
-          f"{infos[2]['resolution']} (from {infos[1]['resolution']}), focal {focal[2]:.4f} "
-          f"(from {focal[1]:.4f})", flush=True)
+    half = f"; -factor 2: resolution {infos[2]['resolution']} (from " \
+        f"{infos[1]['resolution']}), focal {focal[2]:.4f} (from {focal[1]:.4f})" \
+        if 2 in infos else ""
+    print(f"  convert_llff -factor 1 of {os.path.relpath(capture, ROOT)}: JSON files equal "
+          f"demo/llff_scene's: {dict(zip(jsons, same_json))}; split images' mean PSNR against "
+          f"the PNG conversion {mean:.6f} dB over {len(psnrs)} images (pinned CPU reading "
+          f"{pinned['mean_psnr_db']:.6f}, bar {pinned['bar_db']}){half}", flush=True)
     if not all(same_json) or len(psnrs) != pinned["images"] \
             or abs(mean - pinned["mean_psnr_db"]) > pinned["bar_db"]:
         raise SystemExit("the JPEG scene's conversion differs from the PNG scene's")
-    if infos[2]["resolution"] != [r // 2 for r in infos[1]["resolution"]] \
-            or abs(focal[2] - focal[1] / 2) > 1e-4 * focal[1]:
+    if 2 in infos and (infos[2]["resolution"] != [r // 2 for r in infos[1]["resolution"]]
+                       or abs(focal[2] - focal[1] / 2) > 1e-4 * focal[1]):
         raise SystemExit("-factor 2 did not halve the image size and the focal length")
     return dict(json_equal=all(same_json), mean_psnr_vs_png_db=mean, images=len(psnrs),
-                factor2_resolution=infos[2]["resolution"]), scenes[1]
+                factor2_resolution=infos[2]["resolution"] if 2 in infos else None), scenes[1]
 
 
 def score(ts, out_dir, epoch):
@@ -1951,6 +1977,230 @@ def diagnose_leg():
     if n != 400 * 400 // 8 or not (np.isfinite(rgb_d).all() and np.isfinite(rgb_f).all()):
         raise SystemExit("diagnose_tscene rendered the wrong rays or non-finite values")
     return {"rays": n, "dense_psnr_db": p_d, "fine_psnr_db": p_f, "wall_s": wall}
+
+
+def checkpoint_epochs(run_root, nets=2):
+    """{run folder: epochs for which every one of ``nets`` nets has a
+    ``.weights`` file} under ``run_root`` (what the trainer's resume
+    takes; a save writes each file atomically)."""
+    out = {}
+    for run in os.listdir(run_root) if os.path.isdir(run_root) else []:
+        seen = {}
+        for f in os.listdir(os.path.join(run_root, run)):
+            m = re.match(r"(.+)_(\d{7})\.weights$", f)
+            if m:
+                seen.setdefault(int(m.group(2)), set()).add(m.group(1))
+        out[run] = sorted(e for e, names in seen.items() if len(names) == nets)
+    return out
+
+
+def child_pids(pid):
+    """The processes whose parent is ``pid`` (read from /proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            if int(fields[1]) == pid:
+                out.append(int(d))
+    return out
+
+
+def bounded(step):
+    """A training leg's supervised command with one relaunch at most (the
+    one the forced stall takes): a leg that fails ends the phase at once."""
+    cmd = step.command()
+    at = cmd.index("--")
+    return cmd[:at] + ["--max-restarts", "1"] + cmd[at:]
+
+
+def stalled_dense_leg(step, run_root):
+    """Phase 22a's dense leg: ``bounded(step)`` (the supervisor over the
+    trainer) in a subprocess; once the leg's first checkpoint is complete
+    the trainer's process group is stopped (SIGSTOP), so its log goes
+    silent until the supervisor kills and relaunches it. Returns the
+    numbers, from the supervisor's output and the leg's log."""
+    import signal
+    out_path = step.log + ".supervisor"
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(bounded(step), cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+    stop = None
+    try:
+        while proc.poll() is None:
+            if stop is None and any(checkpoint_epochs(run_root).values()):
+                trainers = child_pids(proc.pid)
+                if len(trainers) != 1:
+                    time.sleep(0.05)
+                    continue
+                os.killpg(trainers[0], signal.SIGSTOP)
+                time.sleep(0.5)  # the stop has landed: the files are what a resume sees
+                epochs = [e for v in checkpoint_epochs(run_root).values() for e in v]
+                stop = dict(at_s=time.perf_counter() - t0, trainer_pid=trainers[0],
+                            newest_complete_epoch=max(epochs))
+                print(f"  [{stop['at_s']:.1f} s] checkpoints {sorted(epochs)} complete: "
+                      f"SIGSTOP to the trainer's process group ({trainers[0]})", flush=True)
+            time.sleep(0.1)
+        proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    wall = time.perf_counter() - t0
+    with open(out_path) as f:
+        supervisor = f.read()
+    with open(step.log) as f:
+        log = f.read()
+    print("  supervisor: " + "\n  supervisor: ".join(supervisor.strip().splitlines()), flush=True)
+    return supervisor, log, stop, proc.returncode, wall
+
+
+def k3_launch_lines(log):
+    """(forward, backward, steps) of every ``K3 launches`` line the
+    trainer printed into a log."""
+    return [tuple(map(int, m)) for m in re.findall(
+        r"K3 launches: forward (\d+), backward (\d+) in (\d+) steps", log)]
+
+
+def pipeline_leg(tmp):
+    """Phase 22a: the tscene pipeline (``pipelines.recipe``) with
+    PIPELINE_CUTS, its logs and runs under ``tmp/logs`` and its export under
+    ``tmp/exports``, step by step: the dense leg under the supervisor with
+    a forced stall (``stalled_dense_leg``: one kill, one relaunch that
+    reloads the newest complete checkpoint and reaches the last epoch, K3
+    named and counted in the log), the fine leg under the supervisor (K3
+    launches = steps, as the trainer counts them), the export and its
+    copy, ``evaluate``, ``eval_megakernel --fp32-delta`` through K1 (the
+    recipe's) and K2 (``--variant v3``), the bench printed as skipped.
+    Returns the phase's numbers."""
+    from adanerf_tpu_torch import eval_megakernel, pipelines
+    from adanerf_tpu_torch.ops.kernels.megakernel_compact import MegakernelCompact
+    from adanerf_tpu_torch.ops.kernels.megakernel_dense import MegakernelDense
+    os.chdir(ROOT)  # the recipes' paths are relative to the repo root, as the scripts'
+    logs, exports = os.path.join(tmp, "logs"), os.path.join(tmp, "exports")
+    steps = pipelines.recipe(PIPELINE_RECIPE, log_root=logs, export_root=exports,
+                             leg_args=PIPELINE_CUTS)
+    dense_end = int(PIPELINE_CUTS["dense"][1]) - 1
+    fine_steps = int(PIPELINE_CUTS["fine"][1]) - 1  # a fresh run trains epochs 1..e-1
+    run_root = os.path.join(logs, "tlogs", "tscene")
+    os.makedirs(logs)
+    demo = os.path.join(ROOT, "demo")
+    shipped = {n: os.stat(os.path.join(demo, n)).st_mtime_ns for n in os.listdir(demo)
+               if n.startswith("trained_")}
+    out = {"cuts": PIPELINE_CUTS, "stall_min": PIPELINE_STALL_MIN, "steps": []}
+    for step in steps:
+        t = time.perf_counter()
+        if step.kind == "train" and step.leg == "dense":
+            step.stall_min = PIPELINE_STALL_MIN
+            supervisor, log, stop, rc, wall = stalled_dense_leg(step, run_root)
+            reloads = re.findall(r"Reloading checkpoint from epoch (\d+)", log)
+            configs = re.findall(r"Training config: .*", log)
+            launches = k3_launch_lines(log)
+            dense = dict(rc=rc, wall_s=wall, stop=stop, reloads=[int(e) for e in reloads],
+                         kills=supervisor.count("log silent"),
+                         attempts=supervisor.count("[supervise] attempt"),
+                         k3_named=[("K3 kernel" in c) for c in configs], k3_launches=launches,
+                         reached_last_epoch=f"epoch={dense_end:<10}" in log)
+            print(f"  dense leg: {json.dumps(dense)}", flush=True)
+            if rc != 0 or stop is None or dense["kills"] != 1 or dense["attempts"] != 2:
+                raise SystemExit("the supervised dense leg did not take exactly one stall kill "
+                                 "and one relaunch")
+            if dense["reloads"] != [stop["newest_complete_epoch"]]:
+                raise SystemExit(f"the relaunch reloaded {reloads}, not the newest complete "
+                                 f"checkpoint {stop['newest_complete_epoch']}")
+            n = dense_end - stop["newest_complete_epoch"]
+            if dense["k3_named"] != [True, True] or launches != [(n, n, n)] \
+                    or not dense["reached_last_epoch"]:
+                raise SystemExit("the relaunched dense leg did not run K3 to its last epoch")
+            out["dense"] = dense
+        elif step.kind == "train":
+            rc = subprocess.run(bounded(step), cwd=ROOT).returncode
+            with open(step.log) as f:
+                log = f.read()
+            launches = k3_launch_lines(log)
+            out["fine"] = dict(rc=rc, k3_launches=launches,
+                               k3_named="K3 kernel" in log.split("Training config:")[1]
+                               .splitlines()[0],
+                               reloads=re.findall(r"Reloading checkpoint", log))
+            print(f"  fine leg: {json.dumps(out['fine'])}", flush=True)
+            if rc != 0 or launches != [(fine_steps,) * 3] or not out["fine"]["k3_named"] \
+                    or out["fine"]["reloads"]:
+                raise SystemExit("the supervised fine leg did not run K3 once a step")
+        elif step.kind == "eval_megakernel":
+            runs = {}
+            for label, kernel, extra in (("k1", MegakernelCompact, []),
+                                         ("k2", MegakernelDense, ["--variant", "v3"])):
+                kernel.launches = 0
+                res = pipelines.run_step(step) if not extra else \
+                    eval_megakernel.main(list(step.argv) + extra)
+                runs[label] = dict(mean=res["mean"], frames=res["frames"],
+                                   launches=kernel.launches, n=len(res["rows"]))
+            m = runs["k1"]["mean"]
+            gap = m["psnr_mk"] - m["psnr_fp32"]
+            k2_same = all(np.array_equal(a, b) for a, b in zip(runs["k1"]["frames"],
+                                                               runs["k2"]["frames"]))
+            out["eval_megakernel"] = dict(
+                k1_mean=m, k1_bf16_minus_fp32_db=gap, k2_equals_k1=k2_same,
+                k2_mean=runs["k2"]["mean"], k1_launches=runs["k1"]["launches"],
+                k2_launches=runs["k2"]["launches"], frames=runs["k1"]["n"])
+            print(f"  eval_megakernel on the pipeline's export: K1 bf16 {m['psnr_mk']:.4f} dB "
+                  f"against fp32 plain {m['psnr_fp32']:.4f} ({gap:+.4f}, bar "
+                  f"{QUALITY_KERNEL_BARS['mean_db']}); K2 bit for bit K1: {k2_same}; launches "
+                  f"K1 {runs['k1']['launches']}, K2 {runs['k2']['launches']} for "
+                  f"{runs['k1']['n']} frames each", flush=True)
+            if abs(gap) > QUALITY_KERNEL_BARS["mean_db"] or not k2_same \
+                    or runs["k1"]["launches"] != runs["k1"]["n"] \
+                    or runs["k2"]["launches"] != runs["k2"]["n"] or runs["k1"]["n"] < 1:
+                raise SystemExit("the pipeline's export through K1/K2 is outside its bars")
+        else:
+            pipelines.run_step(step)
+        out["steps"].append(dict(kind=step.kind, leg=step.leg, s=time.perf_counter() - t))
+    export = os.path.join(exports, "trained_tscene_export")
+    out["export_files"] = sorted(os.listdir(export))
+    if {n: os.stat(os.path.join(demo, n)).st_mtime_ns for n in os.listdir(demo)
+            if n.startswith("trained_")} != shipped or not out["export_files"]:
+        raise SystemExit("the pipeline copied no export, or wrote into demo/trained_*")
+    return out
+
+
+def jpeg_process_check(tmp):
+    """Phase 22b: every arithmetic-coded and lossless fixture decodes to
+    imageio's committed pixels with 0 values off; demo/llff_scene_ajpeg
+    and demo/llff_scene_ljpeg decode to exactly the port's decode of
+    demo/llff_scene_jpeg (its pixels: same coefficients, or the decoded
+    pixels written lossless), host time per image; each capture's
+    ``convert_llff`` against tests/torch_fixtures/llff_jpeg.json's pin."""
+    from adanerf_tpu_torch.data.jpeg import read_jpeg
+    out = {"fixtures": {}}
+    for d in PROCESS_FIXTURES:
+        names = sorted(f for f in os.listdir(d) if f.endswith(".jpg"))
+        off = 0
+        for name in names:
+            got = read_jpeg(os.path.join(d, name))
+            want = np.load(os.path.join(d, name[:-4] + ".npy"))
+            off += got.size if got.shape != want.shape else int((got != want).sum())
+        out["fixtures"][os.path.basename(d)] = dict(files=len(names), values_off=off)
+        print(f"  {os.path.relpath(d, ROOT)}: {len(names)} files, {off} values off imageio's",
+              flush=True)
+        if off or len(names) < 11:
+            raise SystemExit(f"the decoder disagrees with imageio on {d}")
+    images = sorted(os.listdir(os.path.join(LLFF_JPEG, "images")))
+    want = [read_jpeg(os.path.join(LLFF_JPEG, "images", f)) for f in images]
+    for tag, capture in (("llff_ajpeg", LLFF_AJPEG), ("llff_ljpeg", LLFF_LJPEG)):
+        t = time.perf_counter()
+        got = [read_jpeg(os.path.join(capture, "images", f)) for f in images]
+        seconds = time.perf_counter() - t
+        same = all(np.array_equal(a, b) for a, b in zip(got, want)) and len(got) == 32
+        print(f"  {os.path.relpath(capture, ROOT)}: 32 images decoded in {seconds:.3f} s (host "
+              f"CPU, {1e3 * seconds / 32:.1f} ms an image), equal to demo/llff_scene_jpeg's: "
+              f"{same}", flush=True)
+        if not same:
+            raise SystemExit(f"{capture} does not decode to demo/llff_scene_jpeg's pixels")
+        out[tag] = dict(decode_s=seconds, equal=same)
+        out[tag]["convert"], _ = convert_check(tmp, capture, LLFF_PINNED, tag, factors=(1,))
+    return out
 
 
 def videos_leg(port_evaluate, images_leg):
@@ -2716,6 +2966,21 @@ def main():
     print(f"  card: {card_state()}", flush=True)
     done("21", t)
 
+    t = time.perf_counter()
+    phase(f"22 the supervised {PIPELINE_RECIPE} pipeline (its script's arguments, cut by "
+          f"{json.dumps(PIPELINE_CUTS)}; the dense leg under the supervisor at --stall-min "
+          f"{PIPELINE_STALL_MIN} with its trainer stopped after its first checkpoint; export, "
+          "evaluate, eval_megakernel through K1 and K2) and the JPEG processes imageio reads "
+          "(arithmetic-coded and lossless fixtures, demo/llff_scene_ajpeg, "
+          "demo/llff_scene_ljpeg, convert_llff)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as tmp:
+        pipeline = pipeline_leg(tmp)
+        processes = {"pipeline": pipeline, "jpeg": jpeg_process_check(tmp)}
+    torch.cuda.empty_cache()
+    print(json.dumps({"tools_and_formats": processes}), flush=True)
+    print(f"  card: {card_state()}", flush=True)
+    done("22", t)
+
     def k3_widths(way):  # the kernels line's K3 numbers at each width
         out = {}
         for w, v in widths.items():
@@ -2805,6 +3070,8 @@ def main():
         "llff_ndc_export_800_bound_ms": llff["export"]["bound_ms"],
         "llff_ndc_export_max_abs_err": llff["export"]["k1_fp32"]["err_p"],
         "llff_ndc_export_psnr_vs_plain_fp32": llff["export"]["k1_psnr_fp32"],
+        "pipeline_export_launches": pipeline["eval_megakernel"]["k1_launches"],
+        "pipeline_bf16_minus_fp32_db": pipeline["eval_megakernel"]["k1_bf16_minus_fp32_db"],
         "widths": frame_widths("k1"), "shapes": frame_shapes("k1")}, {
         "name": "nerf_train_forward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
@@ -2830,6 +3097,8 @@ def main():
         "llff_ndc_dense_rows": llff["dense"]["rows"],
         "llff_ndc_fine_launches": llff["quality"]["launches"][0],
         "llff_ndc_fine_rows": llff["quality"]["rows"],
+        "pipeline_dense_relaunch_launches": pipeline["dense"]["k3_launches"][0][0],
+        "pipeline_fine_launches": pipeline["fine"]["k3_launches"][0][0],
         "widths": k3_widths("fwd"), "shapes": k3_shapes("fwd")}, {
         "name": "nerf_train_backward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
@@ -2862,6 +3131,8 @@ def main():
         "llff_ndc_dense_rows": llff["dense"]["rows"],
         "llff_ndc_fine_launches": llff["quality"]["launches"][1],
         "llff_ndc_fine_rows": llff["quality"]["rows"],
+        "pipeline_dense_relaunch_launches": pipeline["dense"]["k3_launches"][0][1],
+        "pipeline_fine_launches": pipeline["fine"]["k3_launches"][0][1],
         "widths": k3_widths("bwd"), "shapes": k3_shapes("bwd")}, {
         "name": "megakernel_dense", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_dense.cu + adanerf_tpu_torch/csrc/megakernel.cuh",
@@ -2886,6 +3157,7 @@ def main():
         "sharded_4_launches": scale_out["MegakernelDense"]["launches"],
         "sharded_4_ms": scale_out["MegakernelDense"]["ms_4_slices"],
         "sharded_4_whole_ms": scale_out["MegakernelDense"]["ms_whole"],
+        "pipeline_export_launches": pipeline["eval_megakernel"]["k2_launches"],
         "widths": frame_widths("k2"), "shapes": frame_shapes("k2")}, {
         "name": "wd_gemm", "route": "cuda", "source": "adanerf_tpu_torch/csrc/wide.cu",
         "replaces": "adanerf_tpu/ops/pallas/train_kernel.py:95",

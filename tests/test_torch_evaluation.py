@@ -8,8 +8,9 @@
   cv2 itself;
 * the metrics, the parameter census (``network_description.txt``), a
   JPEG reference video frame read as the JAX package reads it (ROADMAP item
-  19, done) and the refusal of an arithmetic-coded progressive one (item
-  23), before any run is loaded;
+  19, done) and the refusal of a hierarchical arithmetic-coded progressive
+  one (SOF14, which imageio refuses too: item 23), before any run is
+  loaded;
 * re-hydrating the committed JAX run (``load_config``), which loads its
   ``_opt`` checkpoints through ``load_specific_weights("opt")``;
 * the comparison tool's CSV and XML against the JAX package's on the same
@@ -131,8 +132,9 @@ def test_metrics_are_the_jax_packages():
                                         (["images", "videos"], "item 19")])
 def test_unported_evaluations_are_refused(evals, item, tmp_path):
     """A JPEG reference video, refused until ``item`` was done, decodes as
-    the JAX package reads it; what the port still cannot decode, an
-    arithmetic-coded progressive frame, is refused by name (item 23, not
+    the JAX package reads it; what the port does not decode, a hierarchical
+    arithmetic-coded progressive frame (SOF14, which imageio refuses too),
+    is refused by name (item 23, not
     ``item``), by the CLI before anything is loaded or written."""
     scene = tmp_path / "scene"
     shutil.copytree(DATA, scene, ignore=shutil.ignore_patterns("train", "*_depth.npz"))
@@ -148,7 +150,7 @@ def test_unported_evaluations_are_refused(evals, item, tmp_path):
     Image.fromarray(frame).save(str(scene / "reference_video" / "0001.jpg"), "JPEG",
                                 progressive=True)
     data = bytearray((scene / "reference_video" / "0001.jpg").read_bytes())
-    data[data.index(b"\xff\xc2") + 1] = 0xCA  # SOF10: arithmetic-coded progressive
+    data[data.index(b"\xff\xc2") + 1] = 0xCE  # SOF14: arithmetic-coded differential progressive
     (scene / "reference_video" / "0001.jpg").write_bytes(bytes(data))
     with pytest.raises(ValueError, match="progressive.*item 23") as err:
         t_eval.load_reference_video(str(scene))

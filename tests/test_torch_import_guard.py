@@ -48,7 +48,8 @@ def test_no_forbidden_imports(path):
 # the port's counterparts of the JAX package's tools and scene makers: run
 # where there is no jax, imageio or PIL
 TOOLS = ["eval_megakernel", "precision_study", "probe_threshold", "probe_oracle_ranks",
-         "diagnose_tscene", "make_synthetic_scene", "make_llff_scene", "utils.synthetic"]
+         "diagnose_tscene", "make_synthetic_scene", "make_llff_scene", "utils.synthetic",
+         "supervise_train", "pipelines", "data.jpeg"]
 BLOCKER = """
 import importlib.abc, sys
 class Block(importlib.abc.MetaPathFinder):

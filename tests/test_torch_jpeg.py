@@ -11,10 +11,16 @@ imageio, the JAX package's reader (PIL on libjpeg-turbo), on the CPU:
   run holds the decoder to) decode to their imageio pixels;
 * a 4032x3024 4:2:0 quality-95 photo-sized file (made in ``tmp_path``)
   decodes to imageio's pixels; its host CPU time is printed;
-* arithmetic-coded (progressive too), lossless and 12-bit files, and
-  truncated ones, are refused by name (progressive Huffman files decode:
-  ``tests/test_torch_jpeg_progressive.py``); ``png.read_image`` tells PNG from JPEG by
-  the signature and ``png.check_image`` refuses from the headers alone."""
+* what imageio refuses is refused by name, each case held to imageio's own
+  refusal of the same bytes: the hierarchical processes (SOF5, SOF7,
+  SOF13), arithmetic-coded lossless (SOF11), 12-bit samples (a patched
+  header and real 12-bit files, extended sequential and lossless, from
+  ``tests/make_jpeg_process_fixtures.py``), and truncated files
+  (progressive Huffman files decode: ``tests/test_torch_jpeg_progressive.py``;
+  arithmetic-coded and lossless ones: ``tests/test_torch_jpeg_arith.py``,
+  ``tests/test_torch_jpeg_lossless.py``); ``png.read_image`` tells PNG
+  from JPEG by the signature and ``png.check_image`` refuses from the
+  headers alone."""
 
 import glob
 import io
@@ -110,29 +116,46 @@ def _sof(data):
     return data.index(b"\xff\xc0") + 1
 
 
-@pytest.mark.parametrize("marker,words", [(0xC3, "lossless"), (0xC9, "arithmetic"),
-                                          (0xC7, "lossless"), (0xCA, "arithmetic")])
+LOSSLESS_FILE = os.path.join(FIXTURES, "lossless", "l1_rgb_17x33.jpg")
+
+
+@pytest.mark.parametrize("marker,words", [(0xC7, "lossless"), (0xCB, "arithmetic-coded lossless"),
+                                          (0xC5, "differential sequential"),
+                                          (0xCD, "arithmetic-coded differential sequential")])
 def test_other_processes_are_refused_by_name(marker, words):
-    data = bytearray(encode(seeded_image(17, 33, 3), quality=90))
-    data[_sof(data)] = marker
-    with pytest.raises(ValueError, match=f"{words}.*item 23"):
+    """The processes imageio refuses too: a baseline file's frame header
+    made a hierarchical one (SOF5, SOF7, SOF13), a lossless file's made
+    arithmetic-coded lossless (SOF11, which libjpeg-turbo cannot even
+    write)."""
+    if marker == 0xCB:
+        with open(LOSSLESS_FILE, "rb") as f:
+            data = bytearray(f.read())
+        data[data.index(b"\xff\xc3") + 1] = marker
+    else:
+        data = bytearray(encode(seeded_image(17, 33, 3), quality=90))
+        data[_sof(data)] = marker
+    with pytest.raises(ValueError, match=f"{words}.*imageio.*item 23"):
         jpeg.decode_jpeg(bytes(data))
     with pytest.raises(ValueError, match=words):
         jpeg.probe_jpeg(bytes(data))
+    with pytest.raises(OSError):
+        imageio.imread(io.BytesIO(bytes(data)))
 
 
-def test_progressive_is_refused_by_name():
-    """The decoder reads progressive Huffman files
-    (tests/test_torch_jpeg_progressive.py); an arithmetic-coded progressive
-    one (a PIL progressive file with its SOF2 marker made SOF10) is refused
-    by name (item 23)."""
-    from PIL import Image
-    buf = io.BytesIO()
-    Image.fromarray(seeded_image(37, 29, 3)).save(buf, "JPEG", progressive=True)
-    data = bytearray(buf.getvalue())
-    data[data.index(b"\xff\xc2") + 1] = 0xCA
-    with pytest.raises(ValueError, match="progressive.*imageio.*item 23"):
-        jpeg.decode_jpeg(bytes(data))
+@pytest.mark.parametrize("name", ["twelve_sof1", "twelve_sof3"])
+def test_real_12_bit_files_are_refused_as_imageio_refuses_them(name):
+    """12-bit files that libjpeg-turbo wrote (extended sequential and
+    lossless, tests/make_jpeg_process_fixtures.py): refused by name, and
+    imageio refuses the same bytes."""
+    with open(os.path.join(FIXTURES, "refused", name + ".jpg"), "rb") as f:
+        data = f.read()
+    assert (b"\xff\xc1" if name.endswith("1") else b"\xff\xc3") in data
+    with pytest.raises(ValueError, match="12-bit samples.*imageio.*item 23"):
+        jpeg.decode_jpeg(data)
+    with pytest.raises(ValueError, match="12-bit"):
+        jpeg.probe_jpeg(data)
+    with pytest.raises(SyntaxError, match="12-bit"):
+        imageio.imread(io.BytesIO(data))
 
 
 def test_12_bit_samples_are_refused_by_name():

@@ -6,8 +6,9 @@ reader (PIL on libjpeg-turbo), on the CPU: files that PIL writes with
 greyscale, restart markers, an EXIF block; a 4:4:0 file from OpenCV),
 the committed progressive fixtures (``tests/torch_fixtures/jpeg/
 progressive``, which the card run holds the decoder to), a truncated
-progressive file, and the other processes, still refused by name
-(ROADMAP item 23). Every case decodes to imageio's pixels exactly."""
+progressive file, and the hierarchical progressive processes, refused by
+name as imageio refuses them (ROADMAP item 23). Every case decodes to
+imageio's pixels exactly."""
 
 import glob
 import io
@@ -117,11 +118,12 @@ def test_truncated_progressive_file_is_refused(keep):
         jpeg.decode_jpeg(data[:int(len(data) * keep)])
 
 
-@pytest.mark.parametrize("marker,words", [(0xCA, "arithmetic-coded progressive"),
+@pytest.mark.parametrize("marker,words", [(0xCE, "arithmetic-coded differential progressive"),
                                           (0xC6, "differential progressive")])
 def test_other_progressive_processes_are_refused_by_name(marker, words):
-    """The progressive processes the decoder does not take (arithmetic
-    coding, hierarchical) name ROADMAP item 23."""
+    """The progressive processes that imageio refuses too (hierarchical,
+    Huffman or arithmetic-coded) name ROADMAP item 23; arithmetic-coded
+    progressive files (SOF10) decode: tests/test_torch_jpeg_arith.py."""
     data = bytearray(encode(seeded_image(17, 33, 3), quality=90, progressive=True))
     data[data.index(b"\xff\xc2") + 1] = marker
     with pytest.raises(ValueError, match=f"{words}.*imageio.*item 23"):

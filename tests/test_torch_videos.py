@@ -18,8 +18,8 @@ package's and OpenCV, on the CPU:
   packages' ``evaluate``, the same files;
 * a JPEG reference frame, and the JPEG images of an LLFF scene, read as
   the JAX package reads them (ROADMAP item 19, done), a progressive one
-  too (item 21, done); an arithmetic-coded one is refused by name (item
-  23)."""
+  too (item 21, done); a hierarchical arithmetic-coded one (SOF14, which
+  imageio refuses too) is refused by name (item 23)."""
 
 import json
 import os
@@ -202,22 +202,23 @@ def test_videos_evaluation_through_evaluate_matches_jax(video_states, tmp_path):
 
 def _progressive(img, arithmetic=False):
     """A PIL progressive JPEG of ``img``; ``arithmetic`` makes its SOF2
-    marker SOF10 (arithmetic-coded progressive), which the port refuses."""
+    marker SOF14 (arithmetic-coded differential progressive, a hierarchical
+    process), which the port refuses as imageio does."""
     from PIL import Image
     import io
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, "JPEG", progressive=True)
     data = bytearray(buf.getvalue())
     if arithmetic:
-        data[data.index(b"\xff\xc2") + 1] = 0xCA
+        data[data.index(b"\xff\xc2") + 1] = 0xCE
     return bytes(data)
 
 
 def test_jpeg_reference_frame_is_refused(tmp_path):
     """A baseline or progressive JPEG reference frame beside a PNG one
-    reads as the JAX package reads it (imageio); an arithmetic-coded
-    progressive one, which the port does not decode, is refused by name
-    (ROADMAP item 23; items 19 and 21 are done)."""
+    reads as the JAX package reads it (imageio); a hierarchical
+    arithmetic-coded progressive one, which imageio refuses too, is refused
+    by name (ROADMAP item 23; items 19 and 21 are done)."""
     ref = tmp_path / "reference_video"
     ref.mkdir()
     imageio.imwrite(str(ref / "0000.png"), np.zeros((4, 4, 3), np.uint8))
@@ -241,9 +242,9 @@ def test_jpeg_reference_frame_is_refused(tmp_path):
 
 def test_jpeg_llff_images_are_refused(tmp_path):
     """An LLFF capture whose images are JPEG (named .JPG, as cameras name
-    them) loads as the JAX package loads it; an arithmetic-coded
-    progressive image is refused by name (ROADMAP item 23; items 19 and 21
-    are done)."""
+    them) loads as the JAX package loads it; a hierarchical
+    arithmetic-coded progressive image (SOF14, which imageio refuses too)
+    is refused by name (ROADMAP item 23; items 19 and 21 are done)."""
     d = make_llff_scene(str(tmp_path / "scene"))
     for f in sorted(os.listdir(os.path.join(d, "images"))):
         img = imageio.imread(os.path.join(d, "images", f))
