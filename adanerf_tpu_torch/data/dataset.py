@@ -10,7 +10,10 @@ images. A split that fits the host's memory budget is loaded whole as
 numpy arrays, a larger one streams through a
 bounded LRU store (``data/streaming.py``, ``load_dataset_split``); the
 train step gathers its rays from either (pixel index convention ``y + h *
-x``). PNGs are decoded by ``data/png.py``. With ``--samplePlacementDir`` a
+x``). PNGs of every format are decoded by ``data/png.py`` to the 8-bit RGB
+that the JAX package's native loader (``native/dataloader.cpp``) reads,
+then divided by 255 as its imageio fallback divides (ROADMAP Queue 3,
+F11). With ``--samplePlacementDir`` a
 split carries a ``SamplePlacementTracker`` (the iterative sample
 placement's per-pixel active cells), read from
 ``<dir>/<split>/<samples>.ckpt.npy`` where that file exists.
@@ -162,7 +165,7 @@ class ViewCellDataset:
         color_images = depth_images = None
         if load_images and self.num_items > 0:
             color_images = np.zeros((self.num_items, self.h, self.w, 3), np.float32)
-            for i, img in enumerate(read_pngs(self.image_filenames)):
+            for i, img in enumerate(read_pngs(self.image_filenames, rgb=True)):
                 color_images[i] = self._color_image(img, self.image_filenames[i])
             if self.load_depth:
                 for i, file_path in enumerate(file_paths):

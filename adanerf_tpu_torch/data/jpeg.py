@@ -5,11 +5,15 @@ neither.
 
 Formats: baseline, extended sequential and progressive DCT, Huffman- or
 arithmetic-coded (SOF0, SOF1, SOF2, SOF9, SOF10), and lossless Huffman
-(SOF3); 8-bit samples, 1 component (greyscale, returned (h, w) uint8) or 3
+(SOF3); 8-bit samples, 1 component (greyscale, returned (h, w) uint8), 3
 (YCbCr, or RGB under an Adobe transform 0 or 'R', 'G', 'B' component ids;
-returned (h, w, 3) uint8), sampling factors 1 or 2 against the largest (4:4:4,
-4:2:2, 4:2:0, 4:4:0), interleaved or one scan per component, restart
-intervals (DRI), 8- or 16-bit quantization tables. A progressive file's
+returned (h, w, 3) uint8) or 4 (CMYK, or YCCK under an Adobe transform
+other than 0, as libjpeg infers it; returned (h, w, 4) uint8 as Pillow
+returns it: every channel inverted, Adobe's polarity, after libjpeg's YCCK
+-> CMYK), sampling factors 1-4 whose ratios to the largest are whole
+(4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, 4:1:0, ...), interleaved or one scan
+per component, restart intervals (DRI), 8- or 16-bit quantization tables;
+every process takes every layout, lossless too. A progressive file's
 scans (spectral selection, successive approximation: DC first and
 refinement, AC first and refinement with their end-of-band runs and
 correction bits, restart intervals inside any of them) build up each
@@ -18,17 +22,19 @@ COM segments are skipped, EXIF included; as imageio, no EXIF orientation
 is applied. What imageio refuses too raises a ``ValueError`` that names
 the format: arithmetic-coded lossless (SOF11), the hierarchical processes
 (SOF5-7, SOF13-15), samples of other than 8 bits, a lossless file that
-libjpeg reads as YCbCr (a JFIF marker or an Adobe transform other than 0:
-libjpeg-turbo has no lossless colour conversion), and a file that ends
-inside its entropy-coded data (ROADMAP Queue 1, item 23). Layouts the
-decoder does not take (2 or 4 components, sampling factors beyond 2, a
-subsampled lossless file) raise one that names ROADMAP Queue 1, item 24.
+libjpeg reads as YCbCr or YCCK (a JFIF marker or an Adobe transform other
+than 0: libjpeg-turbo has no lossless colour conversion), 2 or more than 4
+components (Pillow maps none to a mode), sampling factors outside 1-4, a
+ratio to the largest that is not whole (libjpeg-turbo: "fractional
+sampling not implemented") or more than 10 blocks in an MCU, and a file
+that ends inside its entropy-coded data (ROADMAP Queue 1, item 23).
 
 The pixels are libjpeg-turbo's under its defaults: the integer "islow"
 inverse DCT (``jidctint.c``), fancy (triangle) upsampling of 2x chroma
 (``jdsample.c``: h2v1 and h2v2 only on planes wider than 2 samples, box
-replication otherwise; h1v2 always) and the fixed-point YCbCr -> RGB
-tables of ``jdcolor.c``, so they equal PIL's.
+replication otherwise; h1v2 always; every other whole ratio, and every
+ratio of a lossless frame, by replication, ``int_upsample``) and the
+fixed-point YCbCr -> RGB tables of ``jdcolor.c``, so they equal PIL's.
 
 The Huffman decode is the one sequential part. It reads each restart
 interval's unstuffed bytes through 64-bit windows (one per byte offset,
@@ -62,7 +68,6 @@ from array import array
 import numpy as np
 
 _ITEM = "ROADMAP Queue 1, item 23"  # what imageio refuses too
-_LAYOUTS = "ROADMAP Queue 1, item 24"  # what the decoder does not take yet
 # zigzag position k -> natural (row-major) index of the 8x8 block
 _ZIGZAG = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
@@ -92,7 +97,8 @@ def is_jpeg(head: bytes) -> bool:
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """Decode a JPEG file: (h, w, 3) uint8 RGB, or (h, w) for greyscale."""
+    """Decode a JPEG file: (h, w, 3) uint8 RGB, (h, w, 4) CMYK or (h, w)
+    greyscale."""
     with open(path, "rb") as f:
         return decode_jpeg(f.read(), path)
 
@@ -101,13 +107,6 @@ def _refuse(name, what):
     """A format that imageio (libjpeg-turbo) refuses too."""
     raise ValueError(f"{name}: unsupported JPEG format: {what}, which imageio (libjpeg-turbo, "
                      f"the JAX package's reader) refuses too ({_ITEM})")
-
-
-def _not_yet(name, what):
-    """A layout the decoder does not take, which imageio may read."""
-    raise ValueError(f"{name}: unsupported JPEG layout: {what}. The port decodes 1 or 3 "
-                     f"components at sampling factors 1 or 2; the JAX package reads this "
-                     f"file through imageio ({_LAYOUTS})")
 
 
 @functools.lru_cache(maxsize=64)
@@ -303,16 +302,18 @@ def idct_islow(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
     return _RANGE_LIMIT[out & 1023]
 
 
-def _upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
-    """libjpeg-turbo's upsampling of a (h, w) component plane by fh x fv
-    (each 1 or 2): fancy (triangle, edge-replicated) for h2v1 and h2v2 on
-    planes wider than 2 samples and for h1v2, box replication otherwise."""
+def _upsample(plane: np.ndarray, fh: int, fv: int, fancy: bool = True) -> np.ndarray:
+    """libjpeg-turbo's upsampling of a (h, w) component plane by whole
+    ratios fh x fv: fancy (triangle, edge-replicated) for h2v1 and h2v2 on
+    planes wider than 2 samples and for h1v2, replication otherwise and
+    for every ratio where ``fancy`` is off (a lossless frame)."""
     if fh == 1 and fv == 1:
         return plane
     x = plane.astype(np.int32)
     h, w = x.shape
-    if fh == 2 and w <= 2:  # jdsample.c: h2v1_upsample / h2v2_upsample
-        return np.repeat(np.repeat(plane, fv, axis=0), 2, axis=1)
+    if not fancy or (fh, fv) not in ((2, 1), (1, 2), (2, 2)) or (fh == 2 and w <= 2):
+        # jdsample.c: h2v1_upsample, h2v2_upsample, int_upsample
+        return np.repeat(np.repeat(plane, fv, axis=0), fh, axis=1)
     if fv == 2:
         above = np.concatenate([x[:1], x[:-1]], axis=0)
         below = np.concatenate([x[1:], x[-1:]], axis=0)
@@ -364,8 +365,8 @@ class _Frame:
         precision, self.h, self.w, n = struct.unpack(">BHHB", body[:6])
         if precision != 8:
             _refuse(name, f"{precision}-bit samples")
-        if n not in (1, 3):
-            _not_yet(name, f"{n} components")
+        if n not in (1, 3, 4):
+            _refuse(name, f"{n} components (Pillow maps no mode to them)")
         if self.h == 0 or self.w == 0:
             _refuse(name, "a height set by a DNL marker" if self.h == 0 else "width 0")
         self.progressive = marker in (0xC2, 0xCA)
@@ -378,34 +379,42 @@ class _Frame:
             self.hs.append(hv >> 4)
             self.vs.append(hv & 15)
             self.tq.append(tq)
+        factors = list(zip(self.hs, self.vs))
+        if not all(1 <= f <= 4 for f in self.hs + self.vs):
+            _refuse(name, f"sampling factors {factors} (libjpeg takes 1 to 4)")
         if n == 1:  # a single component's MCU is one block whatever its factors
             self.hs, self.vs = [1], [1]
         self.hmax, self.vmax = max(self.hs), max(self.vs)
-        for h, v in zip(self.hs, self.vs):
-            if self.hmax not in (h, 2 * h) or self.vmax not in (v, 2 * v):
-                _not_yet(name, f"sampling factors {list(zip(self.hs, self.vs))} (the decoder "
-                               "upsamples by 1 or 2)")
-        if self.lossless and (self.hmax, self.vmax) != (1, 1):
-            _not_yet(name, f"a lossless frame at sampling factors "
-                           f"{list(zip(self.hs, self.vs))}")
+        if any(self.hmax % h or self.vmax % v for h, v in zip(self.hs, self.vs)):
+            _refuse(name, f"sampling factors {factors}, a ratio to the largest that is not "
+                          "whole (libjpeg-turbo: fractional sampling not implemented)")
         unit = 1 if self.lossless else 8  # a data unit: a sample or an 8x8 block
         self.mcux = -(-self.w // (unit * self.hmax))
         self.mcuy = -(-self.h // (unit * self.vmax))
         self.coefs = [array("h", bytes(2 * 64 * self.mcux * h * self.mcuy * v))
                       for h, v in zip(self.hs, self.vs)] \
             if allocate and not self.lossless else None
-        self.planes = [np.zeros((self.h, self.w), np.uint8) for _ in range(n)] \
+        self.planes = [np.zeros(self.comp_size(c)[::-1], np.uint8) for c in range(n)] \
             if allocate and self.lossless else None
         self.quant = [None] * n
         self.scanned = [False] * n
-        self.rgb = None  # 3 components: RGB or YCbCr, set at the first scan
+        self.space = None  # "grey", "rgb", "ycc", "cmyk" or "ycck", set at the first scan
 
     def comp_size(self, c):
         """(width, height) in samples of component c's plane."""
         return (-(-self.w * self.hs[c] // self.hmax), -(-self.h * self.vs[c] // self.vmax))
 
 
-def _scan_blocks(frame: _Frame, comps):
+def _mcu_units(frame: _Frame, comps, name):
+    """(component, dy, dx) of each data unit of an interleaved scan's MCU,
+    refused as libjpeg refuses more than 10 (``jdinput.c``)."""
+    units = [(c, dy, dx) for c in comps for dy in range(frame.vs[c]) for dx in range(frame.hs[c])]
+    if len(units) > 10:
+        _refuse(name, f"{len(units)} data units in an MCU (libjpeg takes at most 10)")
+    return units
+
+
+def _scan_blocks(frame: _Frame, comps, name):
     """(component, coefficient offset) of every block of a scan in order."""
     if len(comps) == 1:  # non-interleaved: the component's own blocks
         c = comps[0]
@@ -414,11 +423,7 @@ def _scan_blocks(frame: _Frame, comps):
         stride = frame.mcux * frame.hs[c]
         offs = ((np.arange(by)[:, None] * stride + np.arange(bx)[None, :]) * 64).ravel()
         return [(c, o) for o in offs.tolist()], 1
-    per_mcu = []
-    for c in comps:
-        for dy in range(frame.vs[c]):
-            for dx in range(frame.hs[c]):
-                per_mcu.append((c, dy, dx))
+    per_mcu = _mcu_units(frame, comps, name)
     my, mx = np.meshgrid(np.arange(frame.mcuy), np.arange(frame.mcux), indexing="ij")
     my, mx = my.ravel(), mx.ravel()
     cols = []
@@ -453,22 +458,29 @@ def _next_segment(data: bytes, pos: int, name: str):
     return marker, body, pos + seglen
 
 
-def _is_rgb(frame: _Frame, jfif: bool, adobe, name: str) -> bool:
-    """Whether a 3-component frame holds RGB, as libjpeg-turbo infers it
-    (``jdapimin.c``): a JFIF marker means YCbCr, else an Adobe marker's
-    transform (0: RGB), else the component ids ('R', 'G', 'B': RGB; a
-    lossless frame is RGB whatever its ids). libjpeg-turbo converts no
-    lossless YCbCr, so such a frame is refused."""
-    if jfif:
-        rgb = False
+def _colour_space(frame: _Frame, jfif: bool, adobe, name: str) -> str:
+    """A frame's colour space as libjpeg-turbo infers it (``jdapimin.c``):
+    1 component greyscale; 3 YCbCr under a JFIF marker, else RGB under an
+    Adobe transform 0 and YCbCr under another, else RGB for the component
+    ids 'R', 'G', 'B' or a lossless frame; 4 CMYK without an Adobe marker
+    or under transform 0, else YCCK. libjpeg-turbo converts no lossless
+    colour, so a lossless YCbCr or YCCK frame is refused."""
+    n = len(frame.ids)
+    if n == 1:
+        return "grey"
+    if n == 4:
+        space = "cmyk" if adobe in (None, 0) else "ycck"
+    elif jfif:
+        space = "ycc"
     elif adobe is not None:
-        rgb = adobe == 0
+        space = "rgb" if adobe == 0 else "ycc"
     else:
-        rgb = frame.lossless or frame.ids == [82, 71, 66]
-    if frame.lossless and not rgb:
-        _refuse(name, "a lossless frame read as YCbCr (a JFIF marker or an Adobe transform "
-                      "other than 0; libjpeg-turbo has no lossless colour conversion)")
-    return rgb
+        space = "rgb" if frame.lossless or frame.ids == [82, 71, 66] else "ycc"
+    if frame.lossless and space in ("ycc", "ycck"):
+        _refuse(name, f"a lossless frame read as {'YCbCr' if space == 'ycc' else 'YCCK'} (a "
+                      "JFIF marker or an Adobe transform other than 0; libjpeg-turbo has no "
+                      "lossless colour conversion)")
+    return space
 
 
 def probe_jpeg(data: bytes, name: str = "<bytes>"):
@@ -492,8 +504,7 @@ def probe_jpeg(data: bytes, name: str = "<bytes>"):
         elif marker in (0xD9, 0xDA):
             if frame is None:
                 raise ValueError(f"{name}: corrupt JPEG: no frame header before the scan")
-            if len(frame.ids) == 3:
-                _is_rgb(frame, jfif, adobe, name)
+            _colour_space(frame, jfif, adobe, name)
             return frame.h, frame.w, len(frame.ids)
 
 
@@ -552,8 +563,8 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
         elif marker == 0xDA:  # SOS
             if frame is None:
                 raise ValueError(f"{name}: corrupt JPEG: a scan before the frame header")
-            if len(frame.ids) == 3 and frame.rgb is None:  # libjpeg decides before a scan
-                frame.rgb = _is_rgb(frame, jfif, adobe, name)
+            if frame.space is None:  # libjpeg decides before a scan
+                frame.space = _colour_space(frame, jfif, adobe, name)
             if frame.lossless:
                 pos = _lossless_scan(data, pos, body, frame, htables, restart, name)
             else:
@@ -562,25 +573,28 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
         # APPn, COM and other segments: skipped
     if frame is None or not all(frame.scanned):
         raise ValueError(f"{name}: corrupt JPEG: no frame, or a component without a scan")
-    if frame.lossless:
-        if len(frame.planes) == 1:
-            return frame.planes[0]
-        return np.stack(frame.planes, axis=-1)  # RGB: _is_rgb refused the rest
     planes = []
     for c in range(len(frame.ids)):
         cw, ch = frame.comp_size(c)
-        bx, by = frame.mcux * frame.hs[c], frame.mcuy * frame.vs[c]
-        zz = np.frombuffer(frame.coefs[c], np.int16).reshape(-1, 64)
-        pix = np.concatenate([idct_islow(zz[i:i + 16384][:, _NATURAL], frame.quant[c])
-                              for i in range(0, zz.shape[0], 16384)])
-        plane = pix.reshape(by, bx, 8, 8).transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
-        plane = _upsample(plane[:ch, :cw], frame.hmax // frame.hs[c], frame.vmax // frame.vs[c])
+        if frame.lossless:
+            plane = frame.planes[c]
+        else:
+            bx, by = frame.mcux * frame.hs[c], frame.mcuy * frame.vs[c]
+            zz = np.frombuffer(frame.coefs[c], np.int16).reshape(-1, 64)
+            pix = np.concatenate([idct_islow(zz[i:i + 16384][:, _NATURAL], frame.quant[c])
+                                  for i in range(0, zz.shape[0], 16384)])
+            plane = pix.reshape(by, bx, 8, 8).transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
+        plane = _upsample(plane[:ch, :cw], frame.hmax // frame.hs[c], frame.vmax // frame.vs[c],
+                          fancy=not frame.lossless)
         planes.append(plane[:frame.h, :frame.w])
-    if len(planes) == 1:
+    if frame.space == "grey":
         return planes[0]
-    if frame.rgb:
-        return np.stack(planes, axis=-1)
-    return ycc_to_rgb(*planes)
+    if frame.space == "ycc":
+        return ycc_to_rgb(*planes)
+    if frame.space == "ycck":  # libjpeg's YCCK -> CMYK inverts R, G, B; Pillow inverts back
+        return np.concatenate([ycc_to_rgb(*planes[:3]), 255 - planes[3][..., None]], axis=-1)
+    out = np.stack(planes, axis=-1)
+    return 255 - out if frame.space == "cmyk" else out
 
 
 def _scan(data, pos, body, frame: _Frame, qtables, htables, conditioning, restart,
@@ -626,7 +640,7 @@ def _scan(data, pos, body, frame: _Frame, qtables, htables, conditioning, restar
         ac, acsym = _huffman_table(1, *htables[(1, ta)]) if need_ac else (None, None)
         tables[c] = (dc, ac, dcsym, acsym)
     segs, end = _segments(data, pos, name)
-    blocks, per_mcu = _scan_blocks(frame, comps)
+    blocks, per_mcu = _scan_blocks(frame, comps, name)
     step = restart * per_mcu if restart else len(blocks)
     n_int = -(-len(blocks) // step)
     if len(segs) < n_int:
@@ -1153,37 +1167,58 @@ def _undifference(d: np.ndarray, predictor: int, pt: int) -> np.ndarray:
 def _lossless_scan(data, pos, body, frame: _Frame, htables, restart, name) -> int:
     """Decode the lossless scan whose header is ``body`` (Ss the predictor,
     Al the point transform) and whose data starts at ``pos`` into the
-    frame's sample planes; returns the offset of the marker after it. As
-    ``jddiffct.c``, a restart interval must hold whole rows of MCUs (of
-    samples: the frame's factors are all 1)."""
+    frame's sample planes; returns the offset of the marker after it. A
+    data unit is one sample: an interleaved scan's MCU holds h x v samples
+    of each component, a scan of one component one sample. As
+    ``jddiffct.c``, a restart interval must hold whole rows of MCUs; each
+    component's rows are undifferenced over its own plane's width, the
+    MCUs' padding dropped."""
     ns = body[0]
     predictor, pt = body[1 + 2 * ns], body[3 + 2 * ns] & 15
     if not 1 <= predictor <= 7 or pt > 7:
         raise ValueError(f"{name}: corrupt JPEG: a lossless scan with predictor {predictor}, "
                          f"point transform {pt}")
-    comps, tables = [], []
+    comps, tables = [], {}
     for i in range(ns):
         cid, tt = body[1 + 2 * i:3 + 2 * i]
         if cid not in frame.ids:
             raise ValueError(f"{name}: corrupt JPEG: a scan names component {cid}")
-        comps.append(frame.ids.index(cid))
+        c = frame.ids.index(cid)
+        comps.append(c)
         if (0, tt >> 4) not in htables:
             raise ValueError(f"{name}: corrupt JPEG: a scan uses an undefined Huffman table")
-        tables.append(_huffman_table(0, *htables[(0, tt >> 4)]))
-        frame.scanned[comps[-1]] = True
-    h, w = frame.h, frame.w
-    if restart % w:
+        tables[c] = _huffman_table(0, *htables[(0, tt >> 4)])
+        frame.scanned[c] = True
+    if ns == 1:
+        units = [(comps[0], 0, 0)]
+        per_row, mcu_rows = frame.comp_size(comps[0])
+        hs, vs = {comps[0]: 1}, {comps[0]: 1}
+    else:
+        units = _mcu_units(frame, comps, name)
+        per_row, mcu_rows = frame.mcux, frame.mcuy
+        hs, vs = {c: frame.hs[c] for c in comps}, {c: frame.vs[c] for c in comps}
+    if restart % per_row:
         raise ValueError(f"{name}: corrupt JPEG: a lossless restart interval of {restart} "
-                         f"MCUs, not a multiple of the {w} in a row")
-    rows = restart // w if restart else h
+                         f"MCUs, not a multiple of the {per_row} in a row")
+    rows = restart // per_row if restart else mcu_rows
     segs, end = _segments(data, pos, name)
-    n_int = -(-h // rows)
+    n_int = -(-mcu_rows // rows)
     if len(segs) < n_int:
         raise ValueError(f"{name}: corrupt or truncated JPEG: {len(segs)} restart intervals "
                          f"where {n_int} are needed")
+    k = len(units)
     for j in range(n_int):
-        r0, r1 = j * rows, min(h, (j + 1) * rows)
-        d = _lossless_diffs(segs[j], (r1 - r0) * w * ns, tables, name).reshape(r1 - r0, w, ns)
-        for k, c in enumerate(comps):
-            frame.planes[c][r0:r1] = _undifference(d[:, :, k], predictor, pt)
+        m0, m1 = j * rows, min(mcu_rows, (j + 1) * rows)
+        d = _lossless_diffs(segs[j], (m1 - m0) * per_row * k, [tables[c] for c, _, _ in units],
+                            name).reshape(m1 - m0, per_row, k)
+        at = 0
+        for c in comps:
+            h, v = hs[c], vs[c]
+            cw, ch = frame.comp_size(c)
+            x = d[:, :, at:at + h * v].reshape(m1 - m0, per_row, v, h).transpose(0, 2, 1, 3)
+            x = x.reshape((m1 - m0) * v, per_row * h)[:, :cw]
+            at += h * v
+            r0 = m0 * v
+            if r0 < ch:
+                frame.planes[c][r0:r0 + x.shape[0]] = _undifference(x, predictor, pt)[:ch - r0]
     return end

@@ -18,7 +18,7 @@ import os
 import numpy as np
 
 from ..utils.resize import resize_area
-from .png import read_image
+from .png import image_format, read_image
 
 
 def _normalize(x):
@@ -80,6 +80,11 @@ def _load_images(basedir, factor):
         if not factor_applied:
             img = resize_area(img, img.shape[1] // factor, img.shape[0] // factor)
         imgs.append(img[..., :3])
+        if imgs[-1].shape != imgs[0].shape:  # the JAX package's np.stack fails on it too
+            path = os.path.join(img_dir, f)
+            raise ValueError(f"{path}: a {image_format(path)}, loaded as {imgs[-1].shape}, "
+                             f"where {files[0]} loads as {imgs[0].shape}: the images cannot be "
+                             "stacked (the JAX package's data/llff.py:79 fails on them too)")
     return np.stack(imgs)
 
 

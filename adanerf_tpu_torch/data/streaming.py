@@ -4,7 +4,8 @@ budget.
 Counterpart of ``adanerf_tpu/data/streaming.py``. A bounded LRU image
 store sits behind the same per-image indexing the fully loaded
 ``ViewCellDataset`` offers (``color_images[idx]``, ``depth_images[idx]``):
-a frame is decoded (``data/png.py``) on first touch, and the least
+a frame is decoded (``data/png.py``, as the fully loaded split reads it)
+on first touch, and the least
 recently used frames are dropped once the byte budget is reached, so the
 batch assembly, the renderer and the evaluation run unchanged on scenes of
 any size. The trainer's ``BatchPrefetcher`` thread overlaps the decodes
@@ -122,7 +123,7 @@ class StreamingViewCellDataset(ViewCellDataset):
 
     def _decode_color(self, index: int) -> np.ndarray:
         file_name = self.image_filenames[index]
-        return self._color_image(read_png(file_name), file_name)
+        return self._color_image(read_png(file_name, rgb=True), file_name)
 
     def _decode_depth(self, index: int) -> np.ndarray:
         src = self._depth_sources()[index]

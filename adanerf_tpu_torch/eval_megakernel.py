@@ -28,7 +28,7 @@ import os
 import numpy as np
 import torch
 
-from .data.png import read_image, write_png
+from .data.png import read_image, require_broadcast, write_png
 from .viewer import (build_kernel, build_renderer_from_export, frame_directions,
                      kernel_frame, orbit_poses)
 
@@ -140,6 +140,8 @@ def main(argv=None):
         img = rgb.clamp(0, 1).reshape(h, w, 3).cpu().numpy()
         row = {"name": name, "avg_samples": float(counts.float().mean())}
         if gt is not None:
+            require_broadcast(img, gt, os.path.join(args.scene_dir, fr["file_path"][2:] + ".png"),
+                              "the JAX tool's psnr (tools/eval_megakernel.py:135)")
             row["psnr_mk"] = psnr(img, gt)
         if rt32 is not None:
             ref = rt32.render_frame(pose, rot, dirs)[0].clamp(0, 1).reshape(h, w, 3).cpu().numpy()

@@ -20,7 +20,9 @@ square-diff and FLIP frame sequences are written as
 ``{_diff,_square_diff,_flip}_frames/%05d.png``, what the JAX package writes
 when it has no video encoder. A JPEG frame in a format that imageio
 refuses too (hierarchical, arithmetic-coded lossless, 12-bit: ROADMAP
-Queue 1, item 23) is refused by name.
+Queue 1, item 23) is refused by name, and so is a frame that the JAX
+package cannot subtract from its render either (a greyscale or
+greyscale+alpha image).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from shutil import copyfile
 import numpy as np
 
 from ..data.camera import PredefinedCamera
-from ..data.png import check_image, read_image, write_png
+from ..data.png import check_image, read_image, require_broadcast, write_png
 from ..pipeline.keys import FSK
 from ..render import render_rays_chunked, render_video
 from ..utils import colormaps
@@ -239,11 +241,13 @@ def _write_frames(out_dir, name, frames):
         write_png(os.path.join(frame_dir, f"{i:05d}.png"), frame)
 
 
-def generate_video_data(ts, flags, reference_video, out_dir=None):
+def generate_video_data(ts, flags, reference_video, out_dir=None, files=None):
     """The ``cam_path`` camera path rendered against a reference video:
     per-frame metrics, the diff, square-diff and FLIP frame sequences and
     ``image_quality_video.{txt,csv}``. A frame of another size than the
-    run's is area-resized to it."""
+    run's is area-resized to it. ``files``, the frames' files where they
+    were read from a scene, names a frame that cannot be compared with the
+    render (a greyscale image, say), on which the JAX package fails too."""
     out_dir = out_dir or getattr(ts, 'outDir', ts.logDir)
     h, w = ts.h, ts.w
     chunk = ts.config_file.inferenceChunkSize
@@ -261,6 +265,9 @@ def generate_video_data(ts, flags, reference_video, out_dir=None):
         ref = ref[..., :3]
         if ref.shape[:2] != (h, w):
             ref = resize_area(ref, w, h)
+        if files is not None:
+            require_broadcast(test, ref, files[i], "the JAX package's videos evaluation "
+                              "(evaluation/evaluate.py:209, test - ref)")
 
         diff = np.abs(test - ref)
         q.mse.append(mse_fn(test, ref))
@@ -319,8 +326,10 @@ def evaluate(ts, reference_video, evaluations):
     if not hasattr(ts, 'outDir'):
         ts.outDir = ts.logDir
     videos = "videos" in evaluations and not ts.config_file.trainWithGTDepth
+    files = None
     if videos and reference_video is None:
         # read before any leg runs, so a refused frame (a progressive JPEG) stops the run early
+        files = reference_frame_files(ts.config_file.data)
         reference_video = load_reference_video(ts.config_file.data)
 
     if "opt" in evaluations and not ts.config_file.trainWithGTDepth:
@@ -335,7 +344,7 @@ def evaluate(ts, reference_video, evaluations):
 
     if videos and reference_video is not None:
         try:
-            generate_video_data(ts, evaluations, reference_video)
+            generate_video_data(ts, evaluations, reference_video, files=files)
         except FileNotFoundError:
             print("no cam_path.json — skipping video evaluation")
 

@@ -57,15 +57,22 @@ newest complete checkpoint and runs K3 to the leg's end, the fine leg
 through K3 a step, the export viewed through K1 and K2 by
 ``eval_megakernel --fp32-delta``; the arithmetic-coded and lossless
 fixtures and demo/llff_scene_ajpeg and demo/llff_scene_ljpeg against
-demo/llff_scene_jpeg's pixels and its conversion pin), and prints, as its
-last two lines,
+demo/llff_scene_jpeg's pixels and its conversion pin), reads every image
+the JAX package reads (phase 23: the PNG fixtures of every colour type,
+bit depth and interlace against both pinned readings, demo/mscene
+re-encoded as 16-bit and Adam7 PNG with its dataset arrays bit for bit and
+its dense run's losses beside two runs on the original, all through K3;
+the JPEG layout fixtures (4:1:1, CMYK, YCCK, subsampled lossless) and
+demo/llff_scene_411 converted against its pin and trained through K3), and
+prints, as its last two lines,
 a JSON line of per-kernel numbers (each kernel's ``widths`` and
 ``shapes`` too) and a JSON line
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, without those lines, when there is no CUDA device or any phase
 fails. Imports torch, numpy and the standard library besides the port
 itself (and, for phase 20, ``tests/torch_wide_export.py`` and
-``tests/torch_wide_gemm_check.py`` with the replay's layout helpers).
+``tests/torch_wide_gemm_check.py`` with the replay's layout helpers; for
+phase 23, ``tests/png_format_writer.py``).
 """
 
 from __future__ import annotations
@@ -193,6 +200,20 @@ PIPELINE_STALL_MIN = 0.25
 LLFF_AJPEG = os.path.join(ROOT, "demo", "llff_scene_ajpeg")
 LLFF_LJPEG = os.path.join(ROOT, "demo", "llff_scene_ljpeg")
 PROCESS_FIXTURES = [os.path.join(JPEG_FIXTURES, d) for d in ("arith", "lossless")]
+# phase 23: every image the JAX package reads. (a) the PNG fixtures
+# (tests/make_png_fixtures.py) against both pinned readings; demo/mscene
+# re-encoded losslessly by tests/png_format_writer.py, even-numbered frames
+# of each split as 16-bit RGB and odd ones as Adam7 RGB, its dataset arrays
+# bit for bit the original's, and dense_training.ini on it and twice on
+# demo/mscene for FORMAT_STEPS steps through K3; (b) the JPEG layouts of
+# ROADMAP item 24 (tests/make_jpeg_process_fixtures.py) and the 4:1:1
+# capture demo/llff_scene_411, converted against its pin and trained for
+# FORMAT_STEPS steps of the NDC dense ini through K3
+PNG_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "png")
+LAYOUT_FIXTURES = os.path.join(JPEG_FIXTURES, "layouts")
+LLFF_411 = os.path.join(ROOT, "demo", "llff_scene_411")
+LLFF_411_PINNED = os.path.join(ROOT, "tests", "torch_fixtures", "llff_411.json")
+FORMAT_STEPS = 8
 
 T0 = time.perf_counter()
 
@@ -1596,6 +1617,39 @@ def resume_jax_ndc_run(train, kernel, tmp, flags=("--bf16",)):
                 trained=trained, argv=argv)
 
 
+def dense_run(train, kernel, ini, scene, log_dir, steps, label, keep=False):
+    """``ini`` (a dense config, its NeRF unlocked) on ``scene`` for
+    ``steps`` steps in bf16 through K3, seed 0, without validation, render
+    or checkpoints. K3's launches are counted from 0 and must be ``steps``
+    forward and backward at K3_ROWS rows, and every loss finite. Returns
+    the run's numbers (with ``keep``, its state and losses too)."""
+    argv = ["-c", ini, "-data", scene, "-log", log_dir, "--bf16",
+            "--epochs", str(1 + steps), "--randomSeed", "0",
+            "--epochsLockWeightsBefore", "-1", "--epochsLockWeightsBefore", "-1",
+            "--epochsRender", "1000000", "--epochsValidate", "1000000",
+            "--epochsCheckpoint", "1000000", "--no-performEvaluation", "--verboseEvery", "2"]
+    kernel.forward_launches = kernel.backward_launches = 0
+    kernel.forward_rows = None
+    stats = train.main(argv)
+    launches, rows = (kernel.forward_launches, kernel.backward_launches), kernel.forward_rows
+    mse, k = stats["losses"][:, 1], max(1, steps // 4)
+    print(f"  {label} ({stats['state'].h}x{stats['state'].w}): K3 launches forward "
+          f"{launches[0]}, backward {launches[1]} ({steps} steps) at {rows} rows; step "
+          f"{float(np.median(stats['step_ms'])):.3f} ms (median); NeRF loss mean of the first "
+          f"{k} steps {float(mse[:k].mean()):.6f}, of the last {k} {float(mse[-k:].mean()):.6f}",
+          flush=True)
+    if launches != (steps, steps) or rows != K3_ROWS:
+        raise SystemExit(f"the {label} launched K3 {launches} times at {rows} rows")
+    if not np.isfinite(stats["losses"]).all():
+        raise SystemExit(f"the {label}'s losses are not finite")
+    out = dict(launches=launches, rows=rows, steps=steps,
+               step_ms_median=float(np.median(stats["step_ms"])),
+               loss_first=float(mse[:k].mean()), loss_last=float(mse[-k:].mean()))
+    if keep:
+        out.update(state=stats["state"], losses=stats["losses"])
+    return out
+
+
 def llff_leg(train, port_export, viewer, kernel, dev, tmp):
     """Phase 19: a real forward-facing capture end to end. (a) the JPEG
     decoder against imageio's pixels; (b) JPEG LLFF conversion; (c)
@@ -1617,30 +1671,10 @@ def llff_leg(train, port_export, viewer, kernel, dev, tmp):
     out["convert"], scene = convert_check(tmp)
 
     # (c) the dense NDC config on the JPEG capture (its NeRF unlocked)
-    steps = NDC_DENSE_STEPS
-    argv = ["-c", DENSE_NDC_INI, "-data", scene, "-log", os.path.join(tmp, "dense"), "--bf16",
-            "--epochs", str(1 + steps), "--randomSeed", "0",
-            "--epochsLockWeightsBefore", "-1", "--epochsLockWeightsBefore", "-1",
-            "--epochsRender", "1000000", "--epochsValidate", "1000000",
-            "--epochsCheckpoint", "1000000", "--no-performEvaluation", "--verboseEvery", "2"]
-    kernel.forward_launches = kernel.backward_launches = 0
-    kernel.forward_rows = None
-    stats = train.main(argv)
-    launches, rows = (kernel.forward_launches, kernel.backward_launches), kernel.forward_rows
-    mse, k = stats["losses"][:, 1], max(1, steps // 4)
-    print(f"  dense NDC run on the JPEG capture ({stats['state'].h}x{stats['state'].w}): K3 "
-          f"launches forward {launches[0]}, backward {launches[1]} ({steps} steps) at {rows} "
-          f"rows; step {float(np.median(stats['step_ms'])):.3f} ms (median); NeRF loss mean of "
-          f"the first {k} steps {float(mse[:k].mean()):.6f}, of the last {k} "
-          f"{float(mse[-k:].mean()):.6f}", flush=True)
-    if launches != (steps, steps) or rows != K3_ROWS:
-        raise SystemExit(f"the dense NDC run launched K3 {launches} times at {rows} rows")
-    if not (np.isfinite(stats["losses"]).all() and mse[-k:].mean() < mse[:k].mean()):
+    out["dense"] = dense_run(train, kernel, DENSE_NDC_INI, scene, os.path.join(tmp, "dense"),
+                             NDC_DENSE_STEPS, "dense NDC run on the JPEG capture")
+    if not out["dense"]["loss_last"] < out["dense"]["loss_first"]:
         raise SystemExit("the dense NDC run's loss did not fall")
-    out["dense"] = dict(launches=launches, rows=rows, steps=steps,
-                        step_ms_median=float(np.median(stats["step_ms"])),
-                        loss_first=float(mse[:k].mean()), loss_last=float(mse[-k:].mean()))
-    del stats
     torch.cuda.empty_cache()
 
     # (d) quality: resume the JAX run's checkpoint in the port, through K3
@@ -2201,6 +2235,133 @@ def jpeg_process_check(tmp):
         out[tag] = dict(decode_s=seconds, equal=same)
         out[tag]["convert"], _ = convert_check(tmp, capture, LLFF_PINNED, tag, factors=(1,))
     return out
+
+
+def png_fixture_check():
+    """Phase 23a: every PNG fixture (tests/torch_fixtures/png) decodes to
+    its pinned readings: imageio's array (shape, dtype, values) and the JAX
+    native loader's RGB bytes. Returns the numbers."""
+    from adanerf_tpu_torch.data.png import read_png
+    names = sorted(f[:-4] for f in os.listdir(PNG_FIXTURES) if f.endswith(".png"))
+    off, t = 0, time.perf_counter()
+    for name in names:
+        path = os.path.join(PNG_FIXTURES, name + ".png")
+        for rgb, pin in ((False, ".npy"), (True, ".rgb.npy")):
+            got, want = read_png(path, rgb=rgb), np.load(os.path.join(PNG_FIXTURES, name + pin))
+            off += got.size if (got.shape, got.dtype) != (want.shape, want.dtype) \
+                else int((got != want).sum())
+    ms = 1e3 * (time.perf_counter() - t) / (2 * len(names))
+    print(f"  PNG fixtures: {len(names)} files, both readings, {off} values off their pins "
+          f"({ms:.2f} ms a decode, host CPU)", flush=True)
+    if off or len(names) < 58:
+        raise SystemExit("the PNG decoder disagrees with its pinned readings")
+    return dict(files=len(names), values_off=off, decode_ms=ms)
+
+
+def reencoded_mscene(tmp):
+    """demo/mscene with every split's PNGs re-encoded losslessly by
+    tests/png_format_writer.py (even-numbered frames 16-bit RGB, odd ones
+    Adam7 RGB), the rest symlinked. Returns (the scene, host ms an image
+    of encoding, of decoding the copy, of decoding the original)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from png_format_writer import reencode
+    from adanerf_tpu_torch.data.png import read_png
+    scene = os.path.join(tmp, "mscene_png_formats")
+    os.makedirs(scene)
+    enc = dec = orig = 0.0
+    n = 0
+    for name in os.listdir(MSCENE_DATA):
+        src = os.path.join(MSCENE_DATA, name)
+        if name not in ("train", "val", "test"):
+            os.symlink(src, os.path.join(scene, name))
+            continue
+        os.makedirs(os.path.join(scene, name))
+        for i, f in enumerate(sorted(os.listdir(src))):
+            if not f.endswith(".png"):
+                os.symlink(os.path.join(src, f), os.path.join(scene, name, f))
+                continue
+            t = time.perf_counter()
+            img = read_png(os.path.join(src, f), rgb=True)
+            t1 = time.perf_counter()
+            with open(os.path.join(scene, name, f), "wb") as out:
+                out.write(reencode(img, "adam7" if i % 2 else "rgb16"))
+            t2 = time.perf_counter()
+            same = np.array_equal(read_png(os.path.join(scene, name, f), rgb=True), img)
+            orig, enc, dec, n = orig + t1 - t, enc + t2 - t1, dec + time.perf_counter() - t2, n + 1
+            if not same:
+                raise SystemExit(f"{name}/{f} re-encoded does not read back as the original")
+    return scene, n, 1e3 * enc / n, 1e3 * dec / n, 1e3 * orig / n
+
+
+def png_format_leg(train, kernel, tmp):
+    """Phase 23a: the PNG fixtures; demo/mscene re-encoded (16-bit RGB,
+    Adam7), its three splits' dataset arrays bit for bit the original's;
+    configs/dense_training.ini for FORMAT_STEPS steps through K3 on the
+    copy and twice on demo/mscene, the copy's per-step losses as close to
+    the original's first run as its second run is. Returns the numbers."""
+    out = {"fixtures": png_fixture_check()}
+    scene, n, enc_ms, dec_ms, orig_ms = reencoded_mscene(tmp)
+    print(f"  demo/mscene re-encoded: {n} PNGs (400x400; even-numbered 16-bit RGB, odd Adam7), "
+          f"host ms an image: encode {enc_ms:.1f}, decode the copy {dec_ms:.1f}, decode the "
+          f"original (8-bit RGB) {orig_ms:.1f}", flush=True)
+    out["reencoded"] = dict(images=n, encode_ms=enc_ms, decode_ms=dec_ms, original_decode_ms=orig_ms)
+    runs = {}
+    for tag, data in (("original", MSCENE_DATA), ("copy", scene), ("original_again", MSCENE_DATA)):
+        runs[tag] = dense_run(train, kernel, DENSE_INI, data, os.path.join(tmp, f"logs_{tag}"),
+                              FORMAT_STEPS, f"dense run on {tag}", keep=True)
+    splits = ("train_dataset", "valid_dataset", "test_dataset")
+    same = {sp: bool(np.array_equal(getattr(runs["original"]["state"], sp).color_images,
+                                    getattr(runs["copy"]["state"], sp).color_images))
+            for sp in splits}
+    base = runs["original"]["losses"]
+    spread = float(np.abs(runs["original_again"]["losses"] - base).max())
+    gap = float(np.abs(runs["copy"]["losses"] - base).max())
+    print(f"  dataset arrays of the copy equal demo/mscene's bit for bit: {same}", flush=True)
+    for tag in runs:
+        print(f"  per-step losses, {tag}: {runs[tag]['losses'].tolist()}", flush=True)
+    print(f"  the copy's losses differ from the original's by at most {gap:.3e}; the original's "
+          f"two runs by at most {spread:.3e}", flush=True)
+    if not all(same.values()) or gap > spread:
+        raise SystemExit("the re-encoded scene's arrays or losses differ from demo/mscene's")
+    for r in runs.values():
+        del r["state"]
+        r["losses"] = r["losses"].tolist()
+    out.update(runs=runs, arrays_equal=same, loss_gap=gap, loss_spread=spread)
+    return out
+
+
+def jpeg_layout_leg(train, kernel, tmp):
+    """Phase 23b: the JPEG layout fixtures against imageio's pixels (0
+    values off); demo/llff_scene_411 decoded (host ms an image) and
+    converted at -factor 1 against its pin (beside llff_jpeg.json's 4:2:0
+    capture), then the NDC dense ini on it for FORMAT_STEPS steps through
+    K3. Returns the numbers."""
+    from adanerf_tpu_torch.data.jpeg import read_jpeg
+    names = sorted(f for f in os.listdir(LAYOUT_FIXTURES) if f.endswith(".jpg"))
+    off = 0
+    for name in names:
+        got = read_jpeg(os.path.join(LAYOUT_FIXTURES, name))
+        want = np.load(os.path.join(LAYOUT_FIXTURES, name[:-4] + ".npy"))
+        off += got.size if got.shape != want.shape else int((got != want).sum())
+    print(f"  {os.path.relpath(LAYOUT_FIXTURES, ROOT)}: {len(names)} files, {off} values off "
+          "imageio's", flush=True)
+    if off or len(names) < 30:
+        raise SystemExit("the JPEG decoder disagrees with imageio on the layout fixtures")
+    images = sorted(os.listdir(os.path.join(LLFF_411, "images")))
+    t = time.perf_counter()
+    decoded = [read_jpeg(os.path.join(LLFF_411, "images", f)) for f in images]
+    ms = 1e3 * (time.perf_counter() - t) / len(images)
+    print(f"  {os.path.relpath(LLFF_411, ROOT)}: {len(images)} images {decoded[0].shape} "
+          f"decoded, {ms:.1f} ms an image (host CPU)", flush=True)
+    convert, scene = convert_check(tmp, LLFF_411, LLFF_411_PINNED, "llff_411", factors=(1,))
+    with open(LLFF_PINNED) as f:
+        ref = json.load(f)["mean_psnr_db"]
+    print(f"  4:1:1 capture {convert['mean_psnr_vs_png_db']:.6f} dB against the 4:2:0 capture's "
+          f"{ref:.6f} dB (llff_jpeg.json)", flush=True)
+    dense = dense_run(train, kernel, DENSE_NDC_INI, scene, os.path.join(tmp, "dense_411"),
+                      FORMAT_STEPS, "dense NDC run on the 4:1:1 capture")
+    return dict(fixtures=len(names), values_off=off, decode_ms=ms, convert=convert,
+                llff_jpeg_psnr_db=ref, dense=dense)
 
 
 def videos_leg(port_evaluate, images_leg):
@@ -2981,6 +3142,22 @@ def main():
     print(f"  card: {card_state()}", flush=True)
     done("22", t)
 
+    t = time.perf_counter()
+    phase(f"23 every image the JAX package reads: the PNG fixtures, demo/mscene re-encoded as "
+          f"16-bit and Adam7 PNG and trained {FORMAT_STEPS} steps through K3 beside two runs on "
+          f"the original; the JPEG layout fixtures, demo/llff_scene_411 (4:1:1) converted and "
+          f"trained {FORMAT_STEPS} NDC steps through K3")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_formats_") as tmp:
+        formats = {"png": png_format_leg(train, NerfTrainKernel, tmp)}
+        torch.cuda.empty_cache()
+        formats["jpeg"] = jpeg_layout_leg(train, NerfTrainKernel, tmp)
+    torch.cuda.empty_cache()
+    formats["seconds"] = time.perf_counter() - t
+    print(json.dumps({"image_formats": formats}), flush=True)
+    print(smi, flush=True)
+    print(f"  card: {card_state()}", flush=True)
+    done("23", t)
+
     def k3_widths(way):  # the kernels line's K3 numbers at each width
         out = {}
         for w, v in widths.items():
@@ -3099,6 +3276,9 @@ def main():
         "llff_ndc_fine_rows": llff["quality"]["rows"],
         "pipeline_dense_relaunch_launches": pipeline["dense"]["k3_launches"][0][0],
         "pipeline_fine_launches": pipeline["fine"]["k3_launches"][0][0],
+        "png_formats_dense_launches": {r: v["launches"][0]
+                                       for r, v in formats["png"]["runs"].items()},
+        "llff_411_dense_launches": formats["jpeg"]["dense"]["launches"][0],
         "widths": k3_widths("fwd"), "shapes": k3_shapes("fwd")}, {
         "name": "nerf_train_backward", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/nerf_train.cu",
@@ -3133,6 +3313,9 @@ def main():
         "llff_ndc_fine_rows": llff["quality"]["rows"],
         "pipeline_dense_relaunch_launches": pipeline["dense"]["k3_launches"][0][1],
         "pipeline_fine_launches": pipeline["fine"]["k3_launches"][0][1],
+        "png_formats_dense_launches": {r: v["launches"][1]
+                                       for r, v in formats["png"]["runs"].items()},
+        "llff_411_dense_launches": formats["jpeg"]["dense"]["launches"][1],
         "widths": k3_widths("bwd"), "shapes": k3_shapes("bwd")}, {
         "name": "megakernel_dense", "route": "cuda",
         "source": "adanerf_tpu_torch/csrc/megakernel_dense.cu + adanerf_tpu_torch/csrc/megakernel.cuh",

@@ -16,6 +16,15 @@
  *   jpeg_process_writer twelve IN.raw OUT.jpg W H C LOSSLESS
  *     writes IN's 16-bit little-endian samples (< 4096) as a 12-bit file:
  *     SOF1 (LOSSLESS 0) or SOF3 (LOSSLESS 1, predictor 1).
+ *   jpeg_process_writer layout IN.raw OUT.jpg W H C SPACE ADOBE FACTORS
+ *                              QUALITY PROGRESSIVE ARITH PREDICTOR ROWS
+ *     writes IN's H x W x C 8-bit samples (C 1-4; 3 read as RGB, 4 as
+ *     CMYK) in the colour space SPACE (grey, ycc, rgb, cmyk, ycck or
+ *     unknown), with an Adobe marker where libjpeg writes one (ADOBE 1) or
+ *     none (ADOBE 0), per-component sampling factors FACTORS ("hv,hv,...",
+ *     e.g. "41,11,11" for 4:1:1), at QUALITY; PROGRESSIVE and ARITH 0/1;
+ *     PREDICTOR 1-7 makes a lossless (SOF3) file, 0 a DCT one; a restart
+ *     every ROWS MCU rows (0: none).
  */
 #include <stdio.h>
 #include <stdlib.h>
@@ -139,11 +148,56 @@ static int twelve(int argc, char **argv) {
   return 0;
 }
 
+static int layout(int argc, char **argv) {
+  if (argc != 15) return 2;
+  long size;
+  unsigned char *pix = read_all(argv[2], &size);
+  int w = atoi(argv[4]), h = atoi(argv[5]), comps = atoi(argv[6]);
+  if (size != (long)w * h * comps) { fprintf(stderr, "raw size\n"); return 1; }
+  const char *space = argv[7];
+  FILE *out = fopen(argv[3], "wb");
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr jerr;
+  start(&c, &jerr, out, w, h, comps);
+  c.in_color_space = comps == 1 ? JCS_GRAYSCALE : comps == 3 ? JCS_RGB
+                     : comps == 4 ? JCS_CMYK : JCS_UNKNOWN;
+  jpeg_set_defaults(&c);
+  J_COLOR_SPACE target = !strcmp(space, "grey") ? JCS_GRAYSCALE : !strcmp(space, "ycc") ? JCS_YCbCr
+                         : !strcmp(space, "rgb") ? JCS_RGB : !strcmp(space, "cmyk") ? JCS_CMYK
+                         : !strcmp(space, "ycck") ? JCS_YCCK : JCS_UNKNOWN;
+  jpeg_set_colorspace(&c, target);
+  if (!atoi(argv[8])) c.write_Adobe_marker = FALSE;
+  const char *f = argv[9];
+  for (int i = 0; i < c.num_components; i++) {
+    if (f[0] < '1' || f[0] > '4' || f[1] < '1' || f[1] > '4') { fprintf(stderr, "factors\n"); return 1; }
+    c.comp_info[i].h_samp_factor = f[0] - '0';
+    c.comp_info[i].v_samp_factor = f[1] - '0';
+    f += 2;
+    if (*f == ',') f++;
+  }
+  jpeg_set_quality(&c, atoi(argv[10]), TRUE);
+  if (atoi(argv[11])) jpeg_simple_progression(&c);
+  c.arith_code = atoi(argv[12]) ? TRUE : FALSE;
+  if (atoi(argv[13])) jpeg_enable_lossless(&c, atoi(argv[13]), 0);
+  c.restart_in_rows = atoi(argv[14]);
+  jpeg_start_compress(&c, TRUE);
+  while (c.next_scanline < c.image_height) {
+    JSAMPROW row = pix + (long)c.next_scanline * w * comps;
+    jpeg_write_scanlines(&c, &row, 1);
+  }
+  jpeg_finish_compress(&c);
+  jpeg_destroy_compress(&c);
+  fclose(out);
+  free(pix);
+  return 0;
+}
+
 int main(int argc, char **argv) {
   int rc = 2;
   if (argc > 1 && strcmp(argv[1], "arith") == 0) rc = arith(argc, argv);
   else if (argc > 1 && strcmp(argv[1], "lossless") == 0) rc = lossless(argc, argv);
   else if (argc > 1 && strcmp(argv[1], "twelve") == 0) rc = twelve(argc, argv);
+  else if (argc > 1 && strcmp(argv[1], "layout") == 0) rc = layout(argc, argv);
   if (rc == 2) fprintf(stderr, "usage: see the comment at the top of the source\n");
   return rc;
 }

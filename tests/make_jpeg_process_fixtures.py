@@ -19,16 +19,29 @@ rewrites, from files and seeds in the repo:
   ``LOSSLESS`` below, seeded images as SOF3 at predictors 1-7, point
   transforms 0 and 2, greyscale and RGB, with and without restarts;
 * ``tests/torch_fixtures/jpeg/refused/twelve_sof{1,3}.jpg``: 12-bit files
-  (extended sequential and lossless), which imageio refuses;
+  (extended sequential and lossless), which imageio refuses, and
+  ``two_components.jpg`` (2 components, colour space unknown), which
+  Pillow refuses;
+* ``tests/torch_fixtures/jpeg/layouts/<name>.jpg`` and ``<name>.npy``:
+  ``LAYOUTS`` below, seeded images in the layouts of ROADMAP item 24:
+  sampling factors of 3 and 4 (4:1:1, 4:1:0, 1x4, 3x1, 3x2, mixed
+  ratios), 4 components (CMYK and YCCK, with and without an Adobe marker,
+  and PIL's own CMYK file) and lossless frames with subsampling, through
+  the sequential, progressive, arithmetic-coded and lossless processes;
 * ``demo/llff_scene_ajpeg/``: ``demo/llff_scene_jpeg``'s 32 images
   transcoded, the even-numbered ones to SOF9 and the odd-numbered ones to
   SOF10 (each keeping its source's restart interval), so they decode to
   exactly the source's pixels;
 * ``demo/llff_scene_ljpeg/``: the same 32 images' decoded pixels written as
   SOF3 RGB at predictors cycling 1-7 (every third with a restart every 8
-  rows), so they decode to exactly those pixels.
+  rows), so they decode to exactly those pixels;
+* ``demo/llff_scene_411/``: the same 32 images' decoded pixels re-encoded
+  at quality 95 and 4:1:1 (luma 4x1, chroma 1x1), and its pins
+  ``tests/torch_fixtures/llff_411.json``: imageio's decode against the PNG
+  capture's images, and the JAX package's ``convert_llff.py -factor 1`` of
+  it against the PNG capture's conversion.
 
-Both captures get a copy of the scene's ``poses_bounds.npy``. The tests
+Each capture gets a copy of the scene's ``poses_bounds.npy``. The tests
 read the committed files only.
 
   python tests/make_jpeg_process_fixtures.py --time
@@ -43,6 +56,7 @@ decode checked against imageio's pixels.
 from __future__ import annotations
 
 import glob
+import json
 import os
 import shutil
 import subprocess
@@ -63,6 +77,9 @@ REFUSED_DIR = os.path.join(FIXTURES, "refused")
 LLFF_JPEG = os.path.join(ROOT, "demo", "llff_scene_jpeg")
 LLFF_AJPEG = os.path.join(ROOT, "demo", "llff_scene_ajpeg")
 LLFF_LJPEG = os.path.join(ROOT, "demo", "llff_scene_ljpeg")
+LLFF_411 = os.path.join(ROOT, "demo", "llff_scene_411")
+LAYOUTS_DIR = os.path.join(FIXTURES, "layouts")
+PINNED_411 = os.path.join(ROOT, "tests", "torch_fixtures", "llff_411.json")
 
 # name -> (height, width, channels, PIL's save options for the Huffman
 # source, progressive, restart interval in MCUs, DAC (L, U, Kx))
@@ -96,6 +113,40 @@ LOSSLESS = {
     "l5_grey_1x1": (1, 1, 1, 5, 0, 0),
 }
 TWELVE = {"twelve_sof1": 0, "twelve_sof3": 1}
+# name -> (height, width, channels, colour space, Adobe marker, sampling
+# factors, quality, progressive, arithmetic, lossless predictor (0: DCT),
+# restart MCU rows); 3 channels are RGB, 4 CMYK, as the writer reads them
+LAYOUTS = {
+    "y411_q90_29x37": (29, 37, 3, "ycc", 1, "41,11,11", 90, 0, 0, 0, 0),
+    "y410_q85_37x29": (37, 29, 3, "ycc", 1, "42,11,11", 85, 0, 0, 0, 0),
+    "y141_q90_33x17": (33, 17, 3, "ycc", 1, "14,11,11", 90, 0, 0, 0, 0),
+    "y311_q80_29x37": (29, 37, 3, "ycc", 1, "31,11,11", 80, 0, 0, 0, 0),
+    "y321_q90_37x29_restart": (37, 29, 3, "ycc", 1, "32,11,11", 90, 0, 0, 0, 1),
+    "y421_q90_29x37": (29, 37, 3, "ycc", 1, "41,21,11", 90, 0, 0, 0, 0),
+    "ymixed_q90_29x37": (29, 37, 3, "ycc", 1, "21,12,11", 90, 0, 0, 0, 0),
+    "y411_q90_9x2": (9, 2, 3, "ycc", 1, "41,11,11", 90, 0, 0, 0, 0),
+    "y411_q90_9x5": (9, 5, 3, "ycc", 1, "41,11,11", 90, 0, 0, 0, 0),
+    "y411_q90_1x1": (1, 1, 3, "ycc", 1, "41,11,11", 90, 0, 0, 0, 0),
+    "grey41_q90_29x37": (29, 37, 1, "grey", 1, "41", 90, 0, 0, 0, 0),
+    "yp411_q90_29x37": (29, 37, 3, "ycc", 1, "41,11,11", 90, 1, 0, 0, 0),
+    "yp141_q85_33x17_restart": (33, 17, 3, "ycc", 1, "14,11,11", 85, 1, 0, 0, 2),
+    "ya411_q90_29x37": (29, 37, 3, "ycc", 1, "41,11,11", 90, 0, 1, 0, 0),
+    "yap410_q90_37x29": (37, 29, 3, "ycc", 1, "42,11,11", 90, 1, 1, 0, 0),
+    "cmyk_q90_17x33": (17, 33, 4, "cmyk", 1, "11,11,11,11", 90, 0, 0, 0, 0),
+    "cmyk_noadobe_q90_17x33": (17, 33, 4, "cmyk", 0, "11,11,11,11", 90, 0, 0, 0, 0),
+    "cmyk411_q85_29x37": (29, 37, 4, "cmyk", 1, "41,11,11,11", 85, 0, 0, 0, 0),
+    "cmyka_q90_17x33": (17, 33, 4, "cmyk", 1, "21,11,11,21", 90, 0, 1, 0, 0),
+    "ycck_q90_17x33": (17, 33, 4, "ycck", 1, "22,11,11,22", 90, 0, 0, 0, 0),
+    "ycck_noadobe_q90_17x33": (17, 33, 4, "ycck", 0, "22,11,11,22", 90, 0, 0, 0, 0),
+    "yccp411_q85_29x37": (29, 37, 4, "ycck", 1, "41,11,11,41", 85, 1, 0, 0, 0),
+    "yccap_q90_37x29_restart": (37, 29, 4, "ycck", 1, "22,11,11,22", 90, 1, 1, 0, 1),
+    "l1_rgb22_29x37": (29, 37, 3, "rgb", 1, "22,11,11", 100, 0, 0, 1, 0),
+    "l3_rgb21_37x29_restart": (37, 29, 3, "rgb", 1, "21,11,11", 100, 0, 0, 3, 2),
+    "l7_rgb41_29x37": (29, 37, 3, "rgb", 1, "41,11,11", 100, 0, 0, 7, 0),
+    "l4_rgb12_33x17": (33, 17, 3, "rgb", 1, "12,11,11", 100, 0, 0, 4, 0),
+    "l2_rgb_g22_29x37": (29, 37, 3, "rgb", 1, "11,22,11", 100, 0, 0, 2, 3),
+    "l1_cmyk22_17x33": (17, 33, 4, "cmyk", 1, "22,11,11,22", 100, 0, 0, 1, 0),
+}
 
 
 def libjpeg() -> str:
@@ -151,6 +202,72 @@ def twelve(exe: str, tmp: str, img: np.ndarray, lossless_: int) -> bytes:
                     str(lossless_)], check=True)
     with open(dst, "rb") as f:
         return f.read()
+
+
+def layout_image(h: int, w: int, c: int, seed: int) -> np.ndarray:
+    """A seeded image of 1-4 channels (a 4th from another seed)."""
+    img = seeded_image(h, w, 3, seed)
+    if c == 4:
+        img = np.concatenate([img, seeded_image(h, w, 3, seed + 7)[..., 2:]], axis=-1)
+    return img[..., 0] if c == 1 else np.ascontiguousarray(img[..., :c])
+
+
+def layout(exe: str, tmp: str, img: np.ndarray, space: str, adobe: int, factors: str,
+           quality: int, progressive: int, arith_: int, predictor: int, rows: int) -> bytes:
+    raw, dst = os.path.join(tmp, "src.raw"), os.path.join(tmp, "dst.jpg")
+    np.ascontiguousarray(img).tofile(raw)
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    subprocess.run([exe, "layout", raw, dst, str(w), str(h), str(c), space, str(adobe), factors,
+                    str(quality), str(progressive), str(arith_), str(predictor), str(rows)],
+                   check=True)
+    with open(dst, "rb") as f:
+        return f.read()
+
+
+def write_layouts(exe: str, tmp: str):
+    import io
+
+    from PIL import Image
+    os.makedirs(LAYOUTS_DIR, exist_ok=True)
+    for seed, (name, (h, w, c, *options)) in enumerate(sorted(LAYOUTS.items())):
+        write_case(os.path.join(LAYOUTS_DIR, name + ".jpg"),
+                   layout(exe, tmp, layout_image(h, w, c, seed + 100), *options))
+    buf = io.BytesIO()  # PIL's own CMYK file (an Adobe marker, transform 0)
+    Image.fromarray(layout_image(23, 19, 4, 99), "CMYK").save(buf, "JPEG", quality=90)
+    write_case(os.path.join(LAYOUTS_DIR, "cmyk_pil_q90_23x19.jpg"), buf.getvalue())
+    with open(os.path.join(REFUSED_DIR, "two_components.jpg"), "wb") as f:
+        f.write(layout(exe, tmp, layout_image(9, 7, 2, 98), "unknown", 0, "11,11", 90, 0, 0, 0,
+                       0))
+
+
+def write_411_capture(exe: str, tmp: str):
+    """``demo/llff_scene_411`` and its pins."""
+    import imageio.v2 as imageio
+    from make_progressive_fixtures import LLFF_PNG, converted_psnr, psnr
+    shutil.rmtree(LLFF_411, ignore_errors=True)
+    os.makedirs(os.path.join(LLFF_411, "images"))
+    shutil.copy(os.path.join(LLFF_JPEG, "poses_bounds.npy"), LLFF_411)
+    psnrs = []
+    for path in sorted(glob.glob(os.path.join(LLFF_JPEG, "images", "*.jpg"))):
+        out = os.path.join(LLFF_411, "images", os.path.basename(path))
+        with open(out, "wb") as f:
+            f.write(layout(exe, tmp, imageio.imread(path), "ycc", 1, "41,11,11", 95, 0, 0, 0, 0))
+        png = os.path.join(LLFF_PNG, "images", os.path.basename(path)[:-4] + ".png")
+        psnrs.append(psnr(imageio.imread(out), imageio.imread(png)[..., :3]))
+    mean, n = converted_psnr(LLFF_411)
+    with open(PINNED_411, "w") as f:
+        json.dump({
+            "what": "demo/llff_scene_411 (demo/llff_scene_jpeg's 32 images re-encoded at quality "
+                    "95, 4:1:1, tests/make_jpeg_process_fixtures.py): decode_mean_psnr_db, the "
+                    "mean PSNR (dB) of imageio's decode of the 32 images against demo/"
+                    "llff_scene's PNG images; mean_psnr_db, the mean PSNR over the 36 split "
+                    "images (train 28, val 4, test 4) of the JAX package's convert_llff.py "
+                    "-factor 1 on it against demo/llff_scene's; tests/test_torch_jpeg_layouts.py "
+                    "holds the port to both on the CPU and chip_smoke.py phase 23 on the card",
+            "decode_mean_psnr_db": float(np.mean(psnrs)), "decoded_images": len(psnrs),
+            "mean_psnr_db": mean, "images": n, "bar_db": 0.01}, f, indent=2)
+        f.write("\n")
 
 
 def write_fixtures(exe: str, tmp: str):
@@ -240,3 +357,5 @@ if __name__ == "__main__":
         else:
             write_fixtures(exe, tmp)
             write_captures(exe, tmp)
+            write_layouts(exe, tmp)
+            write_411_capture(exe, tmp)

@@ -93,14 +93,14 @@ def write_llff_scene():
     return float(np.mean(psnrs)), len(psnrs)
 
 
-def converted_psnr():
-    """The JAX package's ``convert_llff.py -factor 1`` of the progressive
-    capture (imageio decodes it) against demo/llff_scene's split images:
-    (mean PSNR, number of images)."""
+def converted_psnr(capture: str = LLFF_PJPEG):
+    """The JAX package's ``convert_llff.py -factor 1`` of a JPEG capture
+    (the progressive one by default; imageio decodes it) against
+    demo/llff_scene's split images: (mean PSNR, number of images)."""
     from PIL import Image
     with tempfile.TemporaryDirectory() as tmp:
-        d = os.path.join(tmp, "llff_scene_pjpeg")
-        shutil.copytree(LLFF_PJPEG, d)
+        d = os.path.join(tmp, os.path.basename(capture))
+        shutil.copytree(capture, d)
         subprocess.run([sys.executable, os.path.join(ROOT, "convert_llff.py"), "-dir", d,
                         "-factor", "1"], cwd=ROOT, check=True, capture_output=True,
                        env=dict(os.environ, ADANERF_PLATFORM="cpu", JAX_PLATFORMS="cpu"))

@@ -2,7 +2,9 @@
 runs it on the GPU has no jax, optax, imageio, matplotlib, tqdm, OpenCV,
 PIL or pandas, and modules of adanerf_tpu import jax indirectly
 (adanerf_tpu/platform.py, the package __init__ files), matplotlib
-(adanerf_tpu/utils/saveimage.py) or cv2 (adanerf_tpu/evaluation/iw_ssim.py)."""
+(adanerf_tpu/utils/saveimage.py) or cv2 (adanerf_tpu/evaluation/iw_ssim.py).
+The same holds for tests/png_format_writer.py, which chip_smoke.py
+imports."""
 
 import ast
 import os
@@ -10,12 +12,13 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WRITER = os.path.join(ROOT, "tests", "png_format_writer.py")
 FORBIDDEN = ("jax", "jaxlib", "adanerf_tpu", "optax", "imageio", "matplotlib", "tqdm", "cv2",
              "pandas", "PIL")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), WRITER]
     for base, _dirs, names in os.walk(os.path.join(ROOT, "adanerf_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -49,7 +52,7 @@ def test_no_forbidden_imports(path):
 # where there is no jax, imageio or PIL
 TOOLS = ["eval_megakernel", "precision_study", "probe_threshold", "probe_oracle_ranks",
          "diagnose_tscene", "make_synthetic_scene", "make_llff_scene", "utils.synthetic",
-         "supervise_train", "pipelines", "data.jpeg"]
+         "supervise_train", "pipelines", "data.jpeg", "data.png"]
 BLOCKER = """
 import importlib.abc, sys
 class Block(importlib.abc.MetaPathFinder):
@@ -72,5 +75,15 @@ def test_tools_import_without_the_jax_stack(module):
     assert path in _port_files()
     proc = subprocess.run([sys.executable, "-c", BLOCKER.format(forbidden=set(FORBIDDEN),
                                                                 module=module)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_png_format_writer_imports_without_the_jax_stack():
+    import subprocess
+    import sys
+    code = BLOCKER.split("import importlib\nimportlib")[0] + \
+        f"sys.path.insert(0, {os.path.dirname(WRITER)!r})\nimport png_format_writer\n"
+    proc = subprocess.run([sys.executable, "-c", code.format(forbidden=set(FORBIDDEN))],
                           cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -83,28 +83,35 @@ def test_every_filter_type_unfilters():
     np.testing.assert_array_equal(got, img)
 
 
-def _png(width, height, depth, colour, interlace=0):
+def _png(width, height, depth, colour, interlace=0, filtering=0, bad_crc=False):
     import struct
 
     def chunk(kind, body):
         return struct.pack(">I", len(body)) + kind + body + struct.pack(
             ">I", zlib.crc32(kind + body) & 0xffffffff)
-    ihdr = struct.pack(">IIBBBBB", width, height, depth, colour, 0, 0, interlace)
+    ihdr = struct.pack(">IIBBBBB", width, height, depth, colour, 0, filtering, interlace)
     data = zlib.compress(b"\0" * (height * (1 + width * 8)))
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", data)
-            + chunk(b"IEND", b""))
+    idat = chunk(b"IDAT", data)
+    if bad_crc:
+        idat = idat[:-1] + bytes([idat[-1] ^ 1])
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + idat + chunk(b"IEND", b""))
 
 
+# the refusals that remain now that every format the PNG specification
+# allows decodes: (IHDR fields, a broken CRC, what the message names)
 @pytest.mark.parametrize("depth,colour,interlace,words", [
-    (8, 0, 0, "colour type 0 (greyscale)"),
-    (8, 3, 0, "colour type 3 (palette)"),
-    (16, 2, 0, "bit depth 16"),
-    (8, 2, 1, "interlace 1"),
+    (16, 3, 0, "bit depth 16, colour type 3 (palette)"),
+    (4, 2, 0, "bit depth 4, colour type 2 (RGB)"),
+    (8, 2, 2, "interlace 2"),
+    (8, 2, "crc", "the CRC of its 'IDAT' chunk does not match"),
 ])
 def test_other_formats_raise_naming_them(tmp_path, depth, colour, interlace, words):
     path = tmp_path / "x.png"
-    path.write_bytes(_png(4, 3, depth, colour, interlace))
-    with pytest.raises(ValueError, match="unsupported PNG format") as err:
+    if interlace == "crc":
+        path.write_bytes(_png(4, 3, depth, colour, bad_crc=True))
+    else:
+        path.write_bytes(_png(4, 3, depth, colour, interlace))
+    with pytest.raises(ValueError, match="PNG") as err:
         read_png(str(path))
     assert words in str(err.value)
 
